@@ -1,0 +1,84 @@
+"""High-level CKKS facade: the subset of ``ppqsflhe_tpu.ckks.scheme``
+that the server's aggregation round and its set-up need (keygen,
+rekey_gen, encrypt_values, decrypt, add, mult_scalar with its rescale, and
+re_encrypt in INDCPA mode). Operations run eagerly on the device their
+tensors live on; the scheme's ``device`` is where it creates new ones.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import eval as ev
+from . import rlwe
+from ..core.modarith import modadd
+from .encoding import Encoder
+from .params import CkksContext, CkksParams
+from .types import Ciphertext, KeySwitchKey, Plaintext, PublicKey, SecretKey
+
+
+class CkksScheme:
+    def __init__(self, params: CkksParams, device="cpu"):
+        self.params = params
+        self.device = torch.device(device)
+        self.ctx = CkksContext(params)
+        self.encoder = Encoder(params.n, params.slots or params.n // 2)
+
+    # -- encoding -----------------------------------------------------------
+
+    def make_plaintext(self, values, nlimbs: int | None = None,
+                       scale: float | None = None) -> Plaintext:
+        """One real vector, or a list of them (→ a batched plaintext), to
+        eval-domain residues over the first ``nlimbs`` Q limbs."""
+        l = nlimbs or self.params.num_q
+        scale = self.params.scale if scale is None else scale
+        batched = isinstance(values, (list, tuple))
+        coeffs = self.encoder.encode_batch(values if batched else [values], scale)
+        rns = self.encoder.to_rns_batch(coeffs, self.ctx.moduli_qp[:l])   # (B, l, n)
+        data = torch.as_tensor(rns.view(np.int64), device=self.device)
+        data = self.ctx.ntt(data if batched else data[0], self.ctx.q_idx(l))
+        return Plaintext(data=data, scale=scale)
+
+    # -- keys ---------------------------------------------------------------
+
+    def keygen(self, gen: torch.Generator) -> tuple[SecretKey, PublicKey]:
+        return rlwe.keygen(self.ctx, gen, self.device)
+
+    def rekey_gen(self, sk_from: SecretKey, pk_to: PublicKey,
+                  gen: torch.Generator) -> KeySwitchKey:
+        """Proxy re-encryption key A→B from A's secret and B's public key
+        (INDCPA PRE)."""
+        L = self.params.num_q
+        return ev.keyswitch_key_gen(self.ctx, sk_from.s_eval[:L], gen, pk_to)
+
+    # -- encrypt / decrypt --------------------------------------------------
+
+    def encrypt(self, pk: PublicKey, pt: Plaintext, gen: torch.Generator) -> Ciphertext:
+        return rlwe.encrypt(self.ctx, pk, pt, gen)
+
+    def encrypt_values(self, pk: PublicKey, values, gen: torch.Generator,
+                       nlimbs: int | None = None) -> Ciphertext:
+        return self.encrypt(pk, self.make_plaintext(values, nlimbs), gen)
+
+    def decrypt(self, sk: SecretKey, ct: Ciphertext, num: int | None = None) -> np.ndarray:
+        return rlwe.decrypt(self.ctx, sk, ct, self.encoder, num)
+
+    # -- homomorphic ops ----------------------------------------------------
+
+    def add(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        return ev.add(self.ctx, ct1, ct2)
+
+    def mult_scalar(self, ct: Ciphertext, c: float) -> Ciphertext:
+        return ev.mult_scalar(self.ctx, ct, c)
+
+    # -- PRE ----------------------------------------------------------------
+
+    def re_encrypt(self, ct: Ciphertext, rekey: KeySwitchKey) -> Ciphertext:
+        """changeCipherDomain in INDCPA PREMode: one key switch of c1, with
+        its d0 added to c0. Batched ciphertexts switch in one call."""
+        l = ct.nlimbs
+        q, _, _ = self.ctx.limb_consts(self.ctx.q_idx(l), ct.data.device)
+        d0, d1 = ev.keyswitch(self.ctx, ct.data[..., 1, :, :], rekey, l)
+        out = torch.stack([modadd(ct.data[..., 0, :, :], d0, q), d1], dim=-3)
+        return Ciphertext(data=out, scale=ct.scale)

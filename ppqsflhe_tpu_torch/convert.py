@@ -1,0 +1,87 @@
+"""Carry state between the JAX package and the port.
+
+Everything crosses as numpy arrays and plain Python values, so this module
+imports neither package's framework beyond torch: residues are numpy
+``uint64`` on the JAX side and ``torch.int64`` (same bits) here. A caller
+holding JAX objects passes ``np.asarray(...)`` of their arrays.
+
+Only the JAX package's four-step evaluation order is accepted
+(``ntt_backend="fourstep"``, any ``ntt_impl``): a radix-2 ciphertext holds
+the same values in another order, and converting it would be silent
+corruption.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ckks.params import CkksParams
+from .ckks.types import Ciphertext, KeySwitchKey, PublicKey, SecretKey
+
+# CkksParams fields the JAX package has and the port does not, with the only
+# value the port supports
+_JAX_ONLY = {"ntt_backend": "fourstep", "flexible_ext": False, "pre_mode": "INDCPA"}
+_PORT_FIELDS = ("n", "q_moduli", "p_moduli", "q_roots", "p_roots", "scale_bits",
+                "dnum", "slots", "sigma")
+
+
+def residues(a, device=None) -> torch.Tensor:
+    """numpy uint64 residues → int64 tensor (same bits) on ``device``."""
+    a = np.array(a, dtype=np.uint64, order="C", copy=True)    # owned, writable
+    return torch.from_numpy(a.view(np.int64)).to(device)
+
+
+def residues_np(t: torch.Tensor) -> np.ndarray:
+    """int64 tensor → numpy uint64 residues (same bits)."""
+    return t.detach().cpu().contiguous().numpy().view(np.uint64)
+
+
+def params(fields: dict) -> CkksParams:
+    """The port's params from the JAX ``CkksParams`` fields
+    (``dataclasses.asdict`` of it)."""
+    for k, want in _JAX_ONLY.items():
+        if k in fields and fields[k] != want:
+            raise ValueError(f"the port supports {k}={want!r} only, got {fields[k]!r}")
+    kw = {k: fields[k] for k in _PORT_FIELDS if k in fields}
+    for k in ("q_moduli", "p_moduli", "q_roots", "p_roots"):
+        if kw.get(k) is not None:
+            kw[k] = tuple(int(v) for v in kw[k])
+    return CkksParams(**kw)
+
+
+def params_fields(p: CkksParams, ntt_impl: str = "mxu") -> dict:
+    """Keyword arguments for the JAX ``CkksParams`` that matches ``p``."""
+    from dataclasses import asdict
+
+    return dict(asdict(p), ntt_backend="fourstep", ntt_impl=ntt_impl)
+
+
+def secret_key(s_eval, s_int, device=None) -> SecretKey:
+    return SecretKey(s_eval=residues(s_eval, device), s_int=np.asarray(s_int, np.int8))
+
+
+def public_key(data, device=None) -> PublicKey:
+    return PublicKey(data=residues(data, device))
+
+
+def keyswitch_key(data, mont: bool = False, device=None) -> KeySwitchKey:
+    return KeySwitchKey(data=residues(data, device), mont=bool(mont))
+
+
+def ciphertext(data, scale: float, device=None) -> Ciphertext:
+    return Ciphertext(data=residues(data, device), scale=float(scale))
+
+
+def to_numpy(obj) -> dict:
+    """A port key or ciphertext → its fields as numpy / plain values, named
+    as the JAX type's constructor arguments."""
+    if isinstance(obj, SecretKey):
+        return {"s_eval": residues_np(obj.s_eval), "s_int": np.asarray(obj.s_int)}
+    if isinstance(obj, PublicKey):
+        return {"data": residues_np(obj.data)}
+    if isinstance(obj, KeySwitchKey):
+        return {"data": residues_np(obj.data), "mont": obj.mont}
+    if isinstance(obj, Ciphertext):
+        return {"data": residues_np(obj.data), "scale": obj.scale}
+    raise TypeError(f"cannot convert {type(obj).__name__}")
