@@ -1,31 +1,42 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's main path — the server's encrypted-aggregation round of
-``bench.py`` (2 clients × 27 ciphertexts at N=2^14, the
-``CkksParams.generate(n=2^14, mult_depth=2, dnum=2)`` chain) — once in each
-schedule (lazy-4 and full level), through ``ppqsflhe_tpu_torch``:
+Drives the port's two paths through ``ppqsflhe_tpu_torch``:
 
-1. prints the card, its power limit and the toolchain; builds the kernels;
+- **the server round** of ``bench.py`` (2 clients × 27 ciphertexts at
+  N=2^14, the ``CkksParams.generate(n=2^14, mult_depth=2, dnum=2)`` chain),
+  once in each schedule (lazy-4 and full level);
+- **hoisted Galois rotations** of ``bench_rotations.py`` (R=8 rotations
+  {1, 2, 4, …, 128} of one ciphertext at N=2^15 on
+  ``CkksParams.generate(n=2^15, mult_depth=2, dnum=2)``: Q = 60/40/40 bits,
+  P = 2 × 60 bits), plain, hoisted and as a double-hoisted rotation sum,
+  plus one packed inner product.
+
+For each path:
+
+1. sets up seeded keys and ciphertexts on the card;
 2. runs each hand-written kernel and its plain torch version on the same
-   inputs at the round's shapes, requires bit-equal outputs, and times both
-   with CUDA events;
-3. generates keys and rekeys, encrypts 27 seeded uniform(-1, 1) vectors of
-   8192 slots per client, resets the kernels' launch counters, runs the
-   round in both schedules, requires every kernel of the path to have
-   launched, and decrypts both outputs against the plaintext mean
-   (max error < 1e-3, the bench.py gate);
-4. times ms/round per schedule (median of 20 rounds after warm-up);
-5. prints a JSON line of per-kernel results, the card line, and finally
-   ``{"ok": true, "device": {...}}``.
+   inputs at the path's shapes, requires bit-equal outputs, and times both:
+   device time per call from ``torch.profiler``'s kernel events, beside the
+   CUDA-event wall mean of back-to-back calls (which reads the host's cost
+   per call when the kernel is short);
+3. resets the kernels' launch counters, drives the path, requires every
+   kernel of the path to have launched, and checks the decrypted outputs
+   with the reference's gates (bench.py: error < 1e-3; bench_rotations.py:
+   hoisted error < 1e-3, plain bit-equal to hoisted, rotation sum < 1e-2;
+   the inner product within 1e-3 of np.dot);
+4. times it: ms/round per schedule, µs/rotation for plain, hoisted and
+   rotation sum (CUDA events, median of 20 after warm-up).
 
-Any failure raises (exit code ≠ 0). Needs one CUDA device and nvcc; it
-refuses to run without them. Run from the repository root:
+Then it prints a JSON line of per-kernel results, the card line, and finally
+``{"ok": true, "device": {...}}``. Any failure raises (exit code ≠ 0). Needs
+one CUDA device and nvcc; it refuses to run without them and never gives way
+to a plain version. Run from the repository root:
 
     python3 chip_smoke.py [--profile]
 
 ``--profile`` adds a torch.profiler table of device time per kernel for one
-round of each schedule.
+round of each schedule and one hoisted rotation pass.
 """
 
 from __future__ import annotations
@@ -41,19 +52,51 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, REPO)
 
-N = 1 << 14
+N_ROUND = 1 << 14
+N_ROT = 1 << 15
 N_CTS = 27           # ciphertexts per client (the reference payload's count)
-ERR_GATE = 1e-3      # bench.py's correctness gate
+ERR_GATE = 1e-3      # bench.py's gate; bench_rotations.py's for a rotation
+SUM_GATE = 1e-2      # bench_rotations.py's gate for the rotation sum
 SEED = 7             # keys, noise and payloads
-ROUNDS = 20          # timed rounds per schedule
+ROUNDS = 20          # timed repetitions
+ROTS = [1, 2, 4, 8, 16, 32, 64, 128]
+K1, K2, K3 = ("ppqsflhe_tpu/ops/pallas_mxu_ntt.py:390", "ppqsflhe_tpu/ops/pallas_ext.py:167",
+              "ppqsflhe_tpu/ops/pallas_ks.py:127")
+K4, K5 = "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:512", "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:566"
+SRC_NTT = "ppqsflhe_tpu_torch/csrc/mxu_ntt.cu"
+SRC_EXT = "ppqsflhe_tpu_torch/csrc/base_ext.cu"
+SRC_KS = "ppqsflhe_tpu_torch/csrc/ks_ip.cu"
+# launch counter → (module under ppqsflhe_tpu_torch.ops, attribute, kernel symbol)
+COUNTERS = {
+    "mxu_ntt": ("cuda_mxu_ntt", "launches", "mxu_ntt_stage_kernel"),
+    "mxu_stage_a": ("cuda_mxu_ntt", "launches_stage_a", "mxu_stage_a_kernel"),
+    "mxu_stage_b": ("cuda_mxu_ntt", "launches_stage_b", "mxu_stage_b_kernel"),
+    "base_extend": ("cuda_ext", "launches", "base_extend_kernel"),
+    "ks_inner_product": ("cuda_ks", "launches", "ks_ip_kernel"),
+}
 
 
 def sh(cmd) -> str:
     return subprocess.run(cmd, capture_output=True, text=True, check=True).stdout.strip()
 
 
+def _module(name):
+    import importlib
+
+    return importlib.import_module(f"ppqsflhe_tpu_torch.ops.{name}")
+
+
+def reset_counts() -> None:
+    for mod, attr, _ in COUNTERS.values():
+        setattr(_module(mod), attr, 0)
+
+
+def read_counts() -> dict:
+    return {k: getattr(_module(mod), attr) for k, (mod, attr, _) in COUNTERS.items()}
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2):
-    """Mean device milliseconds per call of ``fn`` (CUDA events)."""
+    """Mean wall milliseconds per call of ``fn``, back to back (CUDA events)."""
     import torch
 
     for _ in range(warmup):
@@ -68,49 +111,119 @@ def cuda_ms(fn, iters: int, warmup: int = 2):
     return start.elapsed_time(stop) / iters
 
 
-def rand_residues(moduli, shape, gen, device):
-    """Uniform residues int64[*shape, len(moduli), N] below each modulus."""
+def device_events(fn, iters: int = 1, symbol: str | None = None, expect: int | None = None):
+    """The device activities (kernels, copies) of ``iters`` calls of ``fn``
+    under torch.profiler whose name holds ``symbol`` (all when None), as
+    (name, µs) pairs. Now and then a profile lacks some or all of the
+    activities of calls that ran (on the H100, about one case in twenty),
+    so: with ``expect``, the first of three profiles that holds exactly
+    ``expect`` activities is taken ([] if none does); without it, the
+    fuller of two."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    best = []
+    for _ in range(3 if expect is not None else 2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and (symbol is None or symbol in e.name)]
+        if expect is not None and len(evs) == expect:
+            return evs
+        if expect is None and len(evs) > len(best):
+            best = evs
+    return best
+
+
+def device_ms(fn, iters: int, symbol: str | None = None, expect: int | None = None):
+    """Device ms per call of the activities :func:`device_events` returns;
+    None when it returns none."""
+    evs = device_events(fn, iters, symbol, expect)
+    return sum(us for _, us in evs) / iters / 1e3 if evs else None
+
+
+def rand_residues(moduli, shape, n, gen, device):
+    """Uniform residues int64[*shape, len(moduli), n] below each modulus."""
     import torch
 
-    return torch.stack([torch.randint(0, q, tuple(shape) + (N,), generator=gen,
+    return torch.stack([torch.randint(0, q, tuple(shape) + (n,), generator=gen,
                                       dtype=torch.int64) for q in moduli],
                        dim=len(shape)).to(device)
 
 
-def kernel_checks(sch, rk_mont, gen, device, card):
-    """Each kernel against its plain version at the round's shapes."""
-    import torch
+class KernelCases:
+    """The rows of the JSON ``kernels`` line: each case holds a kernel to its
+    plain version (bit-equal) and times both."""
 
-    from ppqsflhe_tpu_torch.ops import cuda_ext, mxu_ntt
-    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+    def __init__(self, card: str):
+        self.card = card
+        self.rows = []
 
-    ctx = sch.ctx
-    mq = ctx.moduli_qp
-    L, K = sch.params.num_q, sch.params.num_p
-    results = []
+    def check(self, name, counter, source, replaces, got, want, fn, plain_fn, iters):
+        import torch
 
-    def record(name, source, replaces, got, want, fn, plain_fn, iters):
         if not torch.equal(got, want):
             bad = (got != want).sum().item()
             raise AssertionError(f"{name}: kernel differs from plain version in {bad} residues")
         err = (got - want).abs().max().item()
-        ms = cuda_ms(fn, iters)
-        plain_ms = cuda_ms(plain_fn, max(2, iters // 5))
-        print(f"[kernel] {name}: bit-equal to plain, kernel {ms * 1e3:.1f} us, plain "
-              f"{plain_ms * 1e3:.1f} us  ({card})")
-        results.append(dict(name=name, route="cuda", source=source, replaces=replaces,
-                            max_abs_err=err, ms=ms, plain_ms=plain_ms))
+        symbol = COUNTERS[counter][2]
+        before = read_counts()[counter]
+        fn()
+        per_call = read_counts()[counter] - before
+        wall, plain_wall = cuda_ms(fn, iters), cuda_ms(plain_fn, max(2, iters // 5))
+        dev = device_ms(fn, iters, symbol, expect=per_call * iters)
+        plain_dev = device_ms(plain_fn, max(2, iters // 5))
+        if dev is None or plain_dev is None:
+            print(f"[kernel] {name}: no profile held every launch; device time not measured")
+        timing = "profiler" if dev is not None and plain_dev is not None else "cuda_events"
+        show = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"
+        print(f"[kernel] {name}: bit-equal to plain; device time per call: kernel {show(dev)} "
+              f"({per_call:g} launches of {symbol}), plain {show(plain_dev)}; wall mean per "
+              f"call: kernel {wall * 1e3:.1f} us, plain {plain_wall * 1e3:.1f} us ({self.card})")
+        self.rows.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces, counter=counter,
+            max_abs_err=err, ms=dev if timing == "profiler" else wall,
+            plain_ms=plain_dev if timing == "profiler" else plain_wall,
+            timing=timing, wall_ms=wall, plain_wall_ms=plain_wall))
+
+    def take_launches(self, counts: dict) -> list:
+        """Give every row the main path's launch count of its kernel."""
+        rows = [dict(r, launches=counts[r["counter"]]) for r in self.rows]
+        for r in rows:
+            del r["counter"]
+        return rows
+
+
+# ---------------------------------------------------------------------------
+# Path 1: the server round at N=2^14
+# ---------------------------------------------------------------------------
+
+def round_kernel_checks(cases, sch, rk_mont, gen, device):
+    """Each kernel against its plain version at the round's shapes."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.ops import cuda_ext, mxu_ntt
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    ctx, n = sch.ctx, sch.params.n
+    mq = ctx.moduli_qp
+    L, K = sch.params.num_q, sch.params.num_p
 
     # kernel 1: the 2-limb transforms of the lazy key switch (q0: nd=9,
     # q1: nd=6) over both components of 27 ciphertexts
     idx = (0, 1)
-    x = rand_residues([mq[i] for i in idx], (2 * N_CTS,), gen, device)
+    x = rand_residues([mq[i] for i in idx], (2 * N_CTS,), n, gen, device)
     plain_ntt = lambda v: torch.stack(
         [mxu_ntt.mxu_ntt_limb(v[:, k], ctx.fntt.tabs[i]) for k, i in enumerate(idx)], dim=1)
     got = ctx.ntt(x, idx)
-    record(f"mxu_ntt (forward, 2 limbs x {2 * N_CTS} polys)", "ppqsflhe_tpu_torch/csrc/mxu_ntt.cu",
-           "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:390", got, plain_ntt(x),
-           lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20)
+    cases.check(f"mxu_ntt (forward, 2 limbs x {2 * N_CTS} polys, N=2^14)", "mxu_ntt", SRC_NTT,
+                K1, got, plain_ntt(x), lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20)
     back = ctx.intt(got, idx)
     plain_back = torch.stack(
         [mxu_ntt.mxu_intt_limb(got[:, k], ctx.fntt.tabs[i]) for k, i in enumerate(idx)], dim=1)
@@ -121,37 +234,34 @@ def kernel_checks(sch, rk_mont, gen, device, card):
     # level l ∈ {3, 2, 1}, each digit group's decompose+extend (its constant
     # folded in, over the 27 c1 polys) and the ModDown P → Q_l (no constant,
     # over both components of the 27 products)
-    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
-
     for l in (L, L - 1, 1):
         idx_ext = ctx.q_idx(l) + ctx.p_idx()
         groups, consts = _ks_decomp_consts(ctx, l)
-        cases = [(g, tuple(i for i in idx_ext if i not in g), pre, (N_CTS,))
-                 for g, pre in zip(groups, consts)]
-        cases.append((ctx.p_idx(), ctx.q_idx(l), None, (2, N_CTS)))
-        for src, dst, pre, lead in cases:
+        todo = [(g, tuple(i for i in idx_ext if i not in g), pre, (N_CTS,))
+                for g, pre in zip(groups, consts)]
+        todo.append((ctx.p_idx(), ctx.q_idx(l), None, (2, N_CTS)))
+        for src, dst, pre, lead in todo:
             ext = ctx.extender(src, dst)
-            xe = rand_residues([mq[i] for i in src], lead, gen, device)
+            xe = rand_residues([mq[i] for i in src], lead, n, gen, device)
             tag = "pre" if pre is not None else "ModDown"
-            record(f"base_extend (l={l}, {len(src)}->{len(dst)} limbs, {tag}, "
-                   f"{'x'.join(map(str, lead))} polys)",
-                   "ppqsflhe_tpu_torch/csrc/base_ext.cu", "ppqsflhe_tpu/ops/pallas_ext.py:167",
-                   cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
-                   lambda: cuda_ext.fused_extend(xe, ext, pre), lambda: ext.extend(xe, pre), 50)
+            cases.check(f"base_extend (l={l}, {len(src)}->{len(dst)} limbs, {tag}, "
+                        f"{'x'.join(map(str, lead))} polys, N=2^14)", "base_extend", SRC_EXT, K2,
+                        cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
+                        lambda: cuda_ext.fused_extend(xe, ext, pre),
+                        lambda: ext.extend(xe, pre), 50)
 
     # kernel 3: the full-level inner product, nd=2 digits over LK=5 limbs
     limbs = tuple(range(L + K))
     nd = len(ctx.digit_groups)
     q, qinv, _ = ctx.limb_consts(limbs, device)
     sel = ctx.consts(("limb_map", limbs), lambda: limbs, device)
-    dig = rand_residues(mq, (N_CTS, nd), gen, device)
+    dig = rand_residues(mq, (N_CTS, nd), n, gen, device)
     args = (dig, rk_mont.data, sel, q, qinv)
-    record(f"ks_inner_product (nd={nd}, LK={len(limbs)}, {N_CTS} polys)",
-           "ppqsflhe_tpu_torch/csrc/ks_ip.cu", "ppqsflhe_tpu/ops/pallas_ks.py:127",
-           ks_inner_product(*args), ks_inner_product_plain(*args),
-           lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50)
+    cases.check(f"ks_inner_product (nd={nd}, LK={len(limbs)}, {N_CTS} polys, N=2^14)",
+                "ks_inner_product", SRC_KS, K3,
+                ks_inner_product(*args), ks_inner_product_plain(*args),
+                lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50)
     torch.cuda.synchronize()
-    return results
 
 
 def max_err(sch, sk, cts, want):
@@ -165,42 +275,19 @@ def max_err(sch, sk, cts, want):
     return err
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--profile", action="store_true")
-    args = ap.parse_args()
-
+def round_phase(card, device, profile_on):
+    """The server round: set-up, kernel checks, main path, decrypt, timing.
+    Returns the kernels' JSON rows."""
     import numpy as np
     import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
     from ppqsflhe_tpu_torch.ckks import eval as ev
     from ppqsflhe_tpu_torch.ckks.params import CkksParams
     from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
     from ppqsflhe_tpu_torch.fl.api import server_round
-    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_ks, cuda_lib, cuda_mxu_ntt
-
-    device = torch.device("cuda", 0)
-    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
-               "--format=csv,noheader"]).splitlines()[0]
-    print(f"[card] {card}")
-    print(f"[toolchain] python {sys.version.split()[0]}, torch {torch.__version__}, "
-          f"torch.version.cuda {torch.version.cuda}")
-    print("[toolchain] nvcc: " + sh([cuda_lib.nvcc(), "--version"]).splitlines()[-1])
-    try:
-        import triton
-        print(f"[toolchain] triton {triton.__version__}")
-    except ImportError:
-        print("[toolchain] triton not installed")
 
     t0 = time.perf_counter()
-    cuda_lib.library()
-    print(f"[build] kernels built in {cuda_lib.build_seconds or 0.0:.1f} s "
-          f"(load {time.perf_counter() - t0:.1f} s) -> {cuda_lib.build()}")
-
-    t0 = time.perf_counter()
-    params = CkksParams.generate(n=N, mult_depth=2, scale_bits=40, dnum=2)
+    params = CkksParams.generate(n=N_ROUND, mult_depth=2, scale_bits=40, dnum=2)
     sch = CkksScheme(params, device=device)
     gen = torch.Generator().manual_seed(SEED)
     sk1, pk1 = sch.keygen(gen)
@@ -214,25 +301,23 @@ def main() -> None:
     ct1 = sch.encrypt_values(pk1, v1, gen)
     ct2 = sch.encrypt_values(pk2, v2, gen)
     torch.cuda.synchronize()
-    print(f"[setup] N={N}, Q={[q.bit_length() for q in params.q_moduli]} bits, "
+    print(f"[setup] N={N_ROUND}, Q={[q.bit_length() for q in params.q_moduli]} bits, "
           f"P={[p.bit_length() for p in params.p_moduli]} bits, dnum={params.dnum}; "
           f"keys, rekeys and 2x{N_CTS} encryptions in {time.perf_counter() - t0:.1f} s")
 
-    kernels = kernel_checks(sch, rk12, gen, device, card)
-    counters = {"mxu_ntt": cuda_mxu_ntt, "base_extend": cuda_ext,
-                "ks_inner_product": cuda_ks}
+    cases = KernelCases(card)
+    round_kernel_checks(cases, sch, rk12, gen, device)
 
     # the main path, once per schedule, with fresh launch counters
     want = (np.array(v1) + np.array(v2)) / 2
-    for m in counters.values():
-        m.launches = 0
+    reset_counts()
     outs, per_sched = {}, {}
     for lazy in (4, 0):
-        before = {k: m.launches for k, m in counters.items()}
+        before = read_counts()
         outs[lazy] = server_round(sch, ct1, ct2, rk12, rk21, lazy)
         torch.cuda.synchronize()
-        per_sched[lazy] = {k: m.launches - before[k] for k, m in counters.items()}
-    launches = {k: m.launches for k, m in counters.items()}
+        per_sched[lazy] = {k: v - before[k] for k, v in read_counts().items()}
+    launches = read_counts()
     for lazy, need in ((4, ("mxu_ntt", "base_extend")),
                        (0, ("mxu_ntt", "base_extend", "ks_inner_product"))):
         print(f"[round lazy={lazy}] kernel launches: {per_sched[lazy]}")
@@ -251,32 +336,287 @@ def main() -> None:
 
     # ms/round per schedule: median of per-round CUDA-event times
     for lazy in (4, 0):
-        for _ in range(3):
-            server_round(sch, ct1, ct2, rk12, rk21, lazy)
-        times = []
-        for _ in range(ROUNDS):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            server_round(sch, ct1, ct2, rk12, rk21, lazy)
-            b.record()
-            torch.cuda.synchronize()
-            times.append(a.elapsed_time(b))
+        times = median_ms(lambda: server_round(sch, ct1, ct2, rk12, rk21, lazy), 3)
         print(f"[timing lazy={lazy}] server round {statistics.median(times):.3f} ms/round "
               f"(median of {len(times)}, min {min(times):.3f}, max {max(times):.3f}; "
-              f"2x{N_CTS} ciphertexts, N={N}; {card})")
+              f"2x{N_CTS} ciphertexts, N={N_ROUND}; {card})")
+        busy_line(f"round lazy={lazy}", lambda: server_round(sch, ct1, ct2, rk12, rk21, lazy),
+                  statistics.median(times))
 
-    if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
+    if profile_on:
         for lazy in (4, 0):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                server_round(sch, ct1, ct2, rk12, rk21, lazy)
-                torch.cuda.synchronize()
-            print(f"[profile lazy={lazy}]")
-            print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+            profile_table(f"round lazy={lazy}",
+                          lambda: server_round(sch, ct1, ct2, rk12, rk21, lazy))
+    return cases.take_launches(launches)
 
-    for k in kernels:
-        k["launches"] = launches[k["name"].split()[0]]
+
+def median_ms(fn, warmup: int):
+    """Per-call CUDA-event milliseconds of ROUNDS calls after ``warmup``."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(ROUNDS):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b))
+    return times
+
+
+def busy_line(tag, fn, wall_ms):
+    """Device time by kernel for one call of ``fn`` against its wall time."""
+    evs = device_events(fn)
+    if not evs:
+        print(f"[busy {tag}] not measured: the profiler saw no device activity")
+        return
+    by = {k: 0.0 for k in COUNTERS}
+    other = 0.0
+    for name, us in evs:
+        key = next((k for k, (_, _, sym) in COUNTERS.items() if sym in name), None)
+        if key is None:
+            other += us
+        else:
+            by[key] += us
+    busy = sum(by.values()) + other
+    parts = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in by.items() if v)
+    print(f"[busy {tag}] device {busy / 1e3:.3f} ms of {wall_ms:.3f} ms wall "
+          f"(idle {max(0.0, 1 - busy / 1e3 / wall_ms):.1%}): {parts}, other ops "
+          f"{other / 1e3:.3f} ms, {len(evs)} device activities")
+
+
+def profile_table(tag, fn):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    print(f"[profile {tag}]")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=25))
+
+
+# ---------------------------------------------------------------------------
+# Path 2: hoisted Galois rotations at N=2^15
+# ---------------------------------------------------------------------------
+
+def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
+    """Kernels 4 and 5 (and 1, 2, 3) against their plain versions at the
+    shapes one full-level rotation gives them."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, mxu_ntt
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    ctx, n = sch.ctx, sch.params.n
+    fntt, tables = ctx.fntt, ctx.fntt.tables
+    mq = ctx.moduli_qp
+    L, K = sch.params.num_q, sch.params.num_p
+    nd9 = [i for i, t in enumerate(fntt.tabs) if cuda_mxu_ntt.route(n, t.nd) == "big"]
+    nd6 = [i for i, t in enumerate(fntt.tabs) if cuda_mxu_ntt.route(n, t.nd) == "fused"]
+    print(f"[route N={n}] big (kernels 4+5): limbs {nd9}; fused (kernel 1): limbs {nd6}")
+    if not nd9 or not nd6:
+        raise AssertionError("the rotation chain must route limbs both ways at N=2^15")
+
+    # kernels 4 and 5: the nd=9 limbs of the key switch's extended digit
+    # (q0, p0, p1, forward, one poly) and of ModDown's iNTT (p0, p1 over both
+    # components), each stage against its plain version, then the whole
+    # transform through the big route against kernel 1 and the plain version
+    for sel, lead, fwd in (([0] + list(ctx.p_idx()), (1,), True), (list(ctx.p_idx()), (2,), False)):
+        sel = [i for i in sel if i in nd9]
+        tag = f"{'forward' if fwd else 'inverse'}, limbs {sel} x {lead[0]} poly(s), N=2^15"
+        m1, m2 = (fntt.n1, fntt.n2) if fwd else (fntt.n2, fntt.n1)
+        first, second = ("a1", "a2") if fwd else ("a2i", "a1i")
+        x = rand_residues([mq[i] for i in sel], lead, n, gen, device).reshape(
+            lead[0], len(sel), m1, m2)
+        mats, tw, info1, info2 = tables.device(device, sel, fwd)
+        tabs = [fntt.tabs[i] for i in sel]
+        pm1, pm2 = (tables.plain_mats(sel, nm, device) for nm in (first, second))
+        twp = tables.twiddles(sel, fwd)
+        ya = torch.empty_like(x)
+        run_a = lambda: cuda_mxu_ntt.stage_a(x, ya, mats, info1, tw, m2)
+        plain_a = lambda: mxu_ntt.stage_a(x, pm1, twp, tabs)
+        cases.check(f"mxu_stage_a ({tag})", "mxu_stage_a", SRC_NTT, K4,
+                    run_a().clone(), plain_a(), run_a, plain_a, 20)
+        zb = torch.empty((lead[0], len(sel), m2, m1), dtype=torch.int64, device=device)
+        run_b = lambda: cuda_mxu_ntt.stage_b(ya, zb, mats, info2)
+        plain_b = lambda: mxu_ntt.stage_b(ya, pm2, tabs)
+        cases.check(f"mxu_stage_b ({tag})", "mxu_stage_b", SRC_NTT, K5,
+                    run_b().clone(), plain_b(), run_b, plain_b, 20)
+        # stage A on one half of the columns, reading its slice of the table
+        h = m2 // 2
+        xh = x[..., h:].contiguous()
+        got = cuda_mxu_ntt.stage_a(xh, torch.empty_like(xh), mats, info1, tw, m2, h)
+        want = mxu_ntt.stage_a(xh, pm1, tuple(a[..., h:] for a in twp), tabs)
+        if not torch.equal(got, want):
+            raise AssertionError(f"mxu_stage_a on columns [{h}, {m2}) differs ({tag})")
+        # the whole transform: big route = kernel 1's fused launches = plain
+        xf = x.reshape(lead + (len(sel), n))
+        run = fntt.ntt if fwd else fntt.intt
+        big, fused = run(xf, sel), fntt.fused(xf, fwd, sel)
+        plain = fntt.fused(xf.cpu(), fwd, sel).to(device)
+        if not (torch.equal(big, fused) and torch.equal(big, plain)):
+            raise AssertionError(f"big route differs from kernel 1 or the plain version ({tag})")
+        t_big = device_ms(lambda: run(xf, sel), 20)
+        t_fused = device_ms(lambda: fntt.fused(xf, fwd, sel), 20)
+        w_big, w_fused = cuda_ms(lambda: run(xf, sel), 20), cuda_ms(
+            lambda: fntt.fused(xf, fwd, sel), 20)
+        show = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"
+        print(f"[route nd=9] {tag}: bit-equal (big = kernel 1 = plain); device time per "
+              f"transform: big route (kernels 4+5) {show(t_big)}, fused route (kernel 1) "
+              f"{show(t_fused)}; wall mean {w_big * 1e3:.1f} / {w_fused * 1e3:.1f} us "
+              f"({cases.card})")
+
+    # kernel 1: the nd=6 limbs of ModDown's NTT back to Q (q1, q2, both
+    # components), forward and back
+    idx = tuple(i for i in ctx.q_idx(L) if i in nd6)
+    x = rand_residues([mq[i] for i in idx], (2,), n, gen, device)
+    plain_ntt = lambda v: torch.stack(
+        [mxu_ntt.mxu_ntt_limb(v[:, k], fntt.tabs[i]) for k, i in enumerate(idx)], dim=1)
+    got = ctx.ntt(x, idx)
+    cases.check(f"mxu_ntt (forward, limbs {list(idx)} x 2 polys, N=2^15)", "mxu_ntt", SRC_NTT,
+                K1, got, plain_ntt(x), lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20)
+    if not torch.equal(ctx.intt(got, idx), x):
+        raise AssertionError("mxu_ntt inverse at N=2^15 does not give the input back")
+
+    # kernel 2: the full-level key switch's three extensions — each digit
+    # group (its constant folded in, one poly) and ModDown P → Q (2 polys)
+    idx_ext = ctx.q_idx(L) + ctx.p_idx()
+    groups, consts = _ks_decomp_consts(ctx, L)
+    todo = [(g, tuple(i for i in idx_ext if i not in g), pre, (1,))
+            for g, pre in zip(groups, consts)]
+    todo.append((ctx.p_idx(), ctx.q_idx(L), None, (2,)))
+    for src, dst, pre, lead in todo:
+        ext = ctx.extender(src, dst)
+        xe = rand_residues([mq[i] for i in src], lead, n, gen, device)
+        tag = "pre" if pre is not None else "ModDown"
+        cases.check(f"base_extend ({len(src)}->{len(dst)} limbs, {tag}, {lead[0]} poly(s), "
+                    f"N=2^15)", "base_extend", SRC_EXT, K2,
+                    cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
+                    lambda: cuda_ext.fused_extend(xe, ext, pre), lambda: ext.extend(xe, pre), 50)
+
+    # kernel 3: one rotation's inner product, nd=2 digits over LK=5 limbs
+    limbs = tuple(range(L + K))
+    nd = len(ctx.digit_groups)
+    q, qinv, _ = ctx.limb_consts(limbs, device)
+    sel = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+    dig = rand_residues(mq, (1, nd), n, gen, device)
+    args = (dig, rot_keys[ROTS[0]].data, sel, q, qinv)
+    cases.check(f"ks_inner_product (nd={nd}, LK={len(limbs)}, 1 poly, N=2^15)",
+                "ks_inner_product", SRC_KS, K3,
+                ks_inner_product(*args), ks_inner_product_plain(*args),
+                lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50)
+    torch.cuda.synchronize()
+
+
+def rotation_phase(card, device, profile_on):
+    """Rotations at N=2^15: set-up, kernel checks, main path, decrypt,
+    timing. Returns the kernels' JSON rows."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks import eval as ev
+    from ppqsflhe_tpu_torch.ckks.params import CkksParams
+    from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
+
+    t0 = time.perf_counter()
+    params = CkksParams.generate(n=N_ROT, mult_depth=2, scale_bits=40, dnum=2)
+    sch = CkksScheme(params, device=device)
+    t_ctx = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(SEED)
+    sk, pk = sch.keygen(gen)
+    slots = sch.encoder.slots
+    ip_rots = [1 << i for i in range(int(np.log2(slots)))]
+    # long-lived keys go to Montgomery form once (bench_rotations.py:155-157)
+    rot_keys = {r: ev.ksk_to_mont(sch.ctx, k) for r, k in
+                sch.rotation_key_gen(sk, sorted(set(ROTS) | set(ip_rots)), gen).items()}
+    relin = ev.ksk_to_mont(sch.ctx, sch.relin_key_gen(sk, gen))
+    v = np.linspace(-1, 1, slots)
+    ct = sch.encrypt_values(pk, v, gen)
+    rng = np.random.default_rng(SEED)
+    u1, u2 = rng.uniform(-1, 1, slots) * 0.1, rng.uniform(-1, 1, slots) * 0.1
+    cu1, cu2 = sch.encrypt_values(pk, u1, gen), sch.encrypt_values(pk, u2, gen)
+    torch.cuda.synchronize()
+    print(f"[setup] N={N_ROT}, Q={[q.bit_length() for q in params.q_moduli]} bits, "
+          f"P={[p.bit_length() for p in params.p_moduli]} bits, dnum={params.dnum}; context "
+          f"{t_ctx:.1f} s, then keys, {len(rot_keys)} rotation keys, relin key and 3 "
+          f"encryptions in {time.perf_counter() - t0 - t_ctx:.1f} s")
+
+    cases = KernelCases(card)
+    rotation_kernel_checks(cases, sch, rot_keys, gen, device)
+
+    # the main path: R plain rotations, one hoisted pass, one rotation sum
+    plain = lambda: [sch.rotate(ct, r, rot_keys) for r in ROTS]
+    hoisted = lambda: sch.rotate_hoisted(ct, ROTS, rot_keys)
+    rot_sum = lambda: sch.rotate_sum_hoisted(ct, ROTS, rot_keys)
+    reset_counts()
+    outs_p, outs_h, out_s = plain(), hoisted(), rot_sum()
+    torch.cuda.synchronize()
+    launches = read_counts()
+    print(f"[rotations] kernel launches (R={len(ROTS)} plain + hoisted + rotation sum): "
+          f"{launches}")
+    missing = [k for k, c in launches.items() if c == 0]
+    if missing:
+        raise AssertionError(f"the rotation path never launched {missing}")
+
+    err_h = max(float(np.abs(sch.decrypt(sk, o) - np.roll(v, -r)).max())
+                for r, o in zip(ROTS, outs_h))
+    same = all(torch.equal(p.data, h.data) for p, h in zip(outs_p, outs_h))
+    err_s = float(np.abs(sch.decrypt(sk, out_s) - sum(np.roll(v, -r) for r in ROTS)).max())
+    ip = sch.inner_product(cu1, cu2, relin, rot_keys)
+    err_ip = float(np.abs(sch.decrypt(sk, ip) - np.dot(u1, u2)).max())
+    print(f"[rotations] hoisted decrypt max err {err_h:.3e} (gate {ERR_GATE}); plain "
+          f"bit-equal to hoisted: {same}; rotation sum err {err_s:.3e} (gate {SUM_GATE}); "
+          f"inner product of {slots} slots err {err_ip:.3e} (gate {ERR_GATE})")
+    if not (np.isfinite(err_h) and err_h < ERR_GATE and same and np.isfinite(err_s)
+            and err_s < SUM_GATE and np.isfinite(err_ip) and err_ip < ERR_GATE):
+        raise AssertionError("a rotation check failed")
+
+    us = {}
+    for name, fn in (("plain", plain), ("hoisted", hoisted), ("rot_sum", rot_sum)):
+        times = median_ms(fn, 3)
+        us[name] = statistics.median(times) * 1e3 / len(ROTS)
+        print(f"[timing rotations] {name}: {us[name]:.1f} us/rotation (median of {len(times)} "
+              f"passes of R={len(ROTS)}, min {min(times) * 1e3 / len(ROTS):.1f}, max "
+              f"{max(times) * 1e3 / len(ROTS):.1f}; N={N_ROT}; {card})")
+        busy_line(f"rotations {name}", fn, statistics.median(times))
+    print(f"[timing rotations] hoisting speed-up {us['plain'] / us['hoisted']:.2f}x, "
+          f"rotation sum speed-up {us['plain'] / us['rot_sum']:.2f}x over plain rotations")
+    if profile_on:
+        profile_table("rotations hoisted", hoisted)
+    return cases.take_launches(launches)
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
+    from ppqsflhe_tpu_torch.ops import cuda_lib
+
+    device = torch.device("cuda", 0)
+    card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+               "--format=csv,noheader"]).splitlines()[0]
+    print(f"[card] {card}")
+    print(f"[toolchain] python {sys.version.split()[0]}, torch {torch.__version__}, "
+          f"torch.version.cuda {torch.version.cuda}")
+    print("[toolchain] nvcc: " + sh([cuda_lib.nvcc(), "--version"]).splitlines()[-1])
+
+    t0 = time.perf_counter()
+    cuda_lib.library()
+    print(f"[build] kernels built in {cuda_lib.build_seconds or 0.0:.1f} s "
+          f"(load {time.perf_counter() - t0:.1f} s) -> {cuda_lib.build()}")
+
+    kernels = round_phase(card, device, args.profile)
+    kernels += rotation_phase(card, device, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,13 +7,17 @@ modules under the same name, and each is held bit for bit against it by the
 
 - ``core``  : int64 twins of the RNS modular arithmetic, prime/NTT tables,
               HPS base extension constants, samplers on ``torch.Generator``.
-- ``ops``   : the digit-matmul NTT tables and its plain torch version, and
-              the wrappers of the hand-written CUDA kernels (``csrc/``):
-              the digit-matmul NTT, the HPS base extension and the
-              key-switch-key inner product.
-- ``ckks``  : the RNS-CKKS subset the server's aggregation round needs —
-              params/context, keygen, PRE rekey generation, encrypt,
-              decrypt, add, mult_scalar, rescale, hybrid key switching.
+- ``ops``   : the digit-matmul NTT tables and its plain torch versions
+              (fused, and the streamed two-stage pair), the four-step
+              evaluation order, and the wrappers of the hand-written CUDA
+              kernels (``csrc/``): the digit-matmul NTT stages, the HPS
+              base extension and the key-switch-key inner product.
+- ``ckks``  : the RNS-CKKS subset the server's aggregation round and the
+              rotation path need — params/context, keygen, PRE rekey,
+              relinearization and Galois key generation, encrypt,
+              decrypt, add, mult_scalar, ct×ct mult, rescale, hybrid key
+              switching, rotations (plain, hoisted, rotation sums),
+              conjugation and the packed inner product.
 - ``fl``    : the in-memory halves of the server's two tools
               (changeCipherDomain, aggregateEncryptedWeights) and the
               composed server round.

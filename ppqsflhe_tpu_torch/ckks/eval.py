@@ -1,16 +1,20 @@
-"""Homomorphic evaluation: the subset the server's aggregation round runs.
+"""Homomorphic evaluation.
 
-Twin of :mod:`ppqsflhe_tpu.ckks.eval` (add, mult_scalar, rescale,
-level_reduce, and HYBRID key switching with PRE rekey generation). The KSK
-for digit j encrypts P·t·Q̂_j with Q̂_j = Q_full/D_j the full-basis CRT
-cofactor; the level-l decomposition multiplies the ciphertext's group-j
-residues by [Q̂_j^{-1}]_{q_i} before base extension, so one KSK serves every
-level. Leading batch dimensions ride through every function (the JAX
-package vmapped instead).
+Twin of :mod:`ppqsflhe_tpu.ckks.eval`: add, mult_scalar, rescale,
+level_reduce, HYBRID key switching, key-switch key generation (PRE rekeys
+from a public key, relinearization and Galois keys from a secret key),
+ct×ct mult with relinearization, and Galois rotations (plain, hoisted,
+double-hoisted rotation sums) and conjugation. The KSK for digit j
+encrypts P·t·Q̂_j with Q̂_j = Q_full/D_j the full-basis CRT cofactor; the
+level-l decomposition multiplies the ciphertext's group-j residues by
+[Q̂_j^{-1}]_{q_i} before base extension, so one KSK serves every level.
+Leading batch dimensions ride through every function (the JAX package
+vmapped instead).
 
 Kernel routing follows the tensor's device: the NTTs go through
-``ctx.ntt``/``ctx.intt`` (kernel 1), the base extensions through
-:func:`..ops.cuda_ext.fused_extend` (kernel 2), and the KSK inner product
+``ctx.ntt``/``ctx.intt`` (kernel 1, or kernels 4 and 5 for the limbs that
+the JAX runner streams: the 60-bit limbs at N ≥ 2^15), the base extensions
+through :func:`..ops.cuda_ext.fused_extend` (kernel 2), and the KSK inner product
 through :func:`..ops.cuda_ks.ks_inner_product` (kernel 3) when there are two
 or more digits — the JAX package's gate (``ppqsflhe_tpu/ckks/eval.py:274``);
 one digit runs its plain torch version on every device.
@@ -18,15 +22,20 @@ one digit runs its plain torch version on every device.
 
 from __future__ import annotations
 
+import functools
+from typing import Sequence
+
 import numpy as np
 import torch
 
 from ..core import primes, sampling
-from ..core.modarith import modadd, modmul, modsub, mont_mul, shoup_mul, shoup_mul_wide
+from ..core.modarith import (modadd, modmul, modneg, modsub, mont_mul, shoup_mul,
+                             shoup_mul_wide)
+from ..core.ntt import bit_reverse_indices
 from ..ops.cuda_ext import fused_extend
 from ..ops.cuda_ks import ks_inner_product, ks_inner_product_plain
 from .params import CkksContext
-from .types import Ciphertext, KeySwitchKey, PublicKey
+from .types import Ciphertext, KeySwitchKey, PublicKey, SecretKey
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +214,7 @@ def keyswitch(ctx: CkksContext, c_eval: torch.Tensor, ksk: KeySwitchKey, nlimbs:
 
 
 # ---------------------------------------------------------------------------
-# Key-switch key generation (PRE: from a public key)
+# Key-switch key generation (PRE rekeys; relinearization and Galois keys)
 # ---------------------------------------------------------------------------
 
 def _ks_target_factors(ctx: CkksContext):
@@ -228,12 +237,17 @@ def _ks_target_factors(ctx: CkksContext):
 
 
 def keyswitch_key_gen(ctx: CkksContext, target_eval_q: torch.Tensor,
-                      gen: torch.Generator, pk_to: PublicKey) -> KeySwitchKey:
-    """KSK keying ``target_eval_q`` (int64[L, n], eval domain) to the owner
-    of ``pk_to``: each digit row is a pk-encryption of P·Q̂_j·target over QP
-    (the INDCPA PRE rekey, ``ppqsflhe_tpu`` pk_to path)."""
+                      gen: torch.Generator, pk_to: PublicKey | None = None,
+                      sk_to: SecretKey | None = None) -> KeySwitchKey:
+    """KSK keying ``target_eval_q`` (int64[L, n], eval domain): each digit
+    row encrypts P·Q̂_j·target over QP, either under the public key
+    ``pk_to`` (the INDCPA PRE rekey) or, with ``sk_to``, directly under that
+    secret key with a fresh uniform a_j (relinearization, rotation and
+    conjugation keys; the JAX package's unseeded sk_to path)."""
     from .rlwe import _poly_mul, _signed_to_eval
 
+    if (pk_to is None) == (sk_to is None):
+        raise ValueError("give exactly one of pk_to and sk_to")
     n = ctx.params.n
     L = ctx.params.num_q
     K = ctx.params.num_p
@@ -241,18 +255,181 @@ def keyswitch_key_gen(ctx: CkksContext, target_eval_q: torch.Tensor,
     all_idx = tuple(range(L + K))
     q_all, _, _ = ctx.limb_consts(all_idx, dev)
     q_l, qinv_l, r2_l = ctx.limb_consts(range(L), dev)
+    noise = lambda: _signed_to_eval(
+        ctx, sampling.discrete_gaussian(gen, n, ctx.params.sigma, dev), all_idx)
     rows = []
     for j, f in enumerate(_ks_target_factors(ctx)):
         fj = ctx.consts(("ks_factor", j), lambda: f, dev)
         m_q = modmul(target_eval_q, fj, q_l, qinv_l, r2_l)
         m = torch.cat([m_q, torch.zeros((K, n), dtype=torch.int64, device=dev)])
-        u = _signed_to_eval(ctx, sampling.ternary(gen, n, dev), all_idx)
-        e0 = _signed_to_eval(ctx, sampling.discrete_gaussian(gen, n, ctx.params.sigma, dev),
-                             all_idx)
-        e1 = _signed_to_eval(ctx, sampling.discrete_gaussian(gen, n, ctx.params.sigma, dev),
-                             all_idx)
-        b = modadd(modadd(_poly_mul(ctx, pk_to.data[0], u, all_idx), e0, q_all), m, q_all)
-        a = modadd(_poly_mul(ctx, pk_to.data[1], u, all_idx), e1, q_all)
+        if pk_to is not None:
+            u = _signed_to_eval(ctx, sampling.ternary(gen, n, dev), all_idx)
+            e0, e1 = noise(), noise()
+            b = modadd(modadd(_poly_mul(ctx, pk_to.data[0], u, all_idx), e0, q_all), m, q_all)
+            a = modadd(_poly_mul(ctx, pk_to.data[1], u, all_idx), e1, q_all)
+        else:
+            a = ctx.ntt(sampling.uniform_rns(gen, ctx.moduli_qp, n, dev), all_idx)
+            as_ = _poly_mul(ctx, a, sk_to.s_eval, all_idx)
+            b = modadd(modadd(modneg(as_, q_all), noise(), q_all), m, q_all)
         rows.append(torch.stack([b, a]))
     return KeySwitchKey(data=torch.stack(rows))
 
+
+# ---------------------------------------------------------------------------
+# ct×ct multiply + relinearization
+# ---------------------------------------------------------------------------
+
+def mult(ctx: CkksContext, ct1: Ciphertext, ct2: Ciphertext,
+         relin_key: KeySwitchKey | None = None, rescale_after: bool = True) -> Ciphertext:
+    d1, d2, l = _match_scales_any(ct1, ct2)
+    q, qinv, r2 = ctx.limb_consts(ctx.q_idx(l), d1.device)
+    mul = lambda a, b: modmul(a, b, q, qinv, r2)
+    a0, a1 = d1[..., 0, :, :], d1[..., 1, :, :]
+    b0, b1 = d2[..., 0, :, :], d2[..., 1, :, :]
+    c0 = mul(a0, b0)
+    c1 = modadd(mul(a0, b1), mul(a1, b0), q)
+    c2 = mul(a1, b1)
+    out = Ciphertext(data=torch.stack([c0, c1, c2], dim=-3), scale=ct1.scale * ct2.scale)
+    if relin_key is not None:
+        out = relinearize(ctx, out, relin_key)
+    if rescale_after:
+        out = rescale(ctx, out)
+    return out
+
+
+def _match_scales_any(ct1: Ciphertext, ct2: Ciphertext):
+    """Operand check for ct×ct multiply: limbs truncate to the common level
+    and scales must agree to FLEXIBLEAUTO drift (rtol 0.05); a gross
+    mismatch is a caller bug and raises."""
+    l = min(ct1.nlimbs, ct2.nlimbs)
+    if not np.isclose(ct1.scale, ct2.scale, rtol=0.05):
+        raise ValueError(
+            f"mult operand scale mismatch: {ct1.scale} vs {ct2.scale} "
+            "(rescale/level-adjust the larger operand first)")
+    return ct1.data[..., :l, :], ct2.data[..., :l, :], l
+
+
+def relinearize(ctx: CkksContext, ct: Ciphertext, relin_key: KeySwitchKey) -> Ciphertext:
+    if ct.num_components != 3:
+        return ct
+    l = ct.nlimbs
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
+    d0, d1 = keyswitch(ctx, ct.data[..., 2, :, :], relin_key, l)
+    out = torch.stack([modadd(ct.data[..., 0, :, :], d0, q),
+                       modadd(ct.data[..., 1, :, :], d1, q)], dim=-3)
+    return Ciphertext(data=out, scale=ct.scale)
+
+
+# ---------------------------------------------------------------------------
+# Galois rotations (eval-domain permutations) + hoisting
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _galois_perm(n: int, g: int) -> np.ndarray:
+    """perm with new_eval[k] = old_eval[perm[k]] for the automorphism X→X^g
+    acting on bit-reversed eval bins (bin k ↔ root exponent 2·bitrev(k)+1)."""
+    rev = bit_reverse_indices(n)
+    inv_rev = np.argsort(rev)
+    target = ((2 * rev + 1) * g) % (2 * n)
+    return inv_rev[(target - 1) // 2]
+
+
+def rot_to_galois(r: int, n: int) -> int:
+    """Slot rotation by r ↔ Galois element 5^r mod 2N (r may be negative)."""
+    return pow(5, r % (n // 2), 2 * n)
+
+
+CONJ_GALOIS = -1  # sentinel: conjugation is g = 2N-1
+
+
+def automorphism(ctx: CkksContext, data_eval: torch.Tensor, g: int) -> torch.Tensor:
+    """X→X^g on eval-domain residues (..., N): one gather on the last axis."""
+    if g == CONJ_GALOIS:
+        g = 2 * ctx.params.n - 1
+    return data_eval.index_select(-1, ctx.galois_perm(g, data_eval.device))
+
+
+def _rotated(ctx: CkksContext, ct: Ciphertext, g: int, key: KeySwitchKey) -> Ciphertext:
+    """Apply X→X^g to both components (one batched permutation), then key
+    switch the permuted c1 back to the owner's key."""
+    l = ct.nlimbs
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
+    both = automorphism(ctx, ct.data[..., :l, :], g)
+    d0, d1 = keyswitch(ctx, both[..., 1, :, :], key, l)
+    return Ciphertext(data=torch.stack([modadd(both[..., 0, :, :], d0, q), d1], dim=-3),
+                      scale=ct.scale)
+
+
+def rotate(ctx: CkksContext, ct: Ciphertext, r: int, rot_key: KeySwitchKey) -> Ciphertext:
+    """Rotate packed slots left by r (EvalRotate equivalent)."""
+    return _rotated(ctx, ct, rot_to_galois(r, ctx.params.n), rot_key)
+
+
+def conjugate(ctx: CkksContext, ct: Ciphertext, conj_key: KeySwitchKey) -> Ciphertext:
+    return _rotated(ctx, ct, 2 * ctx.params.n - 1, conj_key)
+
+
+def _split_rows(rot: torch.Tensor, row_counts):
+    """Cut the limb axis of a permuted stack back into its digit polys and
+    the trailing c0 rows."""
+    out, off = [], 0
+    for rc in row_counts:
+        out.append(rot[..., off : off + rc, :])
+        off += rc
+    return out, rot[..., off:, :]
+
+
+def _hoisted_stack(ctx: CkksContext, ct: Ciphertext):
+    """Decompose+extend c1 ONCE: the digit polys and c0 in one limb stack,
+    so each rotation permutes all of them with one gather."""
+    l = ct.nlimbs
+    digits = keyswitch_core(ctx, ct.data[..., 1, :, :], l)
+    stacked = torch.cat(list(digits) + [ct.data[..., 0, :l, :]], dim=-2)
+    return stacked, [d.shape[-2] for d in digits]
+
+
+def rotate_hoisted(ctx: CkksContext, ct: Ciphertext, rotations: Sequence[int],
+                   rot_keys: dict) -> list:
+    """Hoisted rotations: decompose+extend ct's c1 ONCE, then per rotation
+    permute the extended digits and c0, inner product and ModDown. Valid
+    because base extension is coefficient-wise and the automorphism permutes
+    coefficients (up to sign): they commute."""
+    l = ct.nlimbs
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
+    stacked, row_counts = _hoisted_stack(ctx, ct)
+    out = []
+    for r in rotations:
+        g = rot_to_galois(r, ctx.params.n)
+        dig_rot, c0p = _split_rows(automorphism(ctx, stacked, g), row_counts)
+        d0, d1 = keyswitch_apply(ctx, dig_rot, rot_keys[r], l)
+        out.append(Ciphertext(data=torch.stack([modadd(c0p, d0, q), d1], dim=-3),
+                              scale=ct.scale))
+    return out
+
+
+def rotate_sum_hoisted(ctx: CkksContext, ct: Ciphertext,
+                       rotations: Sequence[int], rot_keys: dict) -> Ciphertext:
+    """Σ_r rotate(ct, r) with DOUBLE hoisting (Halevi–Shoup): one shared
+    decompose+extend and ONE deferred ModDown. Per rotation only the
+    permutation and the KSK inner product run; the inner products
+    accumulate in the extended basis (the permuted c0 parts in Q). ModDown
+    is linear and commutes with the automorphism."""
+    l = ct.nlimbs
+    dev = ct.data.device
+    q_ext, _, _ = ctx.limb_consts(tuple(ctx.q_idx(l)) + ctx.p_idx(), dev)
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), dev)
+    stacked, row_counts = _hoisted_stack(ctx, ct)
+    acc0 = acc1 = c0_acc = None
+    for r in rotations:
+        g = rot_to_galois(r, ctx.params.n)
+        dig_rot, c0p = _split_rows(automorphism(ctx, stacked, g), row_counts)
+        t0, t1 = keyswitch_ip(ctx, dig_rot, rot_keys[r], l)
+        if acc0 is None:
+            acc0, acc1, c0_acc = t0, t1, c0p
+        else:
+            acc0 = modadd(acc0, t0, q_ext)
+            acc1 = modadd(acc1, t1, q_ext)
+            c0_acc = modadd(c0_acc, c0p, q)
+    both = _mod_down(ctx, torch.stack([acc0, acc1]), l)
+    return Ciphertext(data=torch.stack([modadd(c0_acc, both[0], q), both[1]], dim=-3),
+                      scale=ct.scale)

@@ -3,7 +3,8 @@
 Twin of :mod:`ppqsflhe_tpu.ckks.params`. The context owns the RNS chains
 (ciphertext chain Q = [q0..qL], special primes P for hybrid key switching),
 the four-step digit-matmul NTT runner over the QP basis, the digit
-partition, and lazily cached per-level constants. Constants are host Python
+partition, the Galois permutations in its evaluation order, and lazily
+cached per-level constants. Constants are host Python
 ints / numpy; :meth:`CkksContext.consts` hands them out as int64 tensors on
 the device asked for, uploaded once per device.
 
@@ -19,6 +20,7 @@ import functools
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core import primes
@@ -136,6 +138,19 @@ class CkksContext:
 
     def intt(self, a: torch.Tensor, idx: Sequence[int]) -> torch.Tensor:
         return self.fntt.intt(a, idx=tuple(idx))
+
+    def galois_perm(self, g: int, device="cpu") -> torch.Tensor:
+        """Eval-order permutation for the automorphism X→X^g, corrected for
+        the four-step kernel order (new[i] = old[perm[i]]), as a long tensor
+        on ``device``; cached per g and device."""
+        k = (("galois", g), str(device))
+        if k not in self._dev:
+            from .eval import _galois_perm
+
+            P = _galois_perm(self.params.n, g)
+            T = self.fntt.perm_to_std
+            self._dev[k] = torch.as_tensor(T[P[np.argsort(T)]], device=device)
+        return self._dev[k]
 
     # -- cached precomputes --------------------------------------------------
 

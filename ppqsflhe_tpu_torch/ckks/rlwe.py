@@ -69,15 +69,17 @@ def encrypt(ctx: CkksContext, pk: PublicKey, pt: Plaintext,
 
 
 def decrypt_to_coeffs(ctx: CkksContext, s_eval: torch.Tensor, ct: Ciphertext) -> torch.Tensor:
-    """c0 + c1·s then iNTT → coefficient residues int64[..., l, N].
-    ``s_eval`` is the full-basis secret eval stack. (The port has no
-    ct×ct multiply yet, so every ciphertext has two components.)"""
-    if ct.num_components != 2:
-        raise ValueError(f"expected a 2-component ciphertext, got {ct.num_components}")
+    """⟨ct, (1, s, s², …)⟩ then iNTT → coefficient residues int64[..., l, N].
+    ``s_eval`` is the full-basis secret eval stack."""
     l = ct.nlimbs
     idx = ctx.q_idx(l)
     q, _, _ = ctx.limb_consts(idx, ct.data.device)
-    acc = modadd(ct.data[..., 0, :, :], _poly_mul(ctx, ct.data[..., 1, :, :], s_eval[:l], idx), q)
+    s = s_eval[:l]
+    acc, s_pow = ct.data[..., 0, :, :], s
+    for k in range(1, ct.num_components):
+        acc = modadd(acc, _poly_mul(ctx, ct.data[..., k, :, :], s_pow, idx), q)
+        if k + 1 < ct.num_components:
+            s_pow = _poly_mul(ctx, s_pow, s, idx)
     return ctx.intt(acc, idx)
 
 

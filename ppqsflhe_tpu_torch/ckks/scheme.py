@@ -1,8 +1,11 @@
 """High-level CKKS facade: the subset of ``ppqsflhe_tpu.ckks.scheme``
-that the server's aggregation round and its set-up need (keygen,
-rekey_gen, encrypt_values, decrypt, add, mult_scalar with its rescale, and
-re_encrypt in INDCPA mode). Operations run eagerly on the device their
-tensors live on; the scheme's ``device`` is where it creates new ones.
+that the server's aggregation round and the rotation path need: keygen,
+rekey_gen, relinearization, rotation and conjugation keys, encrypt_values,
+decrypt, add, mult_scalar, ct×ct mult, rescale, rotations (plain, hoisted,
+rotation sums), conjugation, the packed inner product, and re_encrypt in
+INDCPA mode. Operations run eagerly on the device their tensors live on;
+the scheme's ``device`` is where it creates new ones. Randomness comes from
+explicit ``torch.Generator``s.
 """
 
 from __future__ import annotations
@@ -50,7 +53,26 @@ class CkksScheme:
         """Proxy re-encryption key A→B from A's secret and B's public key
         (INDCPA PRE)."""
         L = self.params.num_q
-        return ev.keyswitch_key_gen(self.ctx, sk_from.s_eval[:L], gen, pk_to)
+        return ev.keyswitch_key_gen(self.ctx, sk_from.s_eval[:L], gen, pk_to=pk_to)
+
+    def relin_key_gen(self, sk: SecretKey, gen: torch.Generator) -> KeySwitchKey:
+        """Key switching s² → s, for relinearizing a ct×ct product."""
+        L = self.params.num_q
+        s = sk.s_eval[:L]
+        s2 = rlwe._poly_mul(self.ctx, s, s, tuple(range(L)))
+        return ev.keyswitch_key_gen(self.ctx, s2, gen, sk_to=sk)
+
+    def _galois_key(self, sk: SecretKey, g: int, gen: torch.Generator) -> KeySwitchKey:
+        s_g = ev.automorphism(self.ctx, sk.s_eval[: self.params.num_q], g)
+        return ev.keyswitch_key_gen(self.ctx, s_g, gen, sk_to=sk)
+
+    def rotation_key_gen(self, sk: SecretKey, rotations, gen: torch.Generator) -> dict:
+        """Keys for slot rotations (EvalRotateKeyGen), by rotation."""
+        return {r: self._galois_key(sk, ev.rot_to_galois(r, self.params.n), gen)
+                for r in rotations}
+
+    def conjugation_key_gen(self, sk: SecretKey, gen: torch.Generator) -> KeySwitchKey:
+        return self._galois_key(sk, 2 * self.params.n - 1, gen)
 
     # -- encrypt / decrypt --------------------------------------------------
 
@@ -71,6 +93,41 @@ class CkksScheme:
 
     def mult_scalar(self, ct: Ciphertext, c: float) -> Ciphertext:
         return ev.mult_scalar(self.ctx, ct, c)
+
+    def mult(self, ct1: Ciphertext, ct2: Ciphertext, relin_key: KeySwitchKey,
+             rescale_after: bool = True) -> Ciphertext:
+        return ev.mult(self.ctx, ct1, ct2, relin_key, rescale_after)
+
+    def rescale(self, ct: Ciphertext) -> Ciphertext:
+        return ev.rescale(self.ctx, ct)
+
+    def rotate(self, ct: Ciphertext, r: int, rot_keys) -> Ciphertext:
+        """Rotate slots left by r; ``rot_keys`` is a dict by rotation or the
+        one key."""
+        key = rot_keys[r] if isinstance(rot_keys, dict) else rot_keys
+        return ev.rotate(self.ctx, ct, r, key)
+
+    def rotate_hoisted(self, ct: Ciphertext, rotations, rot_keys: dict) -> list:
+        return ev.rotate_hoisted(self.ctx, ct, rotations, rot_keys)
+
+    def rotate_sum_hoisted(self, ct: Ciphertext, rotations, rot_keys: dict) -> Ciphertext:
+        """Σ_r rotate(ct, r) with one shared decompose+extend and one
+        deferred ModDown."""
+        return ev.rotate_sum_hoisted(self.ctx, ct, rotations, rot_keys)
+
+    def conjugate(self, ct: Ciphertext, conj_key: KeySwitchKey) -> Ciphertext:
+        return ev.conjugate(self.ctx, ct, conj_key)
+
+    def inner_product(self, ct1: Ciphertext, ct2: Ciphertext,
+                      relin_key: KeySwitchKey, rot_keys: dict) -> Ciphertext:
+        """⟨v1, v2⟩ replicated in every slot: elementwise mult, then a
+        rotate-and-add tree over log2(slots) power-of-two rotations."""
+        prod = self.mult(ct1, ct2, relin_key)
+        r = 1
+        while r < self.encoder.slots:
+            prod = self.add(prod, self.rotate(prod, r, rot_keys))
+            r *= 2
+        return prod
 
     # -- PRE ----------------------------------------------------------------
 

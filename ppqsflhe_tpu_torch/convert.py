@@ -69,13 +69,21 @@ def keyswitch_key(data, mont: bool = False, device=None) -> KeySwitchKey:
     return KeySwitchKey(data=residues(data, device), mont=bool(mont))
 
 
+def rotation_keys(keys: dict, mont: bool = False, device=None) -> dict:
+    """JAX rotation keys as {rotation: numpy data} → {rotation: KeySwitchKey}."""
+    return {int(r): keyswitch_key(a, mont, device) for r, a in keys.items()}
+
+
 def ciphertext(data, scale: float, device=None) -> Ciphertext:
     return Ciphertext(data=residues(data, device), scale=float(scale))
 
 
 def to_numpy(obj) -> dict:
     """A port key or ciphertext → its fields as numpy / plain values, named
-    as the JAX type's constructor arguments."""
+    as the JAX type's constructor arguments; a dict of keys (rotation keys)
+    → the same dict of such fields."""
+    if isinstance(obj, dict):
+        return {k: to_numpy(v) for k, v in obj.items()}
     if isinstance(obj, SecretKey):
         return {"s_eval": residues_np(obj.s_eval), "s_int": np.asarray(obj.s_int)}
     if isinstance(obj, PublicKey):

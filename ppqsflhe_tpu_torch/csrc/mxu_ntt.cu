@@ -1,32 +1,52 @@
-// Digit-matmul four-step NTT stage on Hopper's int8 tensor cores.
+// Digit-matmul four-step NTT stages on Hopper's int8 tensor cores.
 //
-// Replaces: ppqsflhe_tpu/ops/pallas_mxu_ntt.py, PallasMxuNtt._run_group (the
-// fused Shoup-twiddle kernel; its pallas_call is at :390). That kernel ran
-// both column transforms of one (limb, ciphertext) in VMEM: digitize → int8
-// MXU dot → REDC recompose → twiddle → transpose → digitize → dot → REDC →
-// two csubs. Plain torch version: ops/mxu_ntt.py (mxu_ntt_limb/mxu_intt_limb).
+// Three entry points share one stage body:
+//
+// - ppq_mxu_ntt_stage (kernel `mxu_ntt_stage_kernel`) replaces
+//   ppqsflhe_tpu/ops/pallas_mxu_ntt.py, PallasMxuNtt._run_group (the fused
+//   Shoup-twiddle kernel; its pallas_call is at :390). That kernel ran both
+//   column transforms of one (limb, ciphertext) in VMEM: digitize → int8 MXU
+//   dot → REDC recompose → twiddle → transpose → digitize → dot → REDC → two
+//   csubs. Here it is two launches: stage 1 stores transposed, stage 2 in
+//   place.
+// - ppq_mxu_stage_a (kernel `mxu_stage_a_kernel`) replaces
+//   PallasMxuNttBig._stage_a (pallas_call at :512): the first stage with the
+//   lazy twiddle and NO transpose, y[b, l, k, col], for any block of columns
+//   of a wider twiddle table (the per-shard first half of the sharded
+//   transform).
+// - ppq_mxu_stage_b (kernel `mxu_stage_b_kernel`) replaces
+//   PallasMxuNttBig._stage_b (pallas_call at :566): the transpose moves into
+//   the load — the contraction runs along the LAST axis of t[b, l, r, j] —
+//   then the second stage and two conditional subtracts, stored at
+//   y[b, l, k, r].
+//
+// Plain torch versions: ops/mxu_ntt.py (mxu_ntt_limb/mxu_intt_limb,
+// stage_a/stage_b).
 //
 // What bounds it here: a stage matrix is (nd*m)^2 int8 — 1.33 MB for a 60-bit
-// limb at N=2^14 (nd=9, m=128) — far above the 227 KB of shared memory a
-// block can use, so the matrix cannot stay resident the way it did in VMEM.
-// The work is an int8 GEMM per limb: M = nd*m rows (plane e, output row k),
-// K = nd*m (digit d, input row j), N = B*c columns (every ciphertext of the
-// batch side by side). Its arithmetic is 2*M*K*N int8 ops, well under the
-// tensor cores' rate; what costs is re-reading the matrix tiles from L2 and
-// the digitize prologue.
+// limb at m=128 (nd=9), 5.3 MB at m=256 — far above the 227 KB of shared
+// memory a block can use, so the matrix cannot stay resident the way it did
+// in VMEM (and no VMEM-style budget decides between the fused and the
+// streamed pair: both stream the matrix). The work is an int8 GEMM per limb:
+// M = nd*m rows (plane e, output row k), K = nd*m (digit d, input row j),
+// N = B*c columns (every ciphertext of the batch side by side). Its arithmetic
+// is 2*M*K*N int8 ops, well under the tensor cores' rate; what costs is
+// re-reading the matrix tiles from L2 and the digitize prologue.
 //
-// Design: one launch per stage (two per transform). A block owns 16 output
-// rows k for ALL nd planes (so the REDC recompose of a coefficient happens in
-// the block that accumulated its planes) and 64 columns; it walks the
-// contraction in chunks of 32 (one mma.sync m16n8k32 step): the matrix chunk
-// is copied to shared memory, the column chunk is digitized straight from the
-// int64 residues into shared memory, and each of the 4 warps issues nd*2
-// mma.sync.s8 per chunk into int32 accumulators. Exactness: ≤ 9*256 terms of
-// ≤ 127^2 stay below 2^31. The epilogue recomposes (one Montgomery reduction
-// by R = 2^28 without a 128-bit product), then either applies the lazy Shoup
-// twiddle and stores transposed (stage 1) or applies two conditional
-// subtracts and stores in place (stage 2). wgmma/TMA and keeping the
-// digitized columns resident are later work.
+// Design: a block owns 16 output rows k for ALL nd planes (so the REDC
+// recompose of a coefficient happens in the block that accumulated its
+// planes) and 64 columns; it walks the contraction in chunks of 32 (one
+// mma.sync m16n8k32 step): the matrix chunk is copied to shared memory, the
+// column chunk is digitized straight from the int64 residues into shared
+// memory, and each of the 4 warps issues nd*2 mma.sync.s8 per chunk into
+// int32 accumulators. Exactness: nd*m ≤ 9*256 terms of ≤ 127^2 stay below
+// 2^31 (the host asserts it). The epilogue recomposes (one Montgomery
+// reduction by R = 2^28 without a 128-bit product), then either applies the
+// lazy Shoup twiddle or two conditional subtracts, and stores in the layout
+// the entry point asks for. Stage B's transposed load reads 16 consecutive
+// int64 of one column per thread (128 B, one cache line), so neighbouring
+// threads are a row apart: correct first, coalescing is later work, as are
+// wgmma/TMA and keeping the digitized columns resident.
 #include "common.cuh"
 
 namespace {
@@ -39,6 +59,11 @@ constexpr int THREADS = 128;
 constexpr int SPLIT_BITS = 28;   // REDC by R = 2^(7*4): the uniform plan
 constexpr int INFO = 5;          // per limb: mat_off, nd, q, qinv_r, tw_off
 
+struct Smem {
+  int8_t As[MAX_ND][TK][KC];
+  int8_t Bs[TN][KC];
+};
+
 __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
                                        const uint32_t (&b)[2]) {
   asm volatile(
@@ -48,16 +73,21 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// x: (B, L, m, c) int64, contracted over the m rows.
-// y: (B, L, c, m) when twiddle (stage 1, transposed store), else (B, L, m, c).
-__global__ void __launch_bounds__(THREADS)
-mxu_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
-                 const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
-                 const uint64_t* __restrict__ tw, int B, int L, int m, int c,
-                 int twiddle) {
-  __shared__ __align__(16) int8_t As[MAX_ND][TK][KC];
-  __shared__ __align__(16) int8_t Bs[TN][KC];
-
+// One column stage over limb blockIdx.z: contraction rows j < m, columns
+// (b, cc) with cc < c.
+//   LOAD_T:   x is (B, L, c, m) and the contraction runs along its last axis;
+//             else x is (B, L, m, c).
+//   TWIDDLE:  lazy Shoup twiddle of row k, column cc by
+//             tw[info[4] + k*tw_cols + tw_col0 + cc] (its companion m*tw_cols
+//             further on), output < 2q; else two csubs, output < q.
+//   STORE_T:  y is (B, L, c, m); else (B, L, m, c).
+template <bool LOAD_T, bool TWIDDLE, bool STORE_T>
+__device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict__ x,
+                                           uint64_t* __restrict__ y,
+                                           const int8_t* __restrict__ mats,
+                                           const int64_t* __restrict__ info,
+                                           const uint64_t* __restrict__ tw, int B, int L,
+                                           int m, int c, int tw_cols, int tw_col0) {
   const int limb = blockIdx.z;
   const int64_t* inf = info + INFO * limb;
   const int8_t* A = mats + inf[0];
@@ -85,10 +115,12 @@ mxu_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
   const int jhalf = tid >> 6;
   const int gcol = col0 + bcol;
   const bool col_ok = gcol < ncol;
+  const int64_t jstride = LOAD_T ? 1 : c;
   const uint64_t* xcol = x;
   if (col_ok) {
     const int b = gcol / c, cc = gcol - b * c;
-    xcol = x + (static_cast<int64_t>(b) * L + limb) * m * c + cc;
+    const int64_t base = static_cast<int64_t>(b) * L + limb;
+    xcol = LOAD_T ? x + (base * c + cc) * m : x + base * m * c + cc;
   }
 
   const int nchunks = width / KC;
@@ -99,7 +131,7 @@ mxu_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
     for (int v = tid; v < nd * TK * 2; v += THREADS) {
       const int e = v / (TK * 2), r = (v >> 1) % TK, half = v & 1;
       const int8_t* src = A + static_cast<int64_t>(e * m + k0 + r) * width + kc * KC + half * 16;
-      *reinterpret_cast<int4*>(&As[e][r][half * 16]) = *reinterpret_cast<const int4*>(src);
+      *reinterpret_cast<int4*>(&sm.As[e][r][half * 16]) = *reinterpret_cast<const int4*>(src);
     }
     // column chunk: digit d of x[j0 + jj][col], packed 4 per word
     uint32_t packed[4];
@@ -109,12 +141,12 @@ mxu_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
 #pragma unroll
       for (int bb = 0; bb < 4; ++bb) {
         const int jj = jhalf * 16 + w4 * 4 + bb;
-        const uint64_t v = col_ok ? xcol[static_cast<int64_t>(j0 + jj) * c] : 0;
+        const uint64_t v = col_ok ? xcol[(j0 + jj) * jstride] : 0;
         word |= (static_cast<uint32_t>(v >> (7 * d)) & 127u) << (8 * bb);
       }
       packed[w4] = word;
     }
-    *reinterpret_cast<uint4*>(&Bs[bcol][jhalf * 16]) =
+    *reinterpret_cast<uint4*>(&sm.Bs[bcol][jhalf * 16]) =
         make_uint4(packed[0], packed[1], packed[2], packed[3]);
     __syncthreads();
 
@@ -122,17 +154,17 @@ mxu_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
 #pragma unroll
     for (int nt = 0; nt < 2; ++nt) {
       const int n = warp * 16 + nt * 8 + g;
-      bf[nt][0] = *reinterpret_cast<const uint32_t*>(&Bs[n][t * 4]);
-      bf[nt][1] = *reinterpret_cast<const uint32_t*>(&Bs[n][16 + t * 4]);
+      bf[nt][0] = *reinterpret_cast<const uint32_t*>(&sm.Bs[n][t * 4]);
+      bf[nt][1] = *reinterpret_cast<const uint32_t*>(&sm.Bs[n][16 + t * 4]);
     }
 #pragma unroll
     for (int e = 0; e < MAX_ND; ++e) {
       if (e < nd) {
         uint32_t af[4];
-        af[0] = *reinterpret_cast<const uint32_t*>(&As[e][g][t * 4]);
-        af[1] = *reinterpret_cast<const uint32_t*>(&As[e][g + 8][t * 4]);
-        af[2] = *reinterpret_cast<const uint32_t*>(&As[e][g][16 + t * 4]);
-        af[3] = *reinterpret_cast<const uint32_t*>(&As[e][g + 8][16 + t * 4]);
+        af[0] = *reinterpret_cast<const uint32_t*>(&sm.As[e][g][t * 4]);
+        af[1] = *reinterpret_cast<const uint32_t*>(&sm.As[e][g + 8][t * 4]);
+        af[2] = *reinterpret_cast<const uint32_t*>(&sm.As[e][g][16 + t * 4]);
+        af[3] = *reinterpret_cast<const uint32_t*>(&sm.As[e][g + 8][16 + t * 4]);
         mma_s8(acc[e][0], af, bf[0]);
         mma_s8(acc[e][1], af, bf[1]);
       }
@@ -144,7 +176,7 @@ mxu_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
   const uint64_t mask = (1ull << SPLIT_BITS) - 1;
   const uint64_t q_lo = q & mask, q_hi = q >> SPLIT_BITS;
   const uint64_t* tw_w = tw + inf[4];
-  const uint64_t* tw_s = tw_w + static_cast<int64_t>(m) * c;
+  const uint64_t* tw_s = tw_w + static_cast<int64_t>(m) * tw_cols;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
@@ -165,29 +197,84 @@ mxu_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
       // REDC by R = 2^28: (s_lo + mm*q) / R with q = q_hi*R + q_lo
       const uint64_t mm = ((s_lo & mask) * qinv_r) & mask;
       uint64_t u = ((s_lo + mm * q_lo) >> SPLIT_BITS) + mm * q_hi + hi_grp;  // < 4q
-      const int64_t base = static_cast<int64_t>(b) * L + limb;
-      if (twiddle) {
-        const int64_t ti = static_cast<int64_t>(k) * c + cc;
+      if (TWIDDLE) {
+        const int64_t ti = static_cast<int64_t>(k) * tw_cols + tw_col0 + cc;
         u = ppq::shoup_lazy(u, tw_w[ti], tw_s[ti], q);                        // < 2q
-        y[(base * c + cc) * m + k] = u;
       } else {
         u = u >= 2 * q ? u - 2 * q : u;
         u = u >= q ? u - q : u;
-        y[(base * m + k) * c + cc] = u;
       }
+      const int64_t base = static_cast<int64_t>(b) * L + limb;
+      if (STORE_T) y[(base * c + cc) * m + k] = u;
+      else y[(base * m + k) * c + cc] = u;
     }
   }
 }
 
+// kernel 1: stage 1 (twiddle, transposed store) or stage 2 (csubs, in place)
+__global__ void __launch_bounds__(THREADS)
+mxu_ntt_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                     const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
+                     const uint64_t* __restrict__ tw, int B, int L, int m, int c,
+                     int twiddle) {
+  __shared__ __align__(16) Smem sm;
+  if (twiddle) stage_body<false, true, true>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
+  else stage_body<false, false, false>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
+}
+
+// kernel 4: stage A (twiddle from a column block of the table, no transpose)
+__global__ void __launch_bounds__(THREADS)
+mxu_stage_a_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                   const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
+                   const uint64_t* __restrict__ tw, int B, int L, int m, int c,
+                   int tw_cols, int tw_col0) {
+  __shared__ __align__(16) Smem sm;
+  stage_body<false, true, false>(sm, x, y, mats, info, tw, B, L, m, c, tw_cols, tw_col0);
+}
+
+// kernel 5: stage B (transposed load, csubs)
+__global__ void __launch_bounds__(THREADS)
+mxu_stage_b_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                   const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
+                   int B, int L, int m, int rows) {
+  __shared__ __align__(16) Smem sm;
+  stage_body<true, false, false>(sm, x, y, mats, info, nullptr, B, L, m, rows, 0, 0);
+}
+
+dim3 grid_of(int B, int L, int m, int c) { return dim3((B * c + TN - 1) / TN, m / TK, L); }
+
 }  // namespace
 
+// x: (B, L, m, c) int64, contracted over the m rows.
+// y: (B, L, c, m) when twiddle (stage 1, transposed store), else (B, L, m, c).
 extern "C" int ppq_mxu_ntt_stage(const void* x, void* y, const void* mats, const void* info,
                                  const void* tw, int B, int L, int m, int c, int twiddle,
                                  void* stream) {
-  dim3 grid((B * c + TN - 1) / TN, m / TK, L);
-  mxu_stage_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  mxu_ntt_stage_kernel<<<grid_of(B, L, m, c), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
       static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info),
       static_cast<const uint64_t*>(tw), B, L, m, c, twiddle);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// x, y: (B, L, m, c); the twiddle table of each limb is (m, tw_cols) and x
+// holds its columns [tw_col0, tw_col0 + c).
+extern "C" int ppq_mxu_stage_a(const void* x, void* y, const void* mats, const void* info,
+                               const void* tw, int B, int L, int m, int c, int tw_cols,
+                               int tw_col0, void* stream) {
+  mxu_stage_a_kernel<<<grid_of(B, L, m, c), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
+      static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info),
+      static_cast<const uint64_t*>(tw), B, L, m, c, tw_cols, tw_col0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// t: (B, L, rows, m), contracted over its last axis; y: (B, L, m, rows).
+extern "C" int ppq_mxu_stage_b(const void* t, void* y, const void* mats, const void* info,
+                               int B, int L, int m, int rows, void* stream) {
+  mxu_stage_b_kernel<<<grid_of(B, L, m, rows), THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(t), static_cast<uint64_t*>(y),
+      static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info), B, L, m, rows);
   return static_cast<int>(cudaGetLastError());
 }

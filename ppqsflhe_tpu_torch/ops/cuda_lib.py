@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (``ppqsflhe_tpu_torch/csrc``).
 
-The three kernel sources compile with nvcc into ONE shared library with a
-plain C interface, loaded with ctypes. Nothing is built when this module is
-imported: :func:`library` builds on first use, into
-``build/ppqsflhe_tpu_torch/`` under the repository root, named by a hash of
-the sources and flags so a stale library is never loaded. Every C entry
-point returns ``cudaGetLastError()`` after its launch; :func:`check` turns a
-non-zero code into an exception.
+The kernel sources compile with nvcc into ONE shared library with a plain
+C interface, loaded with ctypes: one nvcc per source, all started together,
+then one link. Nothing is built when this module is imported:
+:func:`library` builds on first use, into ``build/ppqsflhe_tpu_torch/``
+under the repository root, named by a hash of the sources and flags so a
+stale library is never loaded. Every C entry point returns
+``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero
+code into an exception.
 """
 
 from __future__ import annotations
@@ -24,12 +25,14 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppqsflhe_tpu_torch"
 SOURCES = ("mxu_ntt.cu", "base_ext.cu", "ks_ip.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes as int
 _SIGNATURES = {
     "ppq_mxu_ntt_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ppq_mxu_stage_a": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ppq_mxu_stage_b": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ppq_base_extend": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ppq_ks_inner_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -57,11 +60,25 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp)] + [str(CSRC / s) for s in SOURCES]
+    objs = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for s, o in zip(SOURCES, objs)]
+    errors = []
+    for s, p in zip(SOURCES, procs):
+        _, err = p.communicate()
+        if p.returncode != 0:
+            errors.append(f"nvcc {s} failed ({p.returncode}):\n{err[-4000:]}")
+    if not errors:
+        r = subprocess.run([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            errors.append(f"nvcc link failed ({r.returncode}):\n{r.stderr[-4000:]}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if errors:
+        raise RuntimeError("\n".join(errors))
     os.replace(tmp, out)
     build_seconds = time.perf_counter() - t0
     return out

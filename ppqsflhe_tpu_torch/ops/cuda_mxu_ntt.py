@@ -1,14 +1,22 @@
-"""Kernel 1: the digit-matmul NTT on the card, and its runner over a chain.
+"""Kernels 1, 4 and 5: the digit-matmul NTT on the card, and its runners.
 
-Twin of ``ppqsflhe_tpu.ops.pallas_mxu_ntt.PallasMxuNtt`` (``ntt``/``intt``
-over a limb subset ``idx``) folded together with the ``FourStepNtt``
-dispatch: a CPU tensor goes through the plain torch transform
-(:func:`.mxu_ntt.mxu_ntt_limb`, one limb at a time), a CUDA tensor through
-the hand-written kernel ``csrc/mxu_ntt.cu`` — two launches per transform,
-one per column stage, covering every limb and every batch entry. Limbs of
-different digit counts (60-bit nd=9, 40-bit nd=6) share a launch: each limb
-carries its own nd in the launch's info table. Outputs are canonical
-residues in the four-step kernel order, bit-equal either way.
+Twins of ``ppqsflhe_tpu.ops.pallas_mxu_ntt``: :class:`CudaMxuNtt` is
+``PallasMxuNtt`` (``ntt``/``intt`` over a limb subset ``idx``) folded
+together with the ``FourStepNtt`` dispatch, and :class:`CudaMxuNttBig` is
+``PallasMxuNttBig``, the streamed two-pass variant. All kernels are in
+``csrc/mxu_ntt.cu``:
+
+- kernel 1 (:func:`ntt_stage`, two launches per transform): the fused
+  route, the first stage storing transposed;
+- kernels 4 and 5 (:func:`stage_a`, :func:`stage_b`): the streamed pair,
+  stage A storing untransposed and stage B reading its contraction along the
+  last axis.
+
+:func:`route` reproduces the JAX runner's choice per digit-count group, so
+each limb runs through the kernels that its TPU counterpart ran. A CPU
+tensor goes through the plain torch versions (:mod:`.mxu_ntt`), a CUDA
+tensor through the kernels; outputs are canonical residues in the four-step
+kernel order, bit-equal either way.
 """
 
 from __future__ import annotations
@@ -19,31 +27,60 @@ import numpy as np
 import torch
 
 from . import cuda_lib
-from .mxu_ntt import MxuNttTables, mxu_intt_limb, mxu_ntt_limb
+from .fourstep import kernel_to_std
+from .mxu_ntt import MxuNttTables, mxu_intt_limb, mxu_ntt_limb, stage_a as plain_stage_a
+from .mxu_ntt import stage_b as plain_stage_b
 
-launches = 0          # kernel launches (two per transform) since the last reset
+launches = 0          # kernel 1 launches (two per transform) since the last reset
+launches_stage_a = 0  # kernel 4 launches
+launches_stage_b = 0  # kernel 5 launches
 INFO = 5              # per limb: matrix offset, nd, q, qinv_r, twiddle offset
 SPLIT = 4             # the kernel's REDC recompose by 2^28
 MAX_ND = 9            # csrc/mxu_ntt.cu MAX_ND
+# the JAX runner's default scoped-VMEM budget for one fused grid cell
+# (PallasMxuNtt._vmem_budget with PPQSFLHE_FUSED_VMEM_KIB unset)
+FUSED_VMEM_BUDGET = 1024 * 12896
+
+
+def route(n: int, nd: int) -> str:
+    """The JAX runner's decision, "fused" or "big", for a group of nd-digit
+    limbs at ring size n (``PallasMxuNtt._run`` with ``_group_fits`` at its
+    default budget). "fused" covers both of its fused variants, Shoup and
+    Montgomery twiddle: both run on kernel 1 here."""
+    n1 = 1 << ((n.bit_length() - 1) // 2)
+    n2 = n // n1
+    mats = (nd * n1) ** 2 + (nd * n2) ** 2
+    xbuf = 4 * n * 4
+    fits = any(2 * (mats + planes * n * 4 + xbuf) <= FUSED_VMEM_BUDGET for planes in (4, 2))
+    return "fused" if fits else "big"
+
+
+def _check_stage(name, x, y, y_shape, mats, info, tw, m):
+    cuda_lib.require(x, f"{name} x")
+    cuda_lib.require(y, f"{name} y", y_shape)
+    cuda_lib.require(info, f"{name} info", (x.shape[1], INFO))
+    tensors = [x, y, mats, info]
+    if tw is not None:
+        cuda_lib.require(tw, f"{name} twiddles")
+        tensors.append(tw)
+    if mats.dtype != torch.int8 or not mats.is_contiguous():
+        raise ValueError(f"{name} matrices must be a contiguous int8 tensor")
+    if len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name} tensors must share one device")
+    if m % 32:
+        raise ValueError(f"{name} kernel needs m % 32 == 0, got m={m}")
+    if MAX_ND * m * 127 * 127 >= 1 << 31:
+        raise ValueError(f"{name}: {MAX_ND} digits x m={m} overflow the int32 planes")
 
 
 def ntt_stage(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor,
               info: torch.Tensor, tw: torch.Tensor, twiddle: bool) -> torch.Tensor:
-    """Launch one column stage. x: (B, L, m, c) int64, contracted over m;
+    """Kernel 1, one column stage. x: (B, L, m, c) int64, contracted over m;
     y: (B, L, c, m) with ``twiddle`` (stage 1: lazy Shoup twiddle, store
     transposed) else (B, L, m, c) (stage 2: canonical residues)."""
     global launches
     B, L, m, c = x.shape
-    cuda_lib.require(x, "ntt x")
-    cuda_lib.require(y, "ntt y", (B, L, c, m) if twiddle else (B, L, m, c))
-    cuda_lib.require(info, "ntt info", (L, INFO))
-    cuda_lib.require(tw, "ntt twiddles")
-    if mats.dtype != torch.int8 or not mats.is_contiguous():
-        raise ValueError("ntt matrices must be a contiguous int8 tensor")
-    if len({t.device for t in (x, y, mats, info, tw)}) != 1:
-        raise ValueError("ntt tensors must share one device")
-    if m % 32:
-        raise ValueError(f"ntt kernel needs m % 32 == 0, got m={m}")
+    _check_stage("ntt", x, y, (B, L, c, m) if twiddle else (B, L, m, c), mats, info, tw, m)
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):
         code = lib.ppq_mxu_ntt_stage(
@@ -54,49 +91,71 @@ def ntt_stage(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor,
     return y
 
 
-class CudaMxuNtt:
-    """Forward/inverse transforms over a modulus chain: int64[..., L, N]
-    with L = len(idx) limbs of the chain."""
+def stage_a(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor, info: torch.Tensor,
+            tw: torch.Tensor, tw_cols: int, col0: int = 0) -> torch.Tensor:
+    """Kernel 4: x (B, L, m, c) int64, contracted over m → y (B, L, m, c),
+    values < 2q, no transpose. Limb l's twiddle table is (m, tw_cols) at
+    ``tw[info[l, 4]:]`` (its Shoup companions m·tw_cols further on) and x
+    holds its columns [col0, col0 + c)."""
+    global launches_stage_a
+    B, L, m, c = x.shape
+    if col0 < 0 or col0 + c > tw_cols:
+        raise ValueError(f"stage_a: columns [{col0}, {col0 + c}) outside a "
+                         f"{tw_cols}-column twiddle table")
+    _check_stage("stage_a", x, y, (B, L, m, c), mats, info, tw, m)
+    lib = cuda_lib.library()
+    with torch.cuda.device(x.device):
+        code = lib.ppq_mxu_stage_a(
+            x.data_ptr(), y.data_ptr(), mats.data_ptr(), info.data_ptr(), tw.data_ptr(),
+            B, L, m, c, tw_cols, col0, cuda_lib.stream_of(x))
+    launches_stage_a += 1
+    cuda_lib.check(code, "ppq_mxu_stage_a")
+    return y
+
+
+def stage_b(t: torch.Tensor, y: torch.Tensor, mats: torch.Tensor,
+            info: torch.Tensor) -> torch.Tensor:
+    """Kernel 5: t (B, L, rows, m) int64, values < 2q, contracted over its
+    last axis → y (B, L, m, rows) canonical residues."""
+    global launches_stage_b
+    B, L, rows, m = t.shape
+    _check_stage("stage_b", t, y, (B, L, m, rows), mats, info, None, m)
+    lib = cuda_lib.library()
+    with torch.cuda.device(t.device):
+        code = lib.ppq_mxu_stage_b(t.data_ptr(), y.data_ptr(), mats.data_ptr(),
+                                   info.data_ptr(), B, L, m, rows, cuda_lib.stream_of(t))
+    launches_stage_b += 1
+    cuda_lib.check(code, "ppq_mxu_stage_b")
+    return y
+
+
+class MxuChainTables:
+    """A chain's per-limb tables and their upload to each device: every
+    limb's four stage matrices in one int8 buffer, its twiddle pairs in one
+    int64 buffer (w then w_shoup, each row-major), and the kernels' info rows
+    per (limb subset, direction)."""
 
     _MATS = ("a1", "a2", "a2i", "a1i")
 
     def __init__(self, n: int, moduli: Sequence[int], psis: Sequence[int]):
         self.n = n
-        self.moduli = tuple(int(q) for q in moduli)
-        self.tabs = [MxuNttTables.build(n, q, int(p)) for q, p in zip(self.moduli, psis)]
+        self.tabs = [MxuNttTables.build(n, int(q), int(p)) for q, p in zip(moduli, psis)]
         self.n1, self.n2 = self.tabs[0].n1, self.tabs[0].n2
         self._dev: dict = {}
+        self._pos: dict = {}
 
-    def ntt(self, x: torch.Tensor, idx=None) -> torch.Tensor:
-        """coeff (natural order) → eval (kernel order)."""
-        return self._run(x, True, idx)
+    def positions(self, ks, device) -> torch.Tensor:
+        """Limb positions ``ks`` as a long tensor on ``device``, cached: a
+        fresh upload per call would make the host wait for the stream."""
+        key = (tuple(ks), str(device))
+        if key not in self._pos:
+            self._pos[key] = torch.tensor(ks, device=device)
+        return self._pos[key]
 
-    def intt(self, x: torch.Tensor, idx=None) -> torch.Tensor:
-        return self._run(x, False, idx)
-
-    def _run(self, x, forward, idx):
-        sel = list(range(len(self.tabs))) if idx is None else [int(i) for i in idx]
-        if x.shape[-2] != len(sel):
-            raise ValueError(f"{x.shape[-2]} limbs given for limb subset {sel}")
-        if not x.is_cuda:
-            fn = mxu_ntt_limb if forward else mxu_intt_limb
-            return torch.stack([fn(x[..., k, :], self.tabs[i]) for k, i in enumerate(sel)],
-                               dim=-2)
-        lead, L = x.shape[:-2], len(sel)
-        xb = x.reshape(-1, L, self.n).contiguous()
-        B = xb.shape[0]
-        mats, tw, info1, info2 = self._device_tables(x.device, tuple(sel), forward)
-        m1, m2 = (self.n1, self.n2) if forward else (self.n2, self.n1)
-        y = torch.empty((B, L, m2, m1), dtype=torch.int64, device=x.device)
-        ntt_stage(xb.view(B, L, m1, m2), y, mats, info1, tw, twiddle=True)
-        z = torch.empty_like(y)
-        ntt_stage(y, z, mats, info2, tw, twiddle=False)
-        return z.reshape(lead + (L, self.n))
-
-    def _device_tables(self, device, sel, forward):
-        """(matrices, twiddles, stage-1 info, stage-2 info) on ``device``;
-        the chain's tables upload once per device, the info rows once per
-        limb subset and direction."""
+    def device(self, device, sel, forward):
+        """(matrices, twiddles, first-stage info, second-stage info) on
+        ``device``; the chain's tables upload once per device, the info rows
+        once per limb subset and direction."""
         key = str(device)
         d = self._dev.get(key)
         if d is None:
@@ -125,7 +184,7 @@ class CudaMxuNtt:
                 mats=torch.as_tensor(np.concatenate(mats), device=device),
                 tw=torch.as_tensor(np.concatenate(tws).view(np.int64), device=device),
                 mat_off=mat_off, tw_off=tw_off, info={})
-        ikey = (sel, forward)
+        ikey = (tuple(sel), forward)
         if ikey not in d["info"]:
             first, second = ("a1", "a2") if forward else ("a2i", "a1i")
             rows = lambda name, with_tw: [
@@ -136,3 +195,124 @@ class CudaMxuNtt:
                 torch.as_tensor(np.array(rows(name, tw), np.int64), device=device)
                 for name, tw in ((first, True), (second, False)))
         return (d["mats"], d["tw"]) + d["info"][ikey]
+
+    def plain_mats(self, sel, name, device) -> torch.Tensor:
+        """The stage matrices of limbs ``sel`` stacked, int8 (L, nd·m, nd·m)."""
+        return torch.as_tensor(np.stack([self.tabs[i].stage_matrix(name) for i in sel]),
+                               device=device)
+
+    def twiddles(self, sel, forward):
+        """The twiddle (w, w_shoup) of limbs ``sel``, uint64 (L, m, cols)."""
+        pairs = [self.tabs[i].t1 if forward else self.tabs[i].t1i for i in sel]
+        return tuple(np.stack([p[j] for p in pairs]) for j in (0, 1))
+
+
+def _limb_subset(x, nlimbs, idx, n):
+    sel = list(range(nlimbs)) if idx is None else [int(i) for i in idx]
+    if x.shape[-2] != len(sel) or x.shape[-1] != n:
+        raise ValueError(f"{tuple(x.shape[-2:])} limbs x coefficients given for limb "
+                         f"subset {sel} at N={n}")
+    return sel
+
+
+def _by_group(tables, x, sel, key, run):
+    """Split the limbs ``sel`` of x (limb axis -2) by ``key(limb)``, call
+    ``run(part, limbs, key)`` on each group, and put the results back in
+    the input's limb order."""
+    groups: dict = {}
+    for k, i in enumerate(sel):
+        groups.setdefault(key(i), []).append(k)
+    if len(groups) == 1:
+        return run(x, sel, next(iter(groups)))
+    out = torch.empty_like(x)
+    for g, ks in groups.items():
+        pos = tables.positions(ks, x.device)
+        out.index_copy_(-2, pos, run(x.index_select(-2, pos), [sel[k] for k in ks], g))
+    return out
+
+
+class CudaMxuNttBig:
+    """The streamed pair over a chain: per digit-count group, stage A
+    (kernel 4) then stage B (kernel 5), with no transpose between them.
+    int64[..., L, N] with L = len(idx) limbs of the chain."""
+
+    def __init__(self, tables: MxuChainTables):
+        self.tables = tables
+        self.n, self.n1, self.n2 = tables.n, tables.n1, tables.n2
+
+    def ntt(self, x: torch.Tensor, idx=None) -> torch.Tensor:
+        return self._run(x, True, idx)
+
+    def intt(self, x: torch.Tensor, idx=None) -> torch.Tensor:
+        return self._run(x, False, idx)
+
+    def _run(self, x, forward, idx):
+        tabs = self.tables.tabs
+        sel = _limb_subset(x, len(tabs), idx, self.n)
+        return _by_group(self.tables, x, sel, lambda i: tabs[i].nd,
+                         lambda part, sub, nd: self._group(part, forward, sub))
+
+    def _group(self, x, forward, sel):
+        lead, L = x.shape[:-2], len(sel)
+        m1, m2 = (self.n1, self.n2) if forward else (self.n2, self.n1)
+        xb = x.reshape(-1, L, m1, m2)
+        first, second = ("a1", "a2") if forward else ("a2i", "a1i")
+        if not x.is_cuda:
+            t = self.tables
+            y = plain_stage_a(xb, t.plain_mats(sel, first, x.device), t.twiddles(sel, forward),
+                              [t.tabs[i] for i in sel])
+            z = plain_stage_b(y, t.plain_mats(sel, second, x.device), [t.tabs[i] for i in sel])
+            return z.reshape(lead + (L, self.n))
+        xb = xb.contiguous()
+        mats, tw, info1, info2 = self.tables.device(x.device, sel, forward)
+        y = stage_a(xb, torch.empty_like(xb), mats, info1, tw, m2)
+        z = torch.empty((xb.shape[0], L, m2, m1), dtype=torch.int64, device=x.device)
+        stage_b(y, z, mats, info2)
+        return z.reshape(lead + (L, self.n))
+
+
+class CudaMxuNtt:
+    """Forward/inverse transforms over a modulus chain: int64[..., L, N]
+    with L = len(idx) limbs of the chain. Limbs whose digit-count group
+    routes "fused" run kernel 1 together (two launches for all of them);
+    "big" groups run through :class:`CudaMxuNttBig`."""
+
+    def __init__(self, n: int, moduli: Sequence[int], psis: Sequence[int]):
+        self.tables = MxuChainTables(n, moduli, psis)
+        self.n, self.tabs = n, self.tables.tabs
+        self.n1, self.n2 = self.tables.n1, self.tables.n2
+        self.big = CudaMxuNttBig(self.tables)
+        self.perm_to_std = kernel_to_std(n)          # std[b] = kernel[perm[b]]
+
+    def ntt(self, x: torch.Tensor, idx=None) -> torch.Tensor:
+        """coeff (natural order) → eval (kernel order)."""
+        return self._run(x, True, idx)
+
+    def intt(self, x: torch.Tensor, idx=None) -> torch.Tensor:
+        return self._run(x, False, idx)
+
+    def _run(self, x, forward, idx):
+        sel = _limb_subset(x, len(self.tabs), idx, self.n)
+        return _by_group(
+            self.tables, x, sel, lambda i: route(self.n, self.tabs[i].nd),
+            lambda part, sub, r: (self.fused(part, forward, sub) if r == "fused"
+                                  else self.big._run(part, forward, sub)))
+
+    def fused(self, x: torch.Tensor, forward: bool, sel) -> torch.Tensor:
+        """The fused route over limbs ``sel`` of the chain, whatever
+        :func:`route` says: kernel 1 on the card, :func:`.mxu_ntt.mxu_ntt_limb`
+        per limb on the CPU."""
+        if not x.is_cuda:
+            fn = mxu_ntt_limb if forward else mxu_intt_limb
+            return torch.stack([fn(x[..., k, :], self.tabs[i]) for k, i in enumerate(sel)],
+                               dim=-2)
+        lead, L = x.shape[:-2], len(sel)
+        xb = x.reshape(-1, L, self.n).contiguous()
+        B = xb.shape[0]
+        mats, tw, info1, info2 = self.tables.device(x.device, sel, forward)
+        m1, m2 = (self.n1, self.n2) if forward else (self.n2, self.n1)
+        y = torch.empty((B, L, m2, m1), dtype=torch.int64, device=x.device)
+        ntt_stage(xb.view(B, L, m1, m2), y, mats, info1, tw, twiddle=True)
+        z = torch.empty_like(y)
+        ntt_stage(y, z, mats, info2, tw, twiddle=False)
+        return z.reshape(lead + (L, self.n))

@@ -24,8 +24,10 @@ to every four-step implementation of the JAX package.
 The table builders are the JAX package's host numpy code; the twiddles are
 kept as (w, ⌊w·2^64/q⌋) 64-bit pairs instead of u32 quads. The plain
 transforms (:func:`mxu_ntt_limb`, :func:`mxu_intt_limb`) run the int8
-product through ``torch._int_mm``; the CUDA kernel that replaces them on the
-card is :mod:`.cuda_mxu_ntt`.
+product through ``torch._int_mm``. :func:`stage_a` and :func:`stage_b` are
+the same transform cut at the transpose into two passes (the streamed pair
+of ``PallasMxuNttBig``). The CUDA kernels that replace all of them on the
+card are in :mod:`.cuda_mxu_ntt`.
 """
 
 from __future__ import annotations
@@ -144,6 +146,8 @@ class MxuNttTables:
         # shares one plan (the CUDA kernel assumes it, like the fused
         # Pallas kernel did)
         pmax = 127 * 127 * nd * max(n1, n2)
+        if pmax >= 1 << 31:     # the int8 product accumulates in int32
+            raise ValueError(f"{nd} digits x {max(n1, n2)} rows overflow int32 planes")
         plan = None
         for split in (4, 3, 2, 1):
             r_bits = DIGIT_BITS * split
@@ -251,3 +255,24 @@ def mxu_intt_limb(x: torch.Tensor, tabs: MxuNttTables) -> torch.Tensor:
     y = _twiddle(y, tabs.t1i, q).transpose(-1, -2)                # (..., n1, n2)
     y = _stage(y, _mat(tabs, "a1i", x.device), tabs)
     return _strict(y, q).reshape(x.shape)
+
+
+# ---------------------------------------------------------------------------
+# The two stages as separate passes (the streamed pair of PallasMxuNttBig)
+# ---------------------------------------------------------------------------
+
+def stage_a(x: torch.Tensor, mats: torch.Tensor, tw, tabs) -> torch.Tensor:
+    """First column stage with no transpose: x int64 (B, L, m, cols),
+    contracted over m → (B, L, m, cols), values < 2q. ``mats``: int8
+    (L, nd·m, nd·m), each limb's first-stage matrix; ``tw``: the twiddle
+    (w, w_shoup) as uint64 numpy arrays (L, m, cols), already sliced to the
+    columns of x; ``tabs``: the L limbs' tables."""
+    return torch.stack([_twiddle(_stage(x[:, l], mats[l], t), (tw[0][l], tw[1][l]), t.q)
+                        for l, t in enumerate(tabs)], dim=1)
+
+
+def stage_b(t: torch.Tensor, mats: torch.Tensor, tabs) -> torch.Tensor:
+    """Second column stage: t (B, L, rows, m_out), values < 2q, transposed
+    and contracted over m_out → (B, L, m_out, rows) canonical residues."""
+    return torch.stack([_strict(_stage(t[:, l].transpose(-1, -2), mats[l], tb), tb.q)
+                        for l, tb in enumerate(tabs)], dim=1)

@@ -18,6 +18,7 @@ MODULES = [
     "ppqsflhe_tpu_torch.core.rns",
     "ppqsflhe_tpu_torch.core.sampling",
     "ppqsflhe_tpu_torch.ops.mxu_ntt",
+    "ppqsflhe_tpu_torch.ops.fourstep",
     "ppqsflhe_tpu_torch.ops.cuda_lib",
     "ppqsflhe_tpu_torch.ops.cuda_mxu_ntt",
     "ppqsflhe_tpu_torch.ops.cuda_ext",
