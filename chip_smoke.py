@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU.
 
-Drives the port's two paths through ``ppqsflhe_tpu_torch``:
+Drives the port's paths through ``ppqsflhe_tpu_torch``:
 
 - **the server round** of ``bench.py`` (2 clients × 27 ciphertexts at
   N=2^14, the ``CkksParams.generate(n=2^14, mult_depth=2, dnum=2)`` chain),
@@ -10,7 +10,17 @@ Drives the port's two paths through ``ppqsflhe_tpu_torch``:
   {1, 2, 4, …, 128} of one ciphertext at N=2^15 on
   ``CkksParams.generate(n=2^15, mult_depth=2, dnum=2)``: Q = 60/40/40 bits,
   P = 2 × 60 bits), plain, hoisted and as a double-hoisted rotation sum,
-  plus one packed inner product.
+  plus one packed inner product;
+- **the NTT north star** of ``bench_kernels.py:53-99`` (the four-step
+  runner over ``first_prime_down(59, 2N)`` + 3 × 40-bit primes, chained
+  transforms, forward then inverse) at N=2^14 (B=27) and N=2^16 (B=8), in
+  both implementations: the digit-matmul route (kernel 1 at 2^14; kernels
+  4+5 and 1b at 2^16) and the butterfly, kernel 6;
+- **the server round at N=2^16** (``ring_dim: 65536`` with the reference's
+  other CC settings, 8192 slots), both schedules: kernel 1b on the 40-bit
+  limbs, kernels 4+5 on the 60-bit ones, 2, and 3 at full level;
+- **the butterfly configuration** of the N=2^14 round (``ntt_impl="pallas"``:
+  kernel 6 runs every NTT), both schedules, bit-equal to the default round.
 
 For each path:
 
@@ -26,7 +36,16 @@ For each path:
    hoisted error < 1e-3, plain bit-equal to hoisted, rotation sum < 1e-2;
    the inner product within 1e-3 of np.dot);
 4. times it: ms/round per schedule, µs/rotation for plain, hoisted and
-   rotation sum (CUDA events, median of 20 after warm-up).
+   rotation sum (CUDA events, median of 20 after warm-up), µs per limb-NTT
+   and limb-NTT/s (profiler device time and CUDA-event wall).
+
+Each kernel row carries its bound: the least time the card could take for
+the same work, the larger of the bytes it must move (each input read once,
+each output written once) over 3.35 TB/s and its int8 operations over
+1,979 T/s (H100 SXM; the 64-bit integer work of the butterflies and base
+extensions has no published rate, so their bound is the bytes). No PyTorch
+call computes an NTT, base extension or key inner product mod q, so
+``library_ms`` is null in every row.
 
 Then it prints a JSON line of per-kernel results, the card line, and finally
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code ≠ 0). Needs
@@ -54,6 +73,10 @@ sys.path.insert(0, REPO)
 
 N_ROUND = 1 << 14
 N_ROT = 1 << 15
+N_BIG = 1 << 16      # the CLI's ring_dim: 65536
+SLOTS = 8192         # the reference's batch_size
+NTT_SIZES = ((1 << 14, 4, 27), (1 << 16, 4, 8))   # (N, L, B) of bench_kernels.py:53
+NTT_CHAIN = 20       # chained transforms per implementation and direction
 N_CTS = 27           # ciphertexts per client (the reference payload's count)
 ERR_GATE = 1e-3      # bench.py's gate; bench_rotations.py's for a rotation
 SUM_GATE = 1e-2      # bench_rotations.py's gate for the rotation sum
@@ -63,17 +86,66 @@ ROTS = [1, 2, 4, 8, 16, 32, 64, 128]
 K1, K2, K3 = ("ppqsflhe_tpu/ops/pallas_mxu_ntt.py:390", "ppqsflhe_tpu/ops/pallas_ext.py:167",
               "ppqsflhe_tpu/ops/pallas_ks.py:127")
 K4, K5 = "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:512", "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:566"
+K1B, K6 = "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:347", "ppqsflhe_tpu/ops/pallas_ntt.py:207"
 SRC_NTT = "ppqsflhe_tpu_torch/csrc/mxu_ntt.cu"
+SRC_FS = "ppqsflhe_tpu_torch/csrc/fourstep_ntt.cu"
 SRC_EXT = "ppqsflhe_tpu_torch/csrc/base_ext.cu"
 SRC_KS = "ppqsflhe_tpu_torch/csrc/ks_ip.cu"
 # launch counter → (module under ppqsflhe_tpu_torch.ops, attribute, kernel symbol)
 COUNTERS = {
     "mxu_ntt": ("cuda_mxu_ntt", "launches", "mxu_ntt_stage_kernel"),
+    "mxu_ntt_mont": ("cuda_mxu_ntt", "launches_mont", "mxu_ntt_stage_mont_kernel"),
     "mxu_stage_a": ("cuda_mxu_ntt", "launches_stage_a", "mxu_stage_a_kernel"),
     "mxu_stage_b": ("cuda_mxu_ntt", "launches_stage_b", "mxu_stage_b_kernel"),
     "base_extend": ("cuda_ext", "launches", "base_extend_kernel"),
     "ks_inner_product": ("cuda_ks", "launches", "ks_ip_kernel"),
+    "fourstep_ntt": ("cuda_ntt", "launches", "fourstep_ntt_kernel"),
 }
+HBM_BPS = 3.35e12    # H100 SXM device memory, bytes/s
+INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core ops/s (a multiply-add is 2)
+
+
+def bound(work) -> tuple:
+    """(ms, "bytes" or "operations"): the least time for ``work`` =
+    (bytes moved, int8 operations)."""
+    t_bytes, t_ops = work[0] / HBM_BPS, work[1] / INT8_OPS
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def mxu_work(tabs, B, twiddle_bytes=16):
+    """A whole digit-matmul transform of B polys over limbs with tables
+    ``tabs``: x in and out, both stage matrices, the twiddle table."""
+    nbytes = ops = 0
+    for t in tabs:
+        a, b = (t.nd * t.n1) ** 2, (t.nd * t.n2) ** 2
+        nbytes += 16 * B * t.n + a + b + twiddle_bytes * t.n
+        ops += 2 * B * (a * t.n2 + b * t.n1)
+    return nbytes, ops
+
+
+def stage_work(tabs, B, m, c, twiddle):
+    """One streamed stage over an (m, c) block of B polys per limb."""
+    nbytes = ops = 0
+    for t in tabs:
+        a = (t.nd * m) ** 2
+        nbytes += 16 * B * m * c + a + (16 * m * c if twiddle else 0)
+        ops += 2 * B * a * c
+    return nbytes, ops
+
+
+def butterfly_work(L, B, n1, n2):
+    """A kernel-6 transform of B polys over L limbs: x in and out, two
+    (value, companion) elementwise tables and the Pease stage tables."""
+    stages = 16 * ((n1.bit_length() - 1) * n1 // 2 + (n2.bit_length() - 1) * n2 // 2)
+    return L * (16 * B * n1 * n2 + 32 * n1 * n2 + stages), 0
+
+
+def ext_work(B, ls, ld, n):
+    return 8 * (B * n * (ls + ld) + 4 * ls + 3 * ld + 2 * ls * ld), 0
+
+
+def ks_work(B, nd, lk, n):
+    return 8 * n * lk * (B * nd + 2 * nd + 2 * B), 0
 
 
 def sh(cmd) -> str:
@@ -114,17 +186,17 @@ def cuda_ms(fn, iters: int, warmup: int = 2):
 def device_events(fn, iters: int = 1, symbol: str | None = None, expect: int | None = None):
     """The device activities (kernels, copies) of ``iters`` calls of ``fn``
     under torch.profiler whose name holds ``symbol`` (all when None), as
-    (name, µs) pairs. Now and then a profile lacks some or all of the
-    activities of calls that ran (on the H100, about one case in twenty),
-    so: with ``expect``, the first of three profiles that holds exactly
-    ``expect`` activities is taken ([] if none does); without it, the
-    fuller of two."""
+    (name, µs) pairs. A profile may lack some activities of calls that ran
+    (on the H100, now and then at N ≤ 2^15; one or two of every window
+    once the N=2^16 phases have run), so: with ``expect``, the first of
+    three profiles that holds exactly ``expect`` activities, else the
+    fullest of them; without it, the fuller of two."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    best = []
+    best, seen = [], []
     for _ in range(3 if expect is not None else 2):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -135,16 +207,28 @@ def device_events(fn, iters: int = 1, symbol: str | None = None, expect: int | N
                and (symbol is None or symbol in e.name)]
         if expect is not None and len(evs) == expect:
             return evs
-        if expect is None and len(evs) > len(best):
+        seen.append(len(evs))
+        if len(evs) > len(best):
             best = evs
+    if expect is not None:
+        print(f"[profiler] {symbol}: {seen} activities in three profiles, {expect} launched")
     return best
 
 
 def device_ms(fn, iters: int, symbol: str | None = None, expect: int | None = None):
     """Device ms per call of the activities :func:`device_events` returns;
-    None when it returns none."""
+    None when it returns none. With ``expect``, a profile short of launches
+    counts each missing one at the mean of those it holds, if it holds at
+    least half of them (else None)."""
     evs = device_events(fn, iters, symbol, expect)
-    return sum(us for _, us in evs) / iters / 1e3 if evs else None
+    if not evs or (expect is not None and 2 * len(evs) < expect):
+        return None
+    total = sum(us for _, us in evs) * (expect / len(evs) if expect else 1)
+    return total / iters / 1e3
+
+
+def show_us(ms):
+    return "not measured" if ms is None else f"{ms * 1e3:.1f} us"
 
 
 def rand_residues(moduli, shape, n, gen, device):
@@ -164,7 +248,8 @@ class KernelCases:
         self.card = card
         self.rows = []
 
-    def check(self, name, counter, source, replaces, got, want, fn, plain_fn, iters):
+    def check(self, name, counter, source, replaces, got, want, fn, plain_fn, iters, work):
+        """``work``: (bytes, int8 operations) of one call, for its bound."""
         import torch
 
         if not torch.equal(got, want):
@@ -179,16 +264,20 @@ class KernelCases:
         dev = device_ms(fn, iters, symbol, expect=per_call * iters)
         plain_dev = device_ms(plain_fn, max(2, iters // 5))
         if dev is None or plain_dev is None:
-            print(f"[kernel] {name}: no profile held every launch; device time not measured")
+            print(f"[kernel] {name}: no profile held half the launches; device time not measured")
         timing = "profiler" if dev is not None and plain_dev is not None else "cuda_events"
-        show = lambda v: "not measured" if v is None else f"{v * 1e3:.1f} us"
-        print(f"[kernel] {name}: bit-equal to plain; device time per call: kernel {show(dev)} "
-              f"({per_call:g} launches of {symbol}), plain {show(plain_dev)}; wall mean per "
-              f"call: kernel {wall * 1e3:.1f} us, plain {plain_wall * 1e3:.1f} us ({self.card})")
+        bound_ms, bound_by = bound(work)
+        print(f"[kernel] {name}: bit-equal to plain; device time per call: kernel "
+              f"{show_us(dev)} ({per_call:g} launches of {symbol}), plain {show_us(plain_dev)}; "
+              f"wall mean per "
+              f"call: kernel {wall * 1e3:.1f} us, plain {plain_wall * 1e3:.1f} us; bound "
+              f"{bound_ms * 1e3:.2f} us by {bound_by} ({work[0] / 1e6:.2f} MB, "
+              f"{work[1] / 1e9:.2f} G int8 ops) ({self.card})")
         self.rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, counter=counter,
             max_abs_err=err, ms=dev if timing == "profiler" else wall,
             plain_ms=plain_dev if timing == "profiler" else plain_wall,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
             timing=timing, wall_ms=wall, plain_wall_ms=plain_wall))
 
     def take_launches(self, counts: dict) -> list:
@@ -205,6 +294,7 @@ class KernelCases:
 
 def round_kernel_checks(cases, sch, rk_mont, gen, device):
     """Each kernel against its plain version at the round's shapes."""
+    import numpy as np
     import torch
 
     from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
@@ -219,14 +309,16 @@ def round_kernel_checks(cases, sch, rk_mont, gen, device):
     # q1: nd=6) over both components of 27 ciphertexts
     idx = (0, 1)
     x = rand_residues([mq[i] for i in idx], (2 * N_CTS,), n, gen, device)
+    tabs = [ctx.fntt.tabs[i] for i in idx]
     plain_ntt = lambda v: torch.stack(
-        [mxu_ntt.mxu_ntt_limb(v[:, k], ctx.fntt.tabs[i]) for k, i in enumerate(idx)], dim=1)
+        [mxu_ntt.mxu_ntt_limb(v[:, k], t) for k, t in enumerate(tabs)], dim=1)
     got = ctx.ntt(x, idx)
     cases.check(f"mxu_ntt (forward, 2 limbs x {2 * N_CTS} polys, N=2^14)", "mxu_ntt", SRC_NTT,
-                K1, got, plain_ntt(x), lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20)
+                K1, got, plain_ntt(x), lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20,
+                mxu_work(tabs, 2 * N_CTS))
     back = ctx.intt(got, idx)
     plain_back = torch.stack(
-        [mxu_ntt.mxu_intt_limb(got[:, k], ctx.fntt.tabs[i]) for k, i in enumerate(idx)], dim=1)
+        [mxu_ntt.mxu_intt_limb(got[:, k], t) for k, t in enumerate(tabs)], dim=1)
     if not (torch.equal(back, plain_back) and torch.equal(back, x)):
         raise AssertionError("mxu_ntt inverse differs from plain version or input")
 
@@ -248,7 +340,8 @@ def round_kernel_checks(cases, sch, rk_mont, gen, device):
                         f"{'x'.join(map(str, lead))} polys, N=2^14)", "base_extend", SRC_EXT, K2,
                         cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
                         lambda: cuda_ext.fused_extend(xe, ext, pre),
-                        lambda: ext.extend(xe, pre), 50)
+                        lambda: ext.extend(xe, pre), 50,
+                        ext_work(int(np.prod(lead)), len(src), len(dst), n))
 
     # kernel 3: the full-level inner product, nd=2 digits over LK=5 limbs
     limbs = tuple(range(L + K))
@@ -260,7 +353,8 @@ def round_kernel_checks(cases, sch, rk_mont, gen, device):
     cases.check(f"ks_inner_product (nd={nd}, LK={len(limbs)}, {N_CTS} polys, N=2^14)",
                 "ks_inner_product", SRC_KS, K3,
                 ks_inner_product(*args), ks_inner_product_plain(*args),
-                lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50)
+                lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50,
+                ks_work(N_CTS, nd, len(limbs), n))
     torch.cuda.synchronize()
 
 
@@ -275,20 +369,23 @@ def max_err(sch, sk, cts, want):
     return err
 
 
-def round_phase(card, device, profile_on):
-    """The server round: set-up, kernel checks, main path, decrypt, timing.
-    Returns the kernels' JSON rows."""
+def round_world(n, device, slots=0):
+    """Seeded keys, rekeys (Montgomery form) and 2 × N_CTS encryptions of
+    uniform(-1, 1) payloads for the server round on the
+    ``CkksParams.generate(n, mult_depth=2, scale_bits=40, dnum=2)`` chain."""
+    import types
+
     import numpy as np
     import torch
 
     from ppqsflhe_tpu_torch.ckks import eval as ev
     from ppqsflhe_tpu_torch.ckks.params import CkksParams
     from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
-    from ppqsflhe_tpu_torch.fl.api import server_round
 
     t0 = time.perf_counter()
-    params = CkksParams.generate(n=N_ROUND, mult_depth=2, scale_bits=40, dnum=2)
+    params = CkksParams.generate(n=n, mult_depth=2, scale_bits=40, dnum=2, slots=slots)
     sch = CkksScheme(params, device=device)
+    t_ctx = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(SEED)
     sk1, pk1 = sch.keygen(gen)
     sk2, pk2 = sch.keygen(gen)
@@ -301,53 +398,94 @@ def round_phase(card, device, profile_on):
     ct1 = sch.encrypt_values(pk1, v1, gen)
     ct2 = sch.encrypt_values(pk2, v2, gen)
     torch.cuda.synchronize()
-    print(f"[setup] N={N_ROUND}, Q={[q.bit_length() for q in params.q_moduli]} bits, "
-          f"P={[p.bit_length() for p in params.p_moduli]} bits, dnum={params.dnum}; "
-          f"keys, rekeys and 2x{N_CTS} encryptions in {time.perf_counter() - t0:.1f} s")
+    print(f"[setup] N={n}, Q={[q.bit_length() for q in params.q_moduli]} bits, "
+          f"P={[p.bit_length() for p in params.p_moduli]} bits, dnum={params.dnum}, "
+          f"{slots} slots; context {t_ctx:.1f} s, then keys, rekeys and 2x{N_CTS} "
+          f"encryptions in {time.perf_counter() - t0 - t_ctx:.1f} s")
+    return types.SimpleNamespace(sch=sch, gen=gen, sk1=sk1, sk2=sk2, rk12=rk12, rk21=rk21,
+                                 ct1=ct1, ct2=ct2, want=(np.array(v1) + np.array(v2)) / 2)
 
-    cases = KernelCases(card)
-    round_kernel_checks(cases, sch, rk12, gen, device)
 
-    # the main path, once per schedule, with fresh launch counters
-    want = (np.array(v1) + np.array(v2)) / 2
+def drive_round(tag, sch, w, need, absent=()):
+    """The main path: one round per schedule with fresh launch counters.
+    Requires the kernels ``need[lazy]`` to have launched and ``absent`` not
+    to have, checks the decrypted outputs against the plaintext mean, and
+    returns (outputs by schedule, launch counts of both schedules)."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.fl.api import server_round
+
     reset_counts()
     outs, per_sched = {}, {}
     for lazy in (4, 0):
         before = read_counts()
-        outs[lazy] = server_round(sch, ct1, ct2, rk12, rk21, lazy)
+        outs[lazy] = server_round(sch, w.ct1, w.ct2, w.rk12, w.rk21, lazy)
         torch.cuda.synchronize()
         per_sched[lazy] = {k: v - before[k] for k, v in read_counts().items()}
     launches = read_counts()
-    for lazy, need in ((4, ("mxu_ntt", "base_extend")),
-                       (0, ("mxu_ntt", "base_extend", "ks_inner_product"))):
-        print(f"[round lazy={lazy}] kernel launches: {per_sched[lazy]}")
-        missing = [k for k in need if per_sched[lazy][k] == 0]
+    for lazy in (4, 0):
+        print(f"[{tag} lazy={lazy}] kernel launches: "
+              f"{ {k: v for k, v in per_sched[lazy].items() if v} }")
+        missing = [k for k in need[lazy] if per_sched[lazy][k] == 0]
         if missing:
-            raise AssertionError(f"schedule lazy={lazy} never launched {missing}")
+            raise AssertionError(f"{tag}: schedule lazy={lazy} never launched {missing}")
+    wrong = [k for k in absent if launches[k]]
+    if wrong:
+        raise AssertionError(f"{tag}: launched {wrong}, which this configuration must not run")
     for lazy in (4, 0):
         avg, back = outs[lazy]
-        e2 = max_err(sch, sk2, avg, want)
-        e1 = max_err(sch, sk1, back, want)
-        print(f"[round lazy={lazy}] decrypt max err: average under sk2 {e2:.3e}, "
+        e2 = max_err(sch, w.sk2, avg, w.want)
+        e1 = max_err(sch, w.sk1, back, w.want)
+        print(f"[{tag} lazy={lazy}] decrypt max err: average under sk2 {e2:.3e}, "
               f"re-encrypted under sk1 {e1:.3e} (gate {ERR_GATE}); output "
               f"{tuple(back.data.shape)} at {back.nlimbs} limb(s)")
         if not (np.isfinite(e1) and np.isfinite(e2) and max(e1, e2) < ERR_GATE):
-            raise AssertionError(f"lazy={lazy}: decrypt error {max(e1, e2)} over the gate")
+            raise AssertionError(f"{tag} lazy={lazy}: decrypt error {max(e1, e2)} over the gate")
+    return outs, launches
 
-    # ms/round per schedule: median of per-round CUDA-event times
+
+def host_ms(fn):
+    """Median host milliseconds to enqueue one call of ``fn`` (the host
+    clock around the call, the device drained before each)."""
+    import torch
+
+    times = []
+    for _ in range(ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def time_round(tag, sch, w, card, profile_on):
+    """ms/round per schedule (median of per-round CUDA-event times), the
+    host's enqueue time, and the device time by kernel of one round."""
+    from ppqsflhe_tpu_torch.fl.api import server_round
+
     for lazy in (4, 0):
-        times = median_ms(lambda: server_round(sch, ct1, ct2, rk12, rk21, lazy), 3)
-        print(f"[timing lazy={lazy}] server round {statistics.median(times):.3f} ms/round "
-              f"(median of {len(times)}, min {min(times):.3f}, max {max(times):.3f}; "
-              f"2x{N_CTS} ciphertexts, N={N_ROUND}; {card})")
-        busy_line(f"round lazy={lazy}", lambda: server_round(sch, ct1, ct2, rk12, rk21, lazy),
-                  statistics.median(times))
+        run = lambda: server_round(sch, w.ct1, w.ct2, w.rk12, w.rk21, lazy)
+        times = median_ms(run, 3)
+        print(f"[timing {tag} lazy={lazy}] server round {statistics.median(times):.3f} ms/round "
+              f"(median of {len(times)}, min {min(times):.3f}, max {max(times):.3f}; host "
+              f"enqueue {host_ms(run):.3f} ms; 2x{N_CTS} ciphertexts, N={sch.params.n}; {card})")
+        busy_line(f"{tag} lazy={lazy}", run, statistics.median(times))
+        if profile_on:
+            profile_table(f"{tag} lazy={lazy}", run)
 
-    if profile_on:
-        for lazy in (4, 0):
-            profile_table(f"round lazy={lazy}",
-                          lambda: server_round(sch, ct1, ct2, rk12, rk21, lazy))
-    return cases.take_launches(launches)
+
+def round_phase(card, device, profile_on):
+    """The server round: set-up, kernel checks, main path, decrypt, timing.
+    Returns the kernels' JSON rows, the round's world and its outputs."""
+    w = round_world(N_ROUND, device)
+    cases = KernelCases(card)
+    round_kernel_checks(cases, w.sch, w.rk12, w.gen, device)
+    outs, launches = drive_round("round", w.sch, w, {
+        4: ("mxu_ntt", "base_extend"), 0: ("mxu_ntt", "base_extend", "ks_inner_product")})
+    time_round("round", w.sch, w, card, profile_on)
+    return cases.take_launches(launches), w, outs
 
 
 def median_ms(fn, warmup: int):
@@ -441,12 +579,14 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
         run_a = lambda: cuda_mxu_ntt.stage_a(x, ya, mats, info1, tw, m2)
         plain_a = lambda: mxu_ntt.stage_a(x, pm1, twp, tabs)
         cases.check(f"mxu_stage_a ({tag})", "mxu_stage_a", SRC_NTT, K4,
-                    run_a().clone(), plain_a(), run_a, plain_a, 20)
+                    run_a().clone(), plain_a(), run_a, plain_a, 20,
+                    stage_work(tabs, lead[0], m1, m2, True))
         zb = torch.empty((lead[0], len(sel), m2, m1), dtype=torch.int64, device=device)
         run_b = lambda: cuda_mxu_ntt.stage_b(ya, zb, mats, info2)
         plain_b = lambda: mxu_ntt.stage_b(ya, pm2, tabs)
         cases.check(f"mxu_stage_b ({tag})", "mxu_stage_b", SRC_NTT, K5,
-                    run_b().clone(), plain_b(), run_b, plain_b, 20)
+                    run_b().clone(), plain_b(), run_b, plain_b, 20,
+                    stage_work(tabs, lead[0], m2, m1, False))
         # stage A on one half of the columns, reading its slice of the table
         h = m2 // 2
         xh = x[..., h:].contiguous()
@@ -479,7 +619,8 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
         [mxu_ntt.mxu_ntt_limb(v[:, k], fntt.tabs[i]) for k, i in enumerate(idx)], dim=1)
     got = ctx.ntt(x, idx)
     cases.check(f"mxu_ntt (forward, limbs {list(idx)} x 2 polys, N=2^15)", "mxu_ntt", SRC_NTT,
-                K1, got, plain_ntt(x), lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20)
+                K1, got, plain_ntt(x), lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20,
+                mxu_work([fntt.tabs[i] for i in idx], 2))
     if not torch.equal(ctx.intt(got, idx), x):
         raise AssertionError("mxu_ntt inverse at N=2^15 does not give the input back")
 
@@ -497,7 +638,8 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
         cases.check(f"base_extend ({len(src)}->{len(dst)} limbs, {tag}, {lead[0]} poly(s), "
                     f"N=2^15)", "base_extend", SRC_EXT, K2,
                     cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
-                    lambda: cuda_ext.fused_extend(xe, ext, pre), lambda: ext.extend(xe, pre), 50)
+                    lambda: cuda_ext.fused_extend(xe, ext, pre), lambda: ext.extend(xe, pre), 50,
+                    ext_work(lead[0], len(src), len(dst), n))
 
     # kernel 3: one rotation's inner product, nd=2 digits over LK=5 limbs
     limbs = tuple(range(L + K))
@@ -509,7 +651,8 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
     cases.check(f"ks_inner_product (nd={nd}, LK={len(limbs)}, 1 poly, N=2^15)",
                 "ks_inner_product", SRC_KS, K3,
                 ks_inner_product(*args), ks_inner_product_plain(*args),
-                lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50)
+                lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50,
+                ks_work(1, nd, len(limbs), n))
     torch.cuda.synchronize()
 
 
@@ -559,7 +702,8 @@ def rotation_phase(card, device, profile_on):
     launches = read_counts()
     print(f"[rotations] kernel launches (R={len(ROTS)} plain + hoisted + rotation sum): "
           f"{launches}")
-    missing = [k for k, c in launches.items() if c == 0]
+    missing = [k for k in ("mxu_ntt", "mxu_stage_a", "mxu_stage_b", "base_extend",
+                           "ks_inner_product") if launches[k] == 0]
     if missing:
         raise AssertionError(f"the rotation path never launched {missing}")
 
@@ -591,6 +735,303 @@ def rotation_phase(card, device, profile_on):
     return cases.take_launches(launches)
 
 
+# ---------------------------------------------------------------------------
+# Path 3: the NTT north star at N=2^14 and N=2^16, both implementations
+# ---------------------------------------------------------------------------
+
+def ab_line(tag, fa, fb, names, card):
+    """Device and wall time per call of two functions that must agree."""
+    import torch
+
+    a, b = fa(), fb()
+    if not torch.equal(a, b):
+        raise AssertionError(f"[A/B] {tag}: {names[0]} and {names[1]} differ")
+    dev = [device_ms(f, 10) for f in (fa, fb)]
+    wall = [cuda_ms(f, 10) for f in (fa, fb)]
+    print(f"[A/B] {tag}: bit-equal; device time per call: {names[0]} {show_us(dev[0])}, "
+          f"{names[1]} {show_us(dev[1])}; wall mean {wall[0] * 1e3:.1f} / "
+          f"{wall[1] * 1e3:.1f} us ({card})")
+
+
+def ntt_chain(run, x, steps):
+    """``steps`` transforms, each output the next input."""
+    for _ in range(steps):
+        x = run(x)
+    return x
+
+
+def ntt_kernel_checks(cases, n, impls, x, card):
+    """Kernel 6 (and 1b at 2^16) against the plain versions on the phase's
+    inputs, with a limb subset, and the A/B lines."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ops import mxu_ntt
+    from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import route
+
+    mx, bf = impls["digit-matmul"], impls["butterfly"]
+    B, L = x.shape[0], x.shape[1]
+    tag = f"N=2^{n.bit_length() - 1}"
+    for fwd in (True, False):
+        for sel in (list(range(L)), [2, 0]):
+            xs = x[:, sel].contiguous()
+            run = lambda: (bf.ntt if fwd else bf.intt)(xs, sel)
+            plain = lambda: bf.plain(xs, fwd, sel)
+            cases.check(f"fourstep_ntt ({'forward' if fwd else 'inverse'}, limbs {sel} x {B} "
+                        f"polys, {tag})", "fourstep_ntt", SRC_FS, K6, run(), plain(), run, plain,
+                        10, butterfly_work(len(sel), B, bf.n1, bf.n2))
+    mont = [i for i, t in enumerate(mx.tabs) if route(n, t.nd) == "fused_mont"]
+    if n == N_BIG:
+        if not mont:
+            raise AssertionError("no limb of the N=2^16 chain routes to kernel 1b")
+        xs = x[:, mont].contiguous()
+        for fwd in (True, False):
+            fn = mxu_ntt.mxu_ntt_limb if fwd else mxu_ntt.mxu_intt_limb
+            run = lambda: mx.fused(xs, fwd, mont, mont=True)
+            plain = lambda: torch.stack([fn(xs[:, k], mx.tabs[i], True)
+                                         for k, i in enumerate(mont)], dim=1)
+            cases.check(f"mxu_ntt_mont ({'forward' if fwd else 'inverse'}, limbs {mont} x {B} "
+                        f"polys, {tag})", "mxu_ntt_mont", SRC_NTT, K1B, run(), plain(), run,
+                        plain, 10, mxu_work([mx.tabs[i] for i in mont], B, 8))
+            ab_line(f"nd=6 {'forward' if fwd else 'inverse'}, limbs {mont} x {B} polys, {tag}",
+                    run, lambda: mx.fused(xs, fwd, mont), ("kernel 1b (Montgomery twiddle)",
+                                                           "kernel 1 (Shoup twiddle)"), card)
+    for fwd in (True, False):
+        name = "ntt" if fwd else "intt"
+        ab_line(f"{name}, limbs 0-{L - 1} x {B} polys, {tag}",
+                lambda: getattr(bf, name)(x), lambda: getattr(mx, name)(x),
+                ("butterfly (kernel 6)", "digit-matmul route"), card)
+
+
+def ntt_phase(card, device):
+    """bench_kernels.py's NTT loop through the port's four-step runner, in
+    both implementations at both sizes: kernel checks, then the chained
+    transforms as the main path (forward then inverse), bit-equal across
+    implementations, to the plain version, and back to the input; µs per
+    limb-NTT and limb-NTT/s."""
+    import torch
+
+    from ppqsflhe_tpu_torch.core import primes
+    from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import route
+    from ppqsflhe_tpu_torch.ops.cuda_ntt import BUTTERFLY, MXU, four_step_ntt
+
+    cases = KernelCases(card)
+    runs = []
+    for n, L, B in NTT_SIZES:
+        t0 = time.perf_counter()
+        moduli = [primes.first_prime_down(59, 2 * n)] + primes.prime_chain(40, 3, 2 * n)
+        moduli = moduli[:L]
+        psis = [primes.root_of_unity(2 * n, q) for q in moduli]
+        impls = {"digit-matmul": four_step_ntt(n, moduli, psis, MXU),
+                 "butterfly": four_step_ntt(n, moduli, psis, BUTTERFLY)}
+        gen = torch.Generator().manual_seed(SEED)
+        x = rand_residues(moduli, (B,), n, gen, device)
+        routes = [route(n, t.nd) for t in impls["digit-matmul"].tabs]
+        print(f"[ntt N={n} L={L} B={B}] moduli {[q.bit_length() for q in moduli]} bits, "
+              f"digit-matmul routes {routes}; tables {time.perf_counter() - t0:.1f} s")
+        ntt_kernel_checks(cases, n, impls, x, card)
+        runs.append((n, L, B, impls, x))
+
+    reset_counts()
+    launches_by_n = {}
+    for n, L, B, impls, x in runs:
+        before = read_counts()
+        outs = {}
+        for name, f in impls.items():
+            y = ntt_chain(f.ntt, x, NTT_CHAIN)
+            outs[name] = (y, ntt_chain(f.intt, y, NTT_CHAIN))
+        torch.cuda.synchronize()
+        launches_by_n[n] = {k: v - before[k] for k, v in read_counts().items()}
+        (y0, z0), (y1, z1) = outs.values()
+        plain = ntt_chain(lambda v: impls["butterfly"].plain(v, True, range(L)), x, NTT_CHAIN)
+        if not (torch.equal(y0, y1) and torch.equal(y0, plain)):
+            raise AssertionError(f"N={n}: the chained transforms differ between "
+                                 f"implementations or from the plain version")
+        if not (torch.equal(z0, x) and torch.equal(z1, x)):
+            raise AssertionError(f"N={n}: intt(ntt(x)) != x")
+        print(f"[ntt N={n} L={L} B={B}] {NTT_CHAIN} chained forward transforms bit-equal "
+              f"across implementations and to the plain version; {NTT_CHAIN} inverse give the "
+              f"input back; kernel launches "
+              f"{ {k: v for k, v in launches_by_n[n].items() if v} }")
+    need = {NTT_SIZES[0][0]: ("mxu_ntt", "fourstep_ntt"),
+            N_BIG: ("mxu_ntt_mont", "mxu_stage_a", "mxu_stage_b", "fourstep_ntt")}
+    for n, keys in need.items():
+        missing = [k for k in keys if launches_by_n[n][k] == 0]
+        if missing:
+            raise AssertionError(f"the NTT loop at N={n} never launched {missing}")
+    launches = read_counts()
+
+    for n, L, B, impls, x in runs:
+        for name, f in impls.items():
+            for fwd in (True, False):
+                start = x if fwd else f.ntt(x)
+                run = lambda: ntt_chain(f.ntt if fwd else f.intt, start, NTT_CHAIN)
+                count = NTT_CHAIN * B * L
+                dev = device_ms(run, 1)
+                wall = cuda_ms(run, 3)
+                per = lambda v: None if v is None else v / count
+                rate = "" if dev is None else f", {count / dev * 1e3:,.0f} limb-NTT/s"
+                print(f"[timing ntt N=2^{n.bit_length() - 1} L={L} B={B}] {name} "
+                      f"{'forward' if fwd else 'inverse'}: device {show_us(per(dev))}/limb-NTT"
+                      f"{rate}; wall {wall / count * 1e3:.2f} us/limb-NTT "
+                      f"({count / wall * 1e3:,.0f} limb-NTT/s) ({card})")
+    return cases.take_launches(launches)
+
+
+# ---------------------------------------------------------------------------
+# Path 4: the server round at N=2^16
+# ---------------------------------------------------------------------------
+
+def round16_kernel_checks(cases, sch, rk_mont, gen, device):
+    """Kernels 1b, 4, 5, 2 and 3 against their plain versions at shapes the
+    N=2^16 round gives them."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, mxu_ntt
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    ctx, n = sch.ctx, sch.params.n
+    fntt = ctx.fntt
+    mq = ctx.moduli_qp
+    L, K = sch.params.num_q, sch.params.num_p
+    routes = [cuda_mxu_ntt.route(n, t.nd) for t in fntt.tabs]
+    print(f"[route N={n}] {routes}")
+    mont = [i for i, r in enumerate(routes) if r == "fused_mont"]
+    big = [i for i, r in enumerate(routes) if r == "big"]
+    if not mont or not big:
+        raise AssertionError("the N=2^16 chain must route limbs to kernel 1b and to 4+5")
+
+    # kernel 1b: ModDown's NTT back to Q at full level (q1, q2 over both
+    # components) and the lazy schedule's iNTT of c1 (q1 over 27 polys)
+    for sel, lead, fwd in ((mont, (2 * N_CTS,), True), (mont[:1], (N_CTS,), False)):
+        x = rand_residues([mq[i] for i in sel], lead, n, gen, device)
+        fn = mxu_ntt.mxu_ntt_limb if fwd else mxu_ntt.mxu_intt_limb
+        run = lambda: (ctx.ntt if fwd else ctx.intt)(x, sel)
+        plain = lambda: torch.stack([fn(x[:, k], fntt.tabs[i], True)
+                                     for k, i in enumerate(sel)], dim=1)
+        cases.check(f"mxu_ntt_mont ({'forward' if fwd else 'inverse'}, limbs {sel} x "
+                    f"{lead[0]} polys, N=2^16)", "mxu_ntt_mont", SRC_NTT, K1B, run(), plain(),
+                    run, plain, 5, mxu_work([fntt.tabs[i] for i in sel], lead[0], 8))
+
+    # kernels 4 and 5: the extended digit's forward NTT on the 60-bit limbs
+    sel = [i for i in big if i not in ctx.q_idx(1)] or big
+    tables, tabs = fntt.tables, [fntt.tabs[i] for i in sel]
+    xb = rand_residues([mq[i] for i in sel], (N_CTS,), n, gen, device).reshape(
+        N_CTS, len(sel), fntt.n1, fntt.n2)
+    mats, tw, info1, info2 = tables.device(device, sel, True)
+    ya = torch.empty_like(xb)
+    pm1, pm2 = (tables.plain_mats(sel, nm, device) for nm in ("a1", "a2"))
+    twp = tables.twiddles(sel, True)
+    run_a = lambda: cuda_mxu_ntt.stage_a(xb, ya, mats, info1, tw, fntt.n2)
+    plain_a = lambda: mxu_ntt.stage_a(xb, pm1, twp, tabs)
+    tag = f"forward, limbs {sel} x {N_CTS} polys, N=2^16"
+    cases.check(f"mxu_stage_a ({tag})", "mxu_stage_a", SRC_NTT, K4, run_a().clone(), plain_a(),
+                run_a, plain_a, 5, stage_work(tabs, N_CTS, fntt.n1, fntt.n2, True))
+    zb = torch.empty((N_CTS, len(sel), fntt.n2, fntt.n1), dtype=torch.int64, device=device)
+    run_b = lambda: cuda_mxu_ntt.stage_b(ya, zb, mats, info2)
+    plain_b = lambda: mxu_ntt.stage_b(ya, pm2, tabs)
+    cases.check(f"mxu_stage_b ({tag})", "mxu_stage_b", SRC_NTT, K5, run_b().clone(), plain_b(),
+                run_b, plain_b, 5, stage_work(tabs, N_CTS, fntt.n2, fntt.n1, False))
+
+    # kernel 2: the full-level first digit's extension and ModDown P → Q
+    idx_ext = ctx.q_idx(L) + ctx.p_idx()
+    groups, consts = _ks_decomp_consts(ctx, L)
+    g0 = groups[0]
+    for src, dst, pre, lead in ((g0, tuple(i for i in idx_ext if i not in g0), consts[0],
+                                 (N_CTS,)), (ctx.p_idx(), ctx.q_idx(L), None, (2 * N_CTS,))):
+        ext = ctx.extender(src, dst)
+        xe = rand_residues([mq[i] for i in src], lead, n, gen, device)
+        cases.check(f"base_extend ({len(src)}->{len(dst)} limbs, "
+                    f"{'pre' if pre is not None else 'ModDown'}, {lead[0]} polys, N=2^16)",
+                    "base_extend", SRC_EXT, K2, cuda_ext.fused_extend(xe, ext, pre),
+                    ext.extend(xe, pre), lambda: cuda_ext.fused_extend(xe, ext, pre),
+                    lambda: ext.extend(xe, pre), 10, ext_work(lead[0], len(src), len(dst), n))
+
+    # kernel 3: the full-level inner product, nd=2 digits over LK=5 limbs
+    limbs = tuple(range(L + K))
+    nd = len(ctx.digit_groups)
+    q, qinv, _ = ctx.limb_consts(limbs, device)
+    lmap = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+    dig = rand_residues(mq, (N_CTS, nd), n, gen, device)
+    args = (dig, rk_mont.data, lmap, q, qinv)
+    cases.check(f"ks_inner_product (nd={nd}, LK={len(limbs)}, {N_CTS} polys, N=2^16)",
+                "ks_inner_product", SRC_KS, K3, ks_inner_product(*args),
+                ks_inner_product_plain(*args), lambda: ks_inner_product(*args),
+                lambda: ks_inner_product_plain(*args), 10, ks_work(N_CTS, nd, len(limbs), n))
+    torch.cuda.synchronize()
+
+
+def round16_phase(card, device, profile_on):
+    """The server round at N=2^16 (8192 slots): set-up, kernel checks, main
+    path in both schedules, decrypt, ms/round."""
+    w = round_world(N_BIG, device, slots=SLOTS)
+    cases = KernelCases(card)
+    round16_kernel_checks(cases, w.sch, w.rk12, w.gen, device)
+    ntt_kernels = ("mxu_ntt_mont", "mxu_stage_a", "mxu_stage_b", "base_extend")
+    _, launches = drive_round("round N=2^16", w.sch, w, {
+        4: ntt_kernels, 0: ntt_kernels + ("ks_inner_product",)})
+    time_round("round N=2^16", w.sch, w, card, profile_on)
+    return cases.take_launches(launches)
+
+
+# ---------------------------------------------------------------------------
+# Path 5: the butterfly configuration of the N=2^14 round
+# ---------------------------------------------------------------------------
+
+def butterfly_phase(card, device, w, default_outs, profile_on):
+    """The N=2^14 round with ntt_impl="pallas" (kernel 6 runs every NTT) on
+    the default round's keys and ciphertexts: kernel checks at its shapes,
+    main path in both schedules, bit-equal to the default round, decrypt,
+    ms/round."""
+    import dataclasses
+
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
+    from ppqsflhe_tpu_torch.ops.cuda_ntt import BUTTERFLY
+
+    t0 = time.perf_counter()
+    sch = CkksScheme(dataclasses.replace(w.sch.params, ntt_impl=BUTTERFLY), device=device)
+    print(f"[setup] the N={sch.params.n} round with ntt_impl={BUTTERFLY!r}: context "
+          f"{time.perf_counter() - t0:.1f} s")
+    bf, mq, n = sch.ctx.fntt, sch.ctx.moduli_qp, sch.params.n
+    cases = KernelCases(card)
+    # kernel 6 at the round's shapes: the lazy key switch's 2-limb transforms
+    # over both components, and the full-level iNTT of c1 over Q
+    for sel, polys, fwd in (((0, 1), 2 * N_CTS, True), ((0, 1), 2 * N_CTS, False),
+                            ((0, 1, 2), N_CTS, False)):
+        x = rand_residues([mq[i] for i in sel], (polys,), n, w.gen, device)
+        run = lambda: (sch.ctx.ntt if fwd else sch.ctx.intt)(x, sel)
+        plain = lambda: bf.plain(x, fwd, sel)
+        cases.check(f"fourstep_ntt ({'forward' if fwd else 'inverse'}, limbs {list(sel)} x "
+                    f"{polys} polys, N=2^14)", "fourstep_ntt", SRC_FS, K6, run(), plain(), run,
+                    plain, 20, butterfly_work(len(sel), polys, bf.n1, bf.n2))
+    torch.cuda.synchronize()
+
+    digit_matmul = ("mxu_ntt", "mxu_ntt_mont", "mxu_stage_a", "mxu_stage_b")
+    outs, launches = drive_round("butterfly round", sch, w, {
+        4: ("fourstep_ntt", "base_extend"),
+        0: ("fourstep_ntt", "base_extend", "ks_inner_product")}, absent=digit_matmul)
+    for lazy in (4, 0):
+        same = all(torch.equal(a.data, b.data) for a, b in zip(outs[lazy], default_outs[lazy]))
+        print(f"[butterfly round lazy={lazy}] bit-equal to the default round: {same}")
+        if not same:
+            raise AssertionError(f"butterfly round lazy={lazy} differs from the default round")
+    time_round("butterfly round", sch, w, card, profile_on)
+    # the two configurations in turns in this process: default, butterfly,
+    # butterfly, default
+    from ppqsflhe_tpu_torch.fl.api import server_round
+
+    for lazy in (4, 0):
+        turns = []
+        for name, s in (("default", w.sch), ("butterfly", sch), ("butterfly", sch),
+                        ("default", w.sch)):
+            times = median_ms(lambda: server_round(s, w.ct1, w.ct2, w.rk12, w.rk21, lazy), 3)
+            turns.append(f"{name} {statistics.median(times):.3f}")
+        print(f"[A/B round lazy={lazy}] ms/round in turns: {', '.join(turns)} ({card})")
+    return cases.take_launches(launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -615,8 +1056,11 @@ def main() -> None:
     print(f"[build] kernels built in {cuda_lib.build_seconds or 0.0:.1f} s "
           f"(load {time.perf_counter() - t0:.1f} s) -> {cuda_lib.build()}")
 
-    kernels = round_phase(card, device, args.profile)
+    kernels, world, outs = round_phase(card, device, args.profile)
     kernels += rotation_phase(card, device, args.profile)
+    kernels += ntt_phase(card, device)
+    kernels += round16_phase(card, device, args.profile)
+    kernels += butterfly_phase(card, device, world, outs, args.profile)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,9 +2,10 @@
 
 Twin of :mod:`ppqsflhe_tpu.ckks.params`. The context owns the RNS chains
 (ciphertext chain Q = [q0..qL], special primes P for hybrid key switching),
-the four-step digit-matmul NTT runner over the QP basis, the digit
-partition, the Galois permutations in its evaluation order, and lazily
-cached per-level constants. Constants are host Python
+the four-step NTT runner over the QP basis (``ntt_impl``: the digit-matmul
+route or the butterfly transform), the digit partition, the Galois
+permutations in its evaluation order, and lazily cached per-level
+constants. Constants are host Python
 ints / numpy; :meth:`CkksContext.consts` hands them out as int64 tensors on
 the device asked for, uploaded once per device.
 
@@ -27,7 +28,7 @@ from ..core import primes
 from ..core.modarith import u64_to_i64
 from ..core.ntt import NttBasis
 from ..core.rns import BaseExtender
-from ..ops.cuda_mxu_ntt import CudaMxuNtt
+from ..ops import cuda_ntt
 
 
 @dataclass(frozen=True)
@@ -43,10 +44,15 @@ class CkksParams:
     dnum: int = 2                     # hybrid KS digit count (reference: 2)
     slots: int = 0                    # batch size; 0 → N/2
     sigma: float = 3.19
+    # the four-step NTT's implementation, by the JAX name of its counterpart:
+    # "pallas_mxu" (digit-matmul route: kernels 1, 1b, 4, 5) or "pallas"
+    # (butterfly: kernel 6); both give the same evaluations, bit for bit
+    ntt_impl: str = cuda_ntt.MXU
 
     @staticmethod
     def generate(n: int = 1 << 14, mult_depth: int = 2, scale_bits: int = 40,
-                 first_mod_bits: int = 60, dnum: int = 2, slots: int = 0) -> "CkksParams":
+                 first_mod_bits: int = 60, dnum: int = 2, slots: int = 0,
+                 ntt_impl: str = cuda_ntt.MXU) -> "CkksParams":
         """A fresh NTT-friendly chain, OpenFHE-style: one first modulus of
         ``first_mod_bits``, ``mult_depth`` scaling primes of ``scale_bits``,
         and enough 60-bit special primes to cover the largest KS digit —
@@ -62,7 +68,8 @@ class CkksParams:
         n_special = max(1, -(-digit_bits // 60))
         p = primes.prime_chain(60, n_special, m, avoid=set(q))
         return CkksParams(n=n, q_moduli=tuple(q), p_moduli=tuple(p),
-                          scale_bits=scale_bits, dnum=dnum, slots=slots or n // 2)
+                          scale_bits=scale_bits, dnum=dnum, slots=slots or n // 2,
+                          ntt_impl=ntt_impl)
 
     @property
     def num_q(self) -> int:
@@ -89,7 +96,8 @@ class CkksContext:
                 primes.root_of_unity(2 * params.n, p) for p in params.p_moduli)
             roots = tuple(params.q_roots) + p_roots
         self.basis = NttBasis(params.n, self.moduli_qp, roots)
-        self.fntt = CudaMxuNtt(params.n, self.moduli_qp, self.basis.psis)
+        self.fntt = cuda_ntt.four_step_ntt(params.n, self.moduli_qp, self.basis.psis,
+                                           params.ntt_impl)
         self._dev: Dict[tuple, torch.Tensor] = {}
         self._ext_cache: Dict[tuple, BaseExtender] = {}
 
@@ -139,7 +147,7 @@ class CkksContext:
     def intt(self, a: torch.Tensor, idx: Sequence[int]) -> torch.Tensor:
         return self.fntt.intt(a, idx=tuple(idx))
 
-    def galois_perm(self, g: int, device="cpu") -> torch.Tensor:
+    def galois_perm(self, g: int, device="cuda") -> torch.Tensor:
         """Eval-order permutation for the automorphism X→X^g, corrected for
         the four-step kernel order (new[i] = old[perm[i]]), as a long tensor
         on ``device``; cached per g and device."""

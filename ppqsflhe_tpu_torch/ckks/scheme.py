@@ -4,7 +4,8 @@ rekey_gen, relinearization, rotation and conjugation keys, encrypt_values,
 decrypt, add, mult_scalar, ct×ct mult, rescale, rotations (plain, hoisted,
 rotation sums), conjugation, the packed inner product, and re_encrypt in
 INDCPA mode. Operations run eagerly on the device their tensors live on;
-the scheme's ``device`` is where it creates new ones. Randomness comes from
+the scheme's ``device`` is where it creates new ones: the card unless the
+caller asks for another (``device="cpu"`` runs the plain versions). Randomness comes from
 explicit ``torch.Generator``s.
 """
 
@@ -22,7 +23,7 @@ from .types import Ciphertext, KeySwitchKey, Plaintext, PublicKey, SecretKey
 
 
 class CkksScheme:
-    def __init__(self, params: CkksParams, device="cpu"):
+    def __init__(self, params: CkksParams, device="cuda"):
         self.params = params
         self.device = torch.device(device)
         self.ctx = CkksContext(params)

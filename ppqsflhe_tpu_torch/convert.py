@@ -3,12 +3,15 @@
 Everything crosses as numpy arrays and plain Python values, so this module
 imports neither package's framework beyond torch: residues are numpy
 ``uint64`` on the JAX side and ``torch.int64`` (same bits) here. A caller
-holding JAX objects passes ``np.asarray(...)`` of their arrays.
+holding JAX objects passes ``np.asarray(...)`` of their arrays. Tensors land
+on the card unless the caller names another ``device``.
 
 Only the JAX package's four-step evaluation order is accepted
 (``ntt_backend="fourstep"``, any ``ntt_impl``): a radix-2 ciphertext holds
 the same values in another order, and converting it would be silent
-corruption.
+corruption. Every four-step ``ntt_impl`` gives the same evaluations:
+``"pallas"`` maps to the port's butterfly transform, the others (``"xla"``,
+``"mxu"``, ``"pallas_mxu"``) to its digit-matmul route.
 """
 
 from __future__ import annotations
@@ -18,15 +21,18 @@ import torch
 
 from .ckks.params import CkksParams
 from .ckks.types import Ciphertext, KeySwitchKey, PublicKey, SecretKey
+from .ops.cuda_ntt import BUTTERFLY, MXU
 
 # CkksParams fields the JAX package has and the port does not, with the only
 # value the port supports
 _JAX_ONLY = {"ntt_backend": "fourstep", "flexible_ext": False, "pre_mode": "INDCPA"}
 _PORT_FIELDS = ("n", "q_moduli", "p_moduli", "q_roots", "p_roots", "scale_bits",
-                "dnum", "slots", "sigma")
+                "dnum", "slots", "sigma", "ntt_impl")
+# the JAX package's four-step ntt_impl values → the port's
+_NTT_IMPL = {"xla": MXU, "mxu": MXU, "pallas_mxu": MXU, "pallas": BUTTERFLY}
 
 
-def residues(a, device=None) -> torch.Tensor:
+def residues(a, device="cuda") -> torch.Tensor:
     """numpy uint64 residues → int64 tensor (same bits) on ``device``."""
     a = np.array(a, dtype=np.uint64, order="C", copy=True)    # owned, writable
     return torch.from_numpy(a.view(np.int64)).to(device)
@@ -44,37 +50,42 @@ def params(fields: dict) -> CkksParams:
         if k in fields and fields[k] != want:
             raise ValueError(f"the port supports {k}={want!r} only, got {fields[k]!r}")
     kw = {k: fields[k] for k in _PORT_FIELDS if k in fields}
+    if "ntt_impl" in kw:
+        if kw["ntt_impl"] not in _NTT_IMPL:
+            raise ValueError(f"unknown ntt_impl {kw['ntt_impl']!r}")
+        kw["ntt_impl"] = _NTT_IMPL[kw["ntt_impl"]]
     for k in ("q_moduli", "p_moduli", "q_roots", "p_roots"):
         if kw.get(k) is not None:
             kw[k] = tuple(int(v) for v in kw[k])
     return CkksParams(**kw)
 
 
-def params_fields(p: CkksParams, ntt_impl: str = "mxu") -> dict:
-    """Keyword arguments for the JAX ``CkksParams`` that matches ``p``."""
+def params_fields(p: CkksParams) -> dict:
+    """Keyword arguments for the JAX ``CkksParams`` that matches ``p``; its
+    ``ntt_impl`` names the JAX counterpart of the port's implementation."""
     from dataclasses import asdict
 
-    return dict(asdict(p), ntt_backend="fourstep", ntt_impl=ntt_impl)
+    return dict(asdict(p), ntt_backend="fourstep")
 
 
-def secret_key(s_eval, s_int, device=None) -> SecretKey:
+def secret_key(s_eval, s_int, device="cuda") -> SecretKey:
     return SecretKey(s_eval=residues(s_eval, device), s_int=np.asarray(s_int, np.int8))
 
 
-def public_key(data, device=None) -> PublicKey:
+def public_key(data, device="cuda") -> PublicKey:
     return PublicKey(data=residues(data, device))
 
 
-def keyswitch_key(data, mont: bool = False, device=None) -> KeySwitchKey:
+def keyswitch_key(data, mont: bool = False, device="cuda") -> KeySwitchKey:
     return KeySwitchKey(data=residues(data, device), mont=bool(mont))
 
 
-def rotation_keys(keys: dict, mont: bool = False, device=None) -> dict:
+def rotation_keys(keys: dict, mont: bool = False, device="cuda") -> dict:
     """JAX rotation keys as {rotation: numpy data} → {rotation: KeySwitchKey}."""
     return {int(r): keyswitch_key(a, mont, device) for r, a in keys.items()}
 
 
-def ciphertext(data, scale: float, device=None) -> Ciphertext:
+def ciphertext(data, scale: float, device="cuda") -> Ciphertext:
     return Ciphertext(data=residues(data, device), scale=float(scale))
 
 

@@ -66,13 +66,19 @@ def modneg(a, q):
     return torch.where(a == 0, a, q - a)
 
 
-def mont_mul(a, b, q, qinv_neg):
-    """Montgomery product a*b*2^-64 mod q, inputs reduced mod q.
+def mont_mul_lazy(a, b, q, qinv_neg):
+    """Montgomery product a*b*2^-64 mod q without the final subtract, in
+    [0, 2q) for a < 4q, b < q (twin of ``u32pair.mont_mul64_lazy``).
     ``qinv_neg`` = -q^{-1} mod 2^64 as an int64 bit pattern."""
     t_hi, t_lo = _mul128(a, b)
     m = t_lo * qinv_neg
-    mq_hi = mul_hi(m, q)
-    u = t_hi + mq_hi + (t_lo != 0).to(torch.int64)
+    return t_hi + mul_hi(m, q) + (t_lo != 0).to(torch.int64)
+
+
+def mont_mul(a, b, q, qinv_neg):
+    """Montgomery product a*b*2^-64 mod q, inputs reduced mod q.
+    ``qinv_neg`` = -q^{-1} mod 2^64 as an int64 bit pattern."""
+    u = mont_mul_lazy(a, b, q, qinv_neg)
     return torch.where(u >= q, u - q, u)
 
 

@@ -33,13 +33,18 @@ __device__ __forceinline__ uint64_t shoup_wide(uint64_t a, uint64_t w, uint64_t 
   return r >= q ? r - q : r;
 }
 
-// Montgomery product a*b*2^-64 mod q (qinv = -q^{-1} mod 2^64), a, b < q
+// Montgomery product a*b*2^-64 mod q (qinv = -q^{-1} mod 2^64) without the
+// final subtract: a < 4q, b < q give [0, 2q)
+__device__ __forceinline__ uint64_t mont_lazy(uint64_t a, uint64_t b, uint64_t q,
+                                              uint64_t qinv) {
+  const uint64_t lo = a * b;
+  return __umul64hi(a, b) + __umul64hi(lo * qinv, q) + (lo != 0);
+}
+
+// Montgomery product a*b*2^-64 mod q, a, b < q
 __device__ __forceinline__ uint64_t mont_mul(uint64_t a, uint64_t b, uint64_t q,
                                              uint64_t qinv) {
-  uint64_t lo = a * b;
-  uint64_t hi = __umul64hi(a, b);
-  uint64_t m = lo * qinv;
-  uint64_t u = hi + __umul64hi(m, q) + (lo != 0);
+  const uint64_t u = mont_lazy(a, b, q, qinv);
   return u >= q ? u - q : u;
 }
 

@@ -1,6 +1,6 @@
 // Digit-matmul four-step NTT stages on Hopper's int8 tensor cores.
 //
-// Three entry points share one stage body:
+// Four entry points share one stage body:
 //
 // - ppq_mxu_ntt_stage (kernel `mxu_ntt_stage_kernel`) replaces
 //   ppqsflhe_tpu/ops/pallas_mxu_ntt.py, PallasMxuNtt._run_group (the fused
@@ -9,6 +9,17 @@
 //   dot → REDC recompose → twiddle → transpose → digitize → dot → REDC → two
 //   csubs. Here it is two launches: stage 1 stores transposed, stage 2 in
 //   place.
+// - ppq_mxu_ntt_stage_mont (kernel `mxu_ntt_stage_mont_kernel`) replaces the
+//   same function's mont=True branch (pallas_mxu_ntt.py:347-350): the
+//   twiddle is a lazy Montgomery product against one table w*2^64 mod q
+//   (tables :211-229, constant -q^{-1} mod 2^64 at :203-208) instead of the
+//   Shoup pair (w, floor(w*2^64/q)). On the TPU it existed to fit VMEM: the
+//   2-plane table let the nd=6 group at N=2^16 stay fused. Here the twiddle
+//   is read once per coefficient from device memory in stage 1's epilogue
+//   either way, so what it changes is 8 of the 16 table bytes per
+//   coefficient against one more 64-bit high product (__umul64hi); stage 2
+//   is kernel 1's. Both launches of a transform run this symbol, so the
+//   profiler and the launch count tell it from kernel 1.
 // - ppq_mxu_stage_a (kernel `mxu_stage_a_kernel`) replaces
 //   PallasMxuNttBig._stage_a (pallas_call at :512): the first stage with the
 //   lazy twiddle and NO transpose, y[b, l, k, col], for any block of columns
@@ -20,8 +31,8 @@
 //   then the second stage and two conditional subtracts, stored at
 //   y[b, l, k, r].
 //
-// Plain torch versions: ops/mxu_ntt.py (mxu_ntt_limb/mxu_intt_limb,
-// stage_a/stage_b).
+// Plain torch versions: ops/mxu_ntt.py (mxu_ntt_limb/mxu_intt_limb with
+// mont=False/True, stage_a/stage_b).
 //
 // What bounds it here: a stage matrix is (nd*m)^2 int8 — 1.33 MB for a 60-bit
 // limb at m=128 (nd=9), 5.3 MB at m=256 — far above the 227 KB of shared
@@ -42,11 +53,11 @@
 // int32 accumulators. Exactness: nd*m ≤ 9*256 terms of ≤ 127^2 stay below
 // 2^31 (the host asserts it). The epilogue recomposes (one Montgomery
 // reduction by R = 2^28 without a 128-bit product), then either applies the
-// lazy Shoup twiddle or two conditional subtracts, and stores in the layout
-// the entry point asks for. Stage B's transposed load reads 16 consecutive
-// int64 of one column per thread (128 B, one cache line), so neighbouring
-// threads are a row apart: correct first, coalescing is later work, as are
-// wgmma/TMA and keeping the digitized columns resident.
+// lazy twiddle (Shoup or Montgomery) or two conditional subtracts, and stores
+// in the layout the entry point asks for. Stage B's transposed load reads 16
+// consecutive int64 of one column per thread (128 B, one cache line), so
+// neighbouring threads are a row apart: correct first, coalescing is later
+// work, as are wgmma/TMA and keeping the digitized columns resident.
 #include "common.cuh"
 
 namespace {
@@ -57,7 +68,10 @@ constexpr int KC = 32;      // contraction chunk (one m16n8k32 step)
 constexpr int MAX_ND = 9;   // 7-bit digits of a value < 2^62
 constexpr int THREADS = 128;
 constexpr int SPLIT_BITS = 28;   // REDC by R = 2^(7*4): the uniform plan
-constexpr int INFO = 5;          // per limb: mat_off, nd, q, qinv_r, tw_off
+constexpr int INFO = 6;          // per limb: mat_off, nd, q, qinv_r, tw_off, qinv64
+
+// the elementwise step between the product and the store
+enum Twiddle { CSUB, SHOUP, MONT };
 
 struct Smem {
   int8_t As[MAX_ND][TK][KC];
@@ -77,11 +91,13 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
 // (b, cc) with cc < c.
 //   LOAD_T:   x is (B, L, c, m) and the contraction runs along its last axis;
 //             else x is (B, L, m, c).
-//   TWIDDLE:  lazy Shoup twiddle of row k, column cc by
+//   TW:       SHOUP: lazy Shoup twiddle of row k, column cc by
 //             tw[info[4] + k*tw_cols + tw_col0 + cc] (its companion m*tw_cols
-//             further on), output < 2q; else two csubs, output < q.
+//             further on), output < 2q; MONT: lazy Montgomery product by the
+//             same entry of a w*2^64 mod q table with info[5] = -q^{-1} mod
+//             2^64, output < 1.25q; CSUB: two csubs, output < q.
 //   STORE_T:  y is (B, L, c, m); else (B, L, m, c).
-template <bool LOAD_T, bool TWIDDLE, bool STORE_T>
+template <bool LOAD_T, Twiddle TW, bool STORE_T>
 __device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict__ x,
                                            uint64_t* __restrict__ y,
                                            const int8_t* __restrict__ mats,
@@ -197,9 +213,12 @@ __device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict_
       // REDC by R = 2^28: (s_lo + mm*q) / R with q = q_hi*R + q_lo
       const uint64_t mm = ((s_lo & mask) * qinv_r) & mask;
       uint64_t u = ((s_lo + mm * q_lo) >> SPLIT_BITS) + mm * q_hi + hi_grp;  // < 4q
-      if (TWIDDLE) {
+      if (TW == SHOUP) {
         const int64_t ti = static_cast<int64_t>(k) * tw_cols + tw_col0 + cc;
         u = ppq::shoup_lazy(u, tw_w[ti], tw_s[ti], q);                        // < 2q
+      } else if (TW == MONT) {
+        const int64_t ti = static_cast<int64_t>(k) * tw_cols + tw_col0 + cc;
+        u = ppq::mont_lazy(u, tw_w[ti], q, static_cast<uint64_t>(inf[5]));    // < 2q
       } else {
         u = u >= 2 * q ? u - 2 * q : u;
         u = u >= q ? u - q : u;
@@ -218,8 +237,19 @@ mxu_ntt_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
                      const uint64_t* __restrict__ tw, int B, int L, int m, int c,
                      int twiddle) {
   __shared__ __align__(16) Smem sm;
-  if (twiddle) stage_body<false, true, true>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
-  else stage_body<false, false, false>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
+  if (twiddle) stage_body<false, SHOUP, true>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
+  else stage_body<false, CSUB, false>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
+}
+
+// kernel 1b: the same two stages with the Montgomery twiddle
+__global__ void __launch_bounds__(THREADS)
+mxu_ntt_stage_mont_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                          const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
+                          const uint64_t* __restrict__ tw, int B, int L, int m, int c,
+                          int twiddle) {
+  __shared__ __align__(16) Smem sm;
+  if (twiddle) stage_body<false, MONT, true>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
+  else stage_body<false, CSUB, false>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
 }
 
 // kernel 4: stage A (twiddle from a column block of the table, no transpose)
@@ -229,7 +259,7 @@ mxu_stage_a_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
                    const uint64_t* __restrict__ tw, int B, int L, int m, int c,
                    int tw_cols, int tw_col0) {
   __shared__ __align__(16) Smem sm;
-  stage_body<false, true, false>(sm, x, y, mats, info, tw, B, L, m, c, tw_cols, tw_col0);
+  stage_body<false, SHOUP, false>(sm, x, y, mats, info, tw, B, L, m, c, tw_cols, tw_col0);
 }
 
 // kernel 5: stage B (transposed load, csubs)
@@ -238,7 +268,7 @@ mxu_stage_b_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
                    const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
                    int B, int L, int m, int rows) {
   __shared__ __align__(16) Smem sm;
-  stage_body<true, false, false>(sm, x, y, mats, info, nullptr, B, L, m, rows, 0, 0);
+  stage_body<true, CSUB, false>(sm, x, y, mats, info, nullptr, B, L, m, rows, 0, 0);
 }
 
 dim3 grid_of(int B, int L, int m, int c) { return dim3((B * c + TN - 1) / TN, m / TK, L); }
@@ -251,6 +281,18 @@ extern "C" int ppq_mxu_ntt_stage(const void* x, void* y, const void* mats, const
                                  const void* tw, int B, int L, int m, int c, int twiddle,
                                  void* stream) {
   mxu_ntt_stage_kernel<<<grid_of(B, L, m, c), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
+      static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info),
+      static_cast<const uint64_t*>(tw), B, L, m, c, twiddle);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// kernel 1b: as ppq_mxu_ntt_stage, with tw holding w*2^64 mod q tables.
+extern "C" int ppq_mxu_ntt_stage_mont(const void* x, void* y, const void* mats,
+                                      const void* info, const void* tw, int B, int L, int m,
+                                      int c, int twiddle, void* stream) {
+  mxu_ntt_stage_mont_kernel<<<grid_of(B, L, m, c), THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
       static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info),
       static_cast<const uint64_t*>(tw), B, L, m, c, twiddle);

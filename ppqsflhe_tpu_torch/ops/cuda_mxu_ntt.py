@@ -1,4 +1,4 @@
-"""Kernels 1, 4 and 5: the digit-matmul NTT on the card, and its runners.
+"""Kernels 1, 1b, 4 and 5: the digit-matmul NTT on the card, and its runners.
 
 Twins of ``ppqsflhe_tpu.ops.pallas_mxu_ntt``: :class:`CudaMxuNtt` is
 ``PallasMxuNtt`` (``ntt``/``intt`` over a limb subset ``idx``) folded
@@ -8,6 +8,9 @@ together with the ``FourStepNtt`` dispatch, and :class:`CudaMxuNttBig` is
 
 - kernel 1 (:func:`ntt_stage`, two launches per transform): the fused
   route, the first stage storing transposed;
+- kernel 1b (:func:`ntt_stage` with ``mont=True``): the same with the
+  Montgomery twiddle, the route of a group whose Shoup tables did not fit
+  the TPU kernel's VMEM but whose Montgomery ones did;
 - kernels 4 and 5 (:func:`stage_a`, :func:`stage_b`): the streamed pair,
   stage A storing untransposed and stage B reading its contraction along the
   last axis.
@@ -26,15 +29,17 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from ..core.modarith import u64_to_i64
 from . import cuda_lib
 from .fourstep import kernel_to_std
 from .mxu_ntt import MxuNttTables, mxu_intt_limb, mxu_ntt_limb, stage_a as plain_stage_a
 from .mxu_ntt import stage_b as plain_stage_b
 
 launches = 0          # kernel 1 launches (two per transform) since the last reset
+launches_mont = 0     # kernel 1b launches (two per transform)
 launches_stage_a = 0  # kernel 4 launches
 launches_stage_b = 0  # kernel 5 launches
-INFO = 5              # per limb: matrix offset, nd, q, qinv_r, twiddle offset
+INFO = 6              # per limb: matrix offset, nd, q, qinv_r, twiddle offset, qinv64
 SPLIT = 4             # the kernel's REDC recompose by 2^28
 MAX_ND = 9            # csrc/mxu_ntt.cu MAX_ND
 # the JAX runner's default scoped-VMEM budget for one fused grid cell
@@ -43,16 +48,17 @@ FUSED_VMEM_BUDGET = 1024 * 12896
 
 
 def route(n: int, nd: int) -> str:
-    """The JAX runner's decision, "fused" or "big", for a group of nd-digit
-    limbs at ring size n (``PallasMxuNtt._run`` with ``_group_fits`` at its
-    default budget). "fused" covers both of its fused variants, Shoup and
-    Montgomery twiddle: both run on kernel 1 here."""
+    """The JAX runner's decision for a group of nd-digit limbs at ring size
+    n (``PallasMxuNtt._run`` with ``_group_fits`` at its default budget):
+    "fused" (kernel 1) when the cell fits with the 4-plane Shoup twiddle,
+    "fused_mont" (kernel 1b) when it fits only with the 2-plane Montgomery
+    one, else "big" (kernels 4 and 5)."""
     n1 = 1 << ((n.bit_length() - 1) // 2)
     n2 = n // n1
     mats = (nd * n1) ** 2 + (nd * n2) ** 2
     xbuf = 4 * n * 4
-    fits = any(2 * (mats + planes * n * 4 + xbuf) <= FUSED_VMEM_BUDGET for planes in (4, 2))
-    return "fused" if fits else "big"
+    fits = lambda planes: 2 * (mats + planes * n * 4 + xbuf) <= FUSED_VMEM_BUDGET
+    return "fused" if fits(4) else "fused_mont" if fits(2) else "big"
 
 
 def _check_stage(name, x, y, y_shape, mats, info, tw, m):
@@ -73,21 +79,27 @@ def _check_stage(name, x, y, y_shape, mats, info, tw, m):
         raise ValueError(f"{name}: {MAX_ND} digits x m={m} overflow the int32 planes")
 
 
-def ntt_stage(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor,
-              info: torch.Tensor, tw: torch.Tensor, twiddle: bool) -> torch.Tensor:
-    """Kernel 1, one column stage. x: (B, L, m, c) int64, contracted over m;
-    y: (B, L, c, m) with ``twiddle`` (stage 1: lazy Shoup twiddle, store
-    transposed) else (B, L, m, c) (stage 2: canonical residues)."""
-    global launches
+def ntt_stage(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor, info: torch.Tensor,
+              tw: torch.Tensor, twiddle: bool, mont: bool = False) -> torch.Tensor:
+    """Kernel 1 (kernel 1b with ``mont``), one column stage. x: (B, L, m, c)
+    int64, contracted over m; y: (B, L, c, m) with ``twiddle`` (stage 1:
+    lazy Shoup twiddle, or Montgomery against w·2^64 mod q tables with
+    ``mont``; store transposed) else (B, L, m, c) (stage 2: canonical
+    residues)."""
+    global launches, launches_mont
     B, L, m, c = x.shape
     _check_stage("ntt", x, y, (B, L, c, m) if twiddle else (B, L, m, c), mats, info, tw, m)
     lib = cuda_lib.library()
+    name = "ppq_mxu_ntt_stage_mont" if mont else "ppq_mxu_ntt_stage"
     with torch.cuda.device(x.device):
-        code = lib.ppq_mxu_ntt_stage(
+        code = getattr(lib, name)(
             x.data_ptr(), y.data_ptr(), mats.data_ptr(), info.data_ptr(),
             tw.data_ptr(), B, L, m, c, int(twiddle), cuda_lib.stream_of(x))
-    launches += 1
-    cuda_lib.check(code, "ppq_mxu_ntt_stage")
+    if mont:
+        launches_mont += 1
+    else:
+        launches += 1
+    cuda_lib.check(code, name)
     return y
 
 
@@ -131,9 +143,10 @@ def stage_b(t: torch.Tensor, y: torch.Tensor, mats: torch.Tensor,
 
 class MxuChainTables:
     """A chain's per-limb tables and their upload to each device: every
-    limb's four stage matrices in one int8 buffer, its twiddle pairs in one
-    int64 buffer (w then w_shoup, each row-major), and the kernels' info rows
-    per (limb subset, direction)."""
+    limb's four stage matrices in one int8 buffer, its twiddles in one int64
+    buffer (per direction the Shoup pair, w then w_shoup, and the Montgomery
+    table w·2^64 mod q, each row-major), and the kernels' info rows per
+    (limb subset, direction, twiddle kind)."""
 
     _MATS = ("a1", "a2", "a2i", "a1i")
 
@@ -152,10 +165,11 @@ class MxuChainTables:
             self._pos[key] = torch.tensor(ks, device=device)
         return self._pos[key]
 
-    def device(self, device, sel, forward):
+    def device(self, device, sel, forward, mont=False):
         """(matrices, twiddles, first-stage info, second-stage info) on
         ``device``; the chain's tables upload once per device, the info rows
-        once per limb subset and direction."""
+        once per limb subset, direction and twiddle kind (``mont``: the
+        first stage's twiddle offset points at the Montgomery table)."""
         key = str(device)
         d = self._dev.get(key)
         if d is None:
@@ -175,24 +189,24 @@ class MxuChainTables:
             tws, tw_off, off = [], [], 0
             for t in self.tabs:
                 offs = {}
-                for fwd, (w, ws) in ((True, t.t1), (False, t.t1i)):
-                    offs[fwd] = off
-                    tws += [w.reshape(-1), ws.reshape(-1)]
-                    off += 2 * w.size
+                for fwd, (w, ws), wm in ((True, t.t1, t.t1m), (False, t.t1i, t.t1im)):
+                    offs[fwd, False], offs[fwd, True] = off, off + 2 * w.size
+                    tws += [w.reshape(-1), ws.reshape(-1), wm.reshape(-1)]
+                    off += 3 * w.size
                 tw_off.append(offs)
             d = self._dev[key] = dict(
                 mats=torch.as_tensor(np.concatenate(mats), device=device),
                 tw=torch.as_tensor(np.concatenate(tws).view(np.int64), device=device),
                 mat_off=mat_off, tw_off=tw_off, info={})
-        ikey = (tuple(sel), forward)
+        ikey = (tuple(sel), forward, mont)
         if ikey not in d["info"]:
             first, second = ("a1", "a2") if forward else ("a2i", "a1i")
             rows = lambda name, with_tw: [
                 [d["mat_off"][i][name], self.tabs[i].nd, self.tabs[i].q,
-                 self.tabs[i].plan.qinv_r, d["tw_off"][i][forward] if with_tw else 0]
-                for i in sel]
+                 self.tabs[i].plan.qinv_r, d["tw_off"][i][forward, mont] if with_tw else 0,
+                 self.tabs[i].qinv64] for i in sel]
             d["info"][ikey] = tuple(
-                torch.as_tensor(np.array(rows(name, tw), np.int64), device=device)
+                torch.as_tensor(u64_to_i64(rows(name, tw)), device=device)
                 for name, tw in ((first, True), (second, False)))
         return (d["mats"], d["tw"]) + d["info"][ikey]
 
@@ -274,8 +288,8 @@ class CudaMxuNttBig:
 class CudaMxuNtt:
     """Forward/inverse transforms over a modulus chain: int64[..., L, N]
     with L = len(idx) limbs of the chain. Limbs whose digit-count group
-    routes "fused" run kernel 1 together (two launches for all of them);
-    "big" groups run through :class:`CudaMxuNttBig`."""
+    routes "fused" run kernel 1 together (two launches for all of them),
+    "fused_mont" kernel 1b; "big" groups run through :class:`CudaMxuNttBig`."""
 
     def __init__(self, n: int, moduli: Sequence[int], psis: Sequence[int]):
         self.tables = MxuChainTables(n, moduli, psis)
@@ -295,24 +309,24 @@ class CudaMxuNtt:
         sel = _limb_subset(x, len(self.tabs), idx, self.n)
         return _by_group(
             self.tables, x, sel, lambda i: route(self.n, self.tabs[i].nd),
-            lambda part, sub, r: (self.fused(part, forward, sub) if r == "fused"
-                                  else self.big._run(part, forward, sub)))
+            lambda part, sub, r: (self.big._run(part, forward, sub) if r == "big"
+                                  else self.fused(part, forward, sub, r == "fused_mont")))
 
-    def fused(self, x: torch.Tensor, forward: bool, sel) -> torch.Tensor:
+    def fused(self, x: torch.Tensor, forward: bool, sel, mont: bool = False) -> torch.Tensor:
         """The fused route over limbs ``sel`` of the chain, whatever
-        :func:`route` says: kernel 1 on the card, :func:`.mxu_ntt.mxu_ntt_limb`
-        per limb on the CPU."""
+        :func:`route` says: kernel 1 (kernel 1b with ``mont``) on the card,
+        :func:`.mxu_ntt.mxu_ntt_limb` per limb on the CPU."""
         if not x.is_cuda:
             fn = mxu_ntt_limb if forward else mxu_intt_limb
-            return torch.stack([fn(x[..., k, :], self.tabs[i]) for k, i in enumerate(sel)],
-                               dim=-2)
+            return torch.stack([fn(x[..., k, :], self.tabs[i], mont)
+                                for k, i in enumerate(sel)], dim=-2)
         lead, L = x.shape[:-2], len(sel)
         xb = x.reshape(-1, L, self.n).contiguous()
         B = xb.shape[0]
-        mats, tw, info1, info2 = self.tables.device(x.device, sel, forward)
+        mats, tw, info1, info2 = self.tables.device(x.device, sel, forward, mont)
         m1, m2 = (self.n1, self.n2) if forward else (self.n2, self.n1)
         y = torch.empty((B, L, m2, m1), dtype=torch.int64, device=x.device)
-        ntt_stage(xb.view(B, L, m1, m2), y, mats, info1, tw, twiddle=True)
+        ntt_stage(xb.view(B, L, m1, m2), y, mats, info1, tw, twiddle=True, mont=mont)
         z = torch.empty_like(y)
-        ntt_stage(y, z, mats, info2, tw, twiddle=False)
+        ntt_stage(y, z, mats, info2, tw, twiddle=False, mont=mont)
         return z.reshape(lead + (L, self.n))

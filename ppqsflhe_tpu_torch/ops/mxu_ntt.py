@@ -15,8 +15,11 @@ EXACT int8 matrix products by 7-bit digit slicing:
   Montgomery reduction by R = 2^{7·split} (the matrices carry the factor
   R), leaving a lazy value < 4q.
 
-Between the two stages sits one elementwise lazy Shoup twiddle; two
-conditional subtracts at the end give canonical [0, q) residues. Output
+Between the two stages sits one elementwise lazy twiddle, a Shoup product
+against a (w, ⌊w·2^64/q⌋) pair or, in the Montgomery-twiddle variant, a
+lazy Montgomery product against the one table w·2^64 mod q (both < 2q on
+inputs < 4q); two conditional subtracts at the end give canonical [0, q)
+residues. Output
 order is the four-step kernel order u = rev2(k2)·n1 + rev1(k1)
 (``ppqsflhe_tpu.ops.fourstep.kernel_to_std``), so the results are bit-equal
 to every four-step implementation of the JAX package.
@@ -38,7 +41,7 @@ import numpy as np
 import torch
 
 from ..core import primes
-from ..core.modarith import shoup_mul_lazy
+from ..core.modarith import mont_mul_lazy, shoup_mul_lazy
 from ..core.ntt import bit_reverse_indices
 
 DIGIT_BITS = 7
@@ -76,6 +79,12 @@ def _shoup_pair(w: np.ndarray, q: int):
     return w.astype(np.uint64), sh
 
 
+def _mont_form(w: np.ndarray, q: int) -> np.ndarray:
+    """w·2^64 mod q as uint64: mont_mul_lazy(a, w·2^64 mod q) = a·w mod q
+    (the twin of ``PallasMxuNtt._mont_twiddle``)."""
+    return ((w.astype(object) << 64) % q).astype(np.uint64)
+
+
 @dataclass
 class _Recompose:
     """Static per-modulus plan for plane recomposition (see module doc): the
@@ -104,6 +113,9 @@ class MxuNttTables:
     a1i: np.ndarray       # int8 [nd, n1, nd·n1]   stage-2 inv (N^{-1} folded)
     t1: tuple             # uint64 (w, w_shoup), each (n1, n2): ω^{j2·rev1(r)}
     t1i: tuple            # uint64 (w, w_shoup), each (n2, n1): ω^{-j2·rev1(r1)}
+    t1m: np.ndarray       # uint64 (n1, n2): t1's w·2^64 mod q (Montgomery twiddle)
+    t1im: np.ndarray      # uint64 (n2, n1): t1i's w·2^64 mod q
+    qinv64: int           # -q^{-1} mod 2^64, the Montgomery twiddle's constant
     plan: _Recompose
 
     @staticmethod
@@ -173,7 +185,9 @@ class MxuNttTables:
             n=n, n1=n1, n2=n2, q=q, nd=nd,
             a1=_slice_matrix(m1, q, nd), a2=_slice_matrix(m2, q, nd),
             a2i=_slice_matrix(m2i, q, nd), a1i=_slice_matrix(m1i, q, nd),
-            t1=_shoup_pair(t1, q), t1i=_shoup_pair(t1i, q), plan=plan,
+            t1=_shoup_pair(t1, q), t1i=_shoup_pair(t1i, q),
+            t1m=_mont_form(t1, q), t1im=_mont_form(t1i, q),
+            qinv64=primes.mont_qinv_neg(q), plan=plan,
         )
 
     def stage_matrix(self, name: str) -> np.ndarray:
@@ -230,29 +244,37 @@ def _twiddle(x, pair, q):
     return shoup_mul_lazy(x, w, ws, q)
 
 
+def _twiddle_mont(x, wm, tabs: MxuNttTables):
+    """The Montgomery twiddle: x < 4q times the table w·2^64 mod q → < 2q."""
+    qinv = int(np.uint64(tabs.qinv64).view(np.int64))
+    return mont_mul_lazy(x, torch.as_tensor(wm.view(np.int64), device=x.device), tabs.q, qinv)
+
+
 def _mat(tabs: MxuNttTables, name: str, device) -> torch.Tensor:
     return torch.as_tensor(tabs.stage_matrix(name), device=device)
 
 
-def mxu_ntt_limb(x: torch.Tensor, tabs: MxuNttTables) -> torch.Tensor:
+def mxu_ntt_limb(x: torch.Tensor, tabs: MxuNttTables, mont: bool = False) -> torch.Tensor:
     """Forward negacyclic NTT of one limb: int64 (..., N) natural-order
     coefficients (values < 4q) → (..., N) canonical evaluations in kernel
-    order."""
+    order. ``mont``: the Montgomery twiddle (same outputs)."""
     n1, n2, q = tabs.n1, tabs.n2, tabs.q
     y = x.reshape(x.shape[:-1] + (n1, n2))
     y = _stage(y, _mat(tabs, "a1", x.device), tabs)               # (..., n1, n2)
-    y = _twiddle(y, tabs.t1, q).transpose(-1, -2)                 # (..., n2, n1)
+    y = _twiddle_mont(y, tabs.t1m, tabs) if mont else _twiddle(y, tabs.t1, q)
+    y = y.transpose(-1, -2)                                       # (..., n2, n1)
     y = _stage(y, _mat(tabs, "a2", x.device), tabs)
     return _strict(y, q).reshape(x.shape)
 
 
-def mxu_intt_limb(x: torch.Tensor, tabs: MxuNttTables) -> torch.Tensor:
+def mxu_intt_limb(x: torch.Tensor, tabs: MxuNttTables, mont: bool = False) -> torch.Tensor:
     """Inverse of :func:`mxu_ntt_limb`: kernel-order evaluations →
     natural-order coefficients in [0, q)."""
     n1, n2, q = tabs.n1, tabs.n2, tabs.q
     y = x.reshape(x.shape[:-1] + (n2, n1))
     y = _stage(y, _mat(tabs, "a2i", x.device), tabs)              # (..., n2, n1)
-    y = _twiddle(y, tabs.t1i, q).transpose(-1, -2)                # (..., n1, n2)
+    y = _twiddle_mont(y, tabs.t1im, tabs) if mont else _twiddle(y, tabs.t1i, q)
+    y = y.transpose(-1, -2)                                       # (..., n1, n2)
     y = _stage(y, _mat(tabs, "a1i", x.device), tabs)
     return _strict(y, q).reshape(x.shape)
 

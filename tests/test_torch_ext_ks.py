@@ -71,11 +71,11 @@ def test_extend_matches_reference(contexts, src, dst, fold):
     want_fused = np.asarray(jax_fused_extend(xj, jext, pre=pre, interpret=True))
     np.testing.assert_array_equal(want_fused, want)
     ext = BaseExtender([mq[i] for i in src], [mq[i] for i in dst])
-    got = convert.residues_np(ext.extend(convert.residues(x), pre))
+    got = convert.residues_np(ext.extend(convert.residues(x, "cpu"), pre))
     np.testing.assert_array_equal(got, want)
     # the kernel wrapper's CPU route is the plain version
     np.testing.assert_array_equal(
-        convert.residues_np(fused_extend(convert.residues(x), ext, pre)), want)
+        convert.residues_np(fused_extend(convert.residues(x, "cpu"), ext, pre)), want)
 
 
 @pytest.mark.parametrize("limbs", [(0, 1, 2, 3, 4), (0, 1, 3, 4)], ids=["l3", "l2"])
@@ -94,9 +94,10 @@ def test_ks_inner_product_matches_pallas_interpret(contexts, limbs):
                   np.uint32)
     want = np.asarray(jax_ks_inner_product(jnp.asarray(dig), jnp.asarray(key[:, :, list(limbs)]),
                                            qp, ip, interpret=True))
-    got = ks_inner_product_plain(convert.residues(dig), convert.residues(key), limb_map, q, qinv)
+    dig_t, key_t = convert.residues(dig, "cpu"), convert.residues(key, "cpu")
+    got = ks_inner_product_plain(dig_t, key_t, limb_map, q, qinv)
     np.testing.assert_array_equal(convert.residues_np(got), want)
-    got_w = ks_inner_product(convert.residues(dig), convert.residues(key), limb_map, q, qinv)
+    got_w = ks_inner_product(dig_t, key_t, limb_map, q, qinv)
     np.testing.assert_array_equal(convert.residues_np(got_w), want)
 
 
@@ -109,11 +110,11 @@ def test_keyswitch_matches_reference(contexts, nlimbs):
     c = _residues(mq[:nlimbs], (2,), seed=20 + nlimbs)
     key = _residues(mq, (2, 2), seed=30)
     jkey = jev.ksk_to_mont(jctx, JaxKsk(data=jnp.asarray(key)))
-    pkey = ev.ksk_to_mont(ctx, convert.keyswitch_key(key))
+    pkey = ev.ksk_to_mont(ctx, convert.keyswitch_key(key, device="cpu"))
     np.testing.assert_array_equal(convert.residues_np(pkey.data), np.asarray(jkey.data))
     one = jax.jit(lambda ci: jnp.stack(jev.keyswitch(jctx, ci, jkey, nlimbs)))
     want = np.stack([np.asarray(one(jnp.asarray(ci))) for ci in c], axis=1)   # (2, B, l, N)
-    d0, d1 = ev.keyswitch(ctx, convert.residues(c), pkey, nlimbs)
+    d0, d1 = ev.keyswitch(ctx, convert.residues(c, "cpu"), pkey, nlimbs)
     np.testing.assert_array_equal(convert.residues_np(d0), want[0])
     np.testing.assert_array_equal(convert.residues_np(d1), want[1])
 
@@ -128,7 +129,7 @@ def test_mult_scalar_rescale_matches_reference(contexts):
     data = _residues(ctx.moduli_qp[:3], (2, 2), seed=40)         # (B, 2, l, N)
     one = jax.jit(lambda d: jev.mult_scalar(jctx, JaxCt(d, 2.0**40), 0.5).data)
     want = np.stack([np.asarray(one(jnp.asarray(d))) for d in data])
-    got = ev.mult_scalar(ctx, Ciphertext(convert.residues(data), 2.0**40), 0.5)
+    got = ev.mult_scalar(ctx, Ciphertext(convert.residues(data, "cpu"), 2.0**40), 0.5)
     np.testing.assert_array_equal(convert.residues_np(got.data), want)
     assert got.scale == 2.0**40 and got.nlimbs == 2
 

@@ -122,10 +122,11 @@ def test_runner_big_route_matches_fourstep(monkeypatch, idx, routing):
 
 
 @pytest.mark.parametrize("log_n", [12, 13, 14, 15, 16])
-@pytest.mark.parametrize("nd", [6, 9])
+@pytest.mark.parametrize("nd", [3, 6, 9])
 def test_route_matches_jax_group_fits(log_n, nd):
-    """route(n, nd) is the JAX runner's choice at its default budget: the
-    fused kernel when the Shoup or the Montgomery-twiddle cell fits, else
+    """route(n, nd) is the JAX runner's choice at its default budget
+    (``PallasMxuNtt._run``): the fused Shoup kernel when its cell fits, the
+    fused Montgomery-twiddle kernel when only the 2-plane cell fits, else
     the streamed pair. No N=2^16 tables are built."""
     n = 1 << log_n
     pm = PallasMxuNtt.__new__(PallasMxuNtt)
@@ -133,10 +134,14 @@ def test_route_matches_jax_group_fits(log_n, nd):
     pm.n2 = n // pm.n1
     pm._vmem_budget = 1024 * 12896                # PPQSFLHE_FUSED_VMEM_KIB unset
     assert cuda_mxu_ntt.FUSED_VMEM_BUDGET == pm._vmem_budget
-    jax_big = not (pm._group_fits(nd, 4) or pm._group_fits(nd, 2))
-    assert cuda_mxu_ntt.route(n, nd) == ("big" if jax_big else "fused")
-    # the anchors of the JAX docstring: only nd=9 at N >= 2^15 streams
-    assert cuda_mxu_ntt.route(n, nd) == ("big" if nd == 9 and log_n >= 15 else "fused")
+    fits_shoup = pm._group_fits(nd, 4)
+    fits_mont = fits_shoup or pm._group_fits(nd, 2)
+    want = "fused" if fits_shoup else "fused_mont" if fits_mont else "big"
+    assert cuda_mxu_ntt.route(n, nd) == want
+    # the anchors of the JAX docstrings: nd=9 at N >= 2^15 streams, nd=6 at
+    # N=2^16 takes the Montgomery twiddle
+    assert cuda_mxu_ntt.route(n, nd) == ("big" if nd == 9 and log_n >= 15 else
+                                         "fused_mont" if nd == 6 and log_n == 16 else "fused")
 
 
 @pytest.mark.parametrize("n", [16, 256, 512, 1 << 15])

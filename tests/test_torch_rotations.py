@@ -39,7 +39,7 @@ def world():
     jp = JaxParams.generate(n=N, mult_depth=2, scale_bits=40, dnum=2,
                             ntt_backend="fourstep", ntt_impl="mxu")
     js = JaxScheme(jp)
-    sch = CkksScheme(convert.params(dataclasses.asdict(jp)))
+    sch = CkksScheme(convert.params(dataclasses.asdict(jp)), device="cpu")
     ctx, L = js.ctx, jp.num_q
     k0 = jax.random.PRNGKey(11)
     jsk, jpk = jrlwe.keygen(ctx, jax.random.fold_in(k0, 1))
@@ -60,13 +60,14 @@ def world():
     return dict(
         js=js, sch=sch, jsk=jsk, jpk=jpk, jrot=jrot, jconj=jconj, jrelin=jrelin,
         jc1=jc1, jc2=jc2, v1=v1, v2=v2,
-        sk=convert.secret_key(np.asarray(jsk.s_eval), np.asarray(jsk.s_int)),
-        pk=convert.public_key(np.asarray(jpk.data)),
-        rot=convert.rotation_keys({r: np.asarray(k.data) for r, k in jrot.items()}),
-        conj=convert.keyswitch_key(np.asarray(jconj.data)),
-        relin=convert.keyswitch_key(np.asarray(jrelin.data)),
-        c1=convert.ciphertext(np.asarray(jc1.data), jc1.scale),
-        c2=convert.ciphertext(np.asarray(jc2.data), jc2.scale))
+        sk=convert.secret_key(np.asarray(jsk.s_eval), np.asarray(jsk.s_int), device="cpu"),
+        pk=convert.public_key(np.asarray(jpk.data), device="cpu"),
+        rot=convert.rotation_keys({r: np.asarray(k.data) for r, k in jrot.items()},
+                                  device="cpu"),
+        conj=convert.keyswitch_key(np.asarray(jconj.data), device="cpu"),
+        relin=convert.keyswitch_key(np.asarray(jrelin.data), device="cpu"),
+        c1=convert.ciphertext(np.asarray(jc1.data), jc1.scale, device="cpu"),
+        c2=convert.ciphertext(np.asarray(jc2.data), jc2.scale, device="cpu"))
 
 
 def _same(port_ct, jax_ct):
@@ -89,8 +90,8 @@ def test_galois_perm_matches_reference(world):
     js, ctx = world["js"], world["sch"].ctx
     gs = [ev.rot_to_galois(r, N) for r in (1, 2, 7, -3, 64)] + [2 * N - 1]
     for g in gs:
-        np.testing.assert_array_equal(ctx.galois_perm(g).numpy(), js.ctx.galois_perm(g))
-        assert ctx.galois_perm(g) is ctx.galois_perm(g)
+        np.testing.assert_array_equal(ctx.galois_perm(g, "cpu").numpy(), js.ctx.galois_perm(g))
+        assert ctx.galois_perm(g, "cpu") is ctx.galois_perm(g, "cpu")
     assert ev.rot_to_galois(-3, N) == jev.rot_to_galois(-3, N)
     np.testing.assert_array_equal(ev._galois_perm(N, 5), jev._galois_perm(N, 5))
 
@@ -186,7 +187,8 @@ def test_inner_product_port_only():
     1e-3 in every slot, tests/test_ckks.py's gate."""
     from ppqsflhe_tpu_torch.ckks.params import CkksParams
 
-    sch = CkksScheme(CkksParams.generate(n=N, mult_depth=2, scale_bits=40, dnum=2))
+    sch = CkksScheme(CkksParams.generate(n=N, mult_depth=2, scale_bits=40, dnum=2),
+                     device="cpu")
     gen = torch.Generator().manual_seed(31)
     sk, pk = sch.keygen(gen)
     slots = sch.encoder.slots
@@ -203,7 +205,7 @@ def test_inner_product_port_only():
 
 def test_convert_rotation_keys_round_trip():
     data = np.random.default_rng(0).integers(0, 1 << 62, (2, 2, 3, 8), dtype=np.uint64)
-    keys = convert.rotation_keys({"1": data, -2: data + 1}, mont=True)
+    keys = convert.rotation_keys({"1": data, -2: data + 1}, mont=True, device="cpu")
     assert set(keys) == {1, -2} and all(k.mont for k in keys.values())
     back = convert.to_numpy(keys)
     assert np.array_equal(back[1]["data"], data) and np.array_equal(back[-2]["data"], data + 1)

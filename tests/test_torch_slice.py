@@ -59,13 +59,13 @@ def world():
     jp = JaxParams.generate(n=N, mult_depth=2, scale_bits=40, dnum=2,
                             ntt_backend="fourstep", ntt_impl="mxu")
     js = JaxScheme(jp)
-    sch = CkksScheme(convert.params(dataclasses.asdict(jp)))
+    sch = CkksScheme(convert.params(dataclasses.asdict(jp)), device="cpu")
     k0 = jax.random.PRNGKey(3)
     jsk1, jpk1 = js.keygen(jax.random.fold_in(k0, 1))
     jsk2, jpk2 = js.keygen(jax.random.fold_in(k0, 2))
-    sk1 = convert.secret_key(np.asarray(jsk1.s_eval), np.asarray(jsk1.s_int))
-    sk2 = convert.secret_key(np.asarray(jsk2.s_eval), np.asarray(jsk2.s_int))
-    pk1, pk2 = convert.public_key(np.asarray(jpk1.data)), convert.public_key(np.asarray(jpk2.data))
+    sk1 = convert.secret_key(np.asarray(jsk1.s_eval), np.asarray(jsk1.s_int), device="cpu")
+    sk2 = convert.secret_key(np.asarray(jsk2.s_eval), np.asarray(jsk2.s_int), device="cpu")
+    pk1, pk2 = (convert.public_key(np.asarray(k.data), device="cpu") for k in (jpk1, jpk2))
     # rekeys from the crossed-over JAX keys; both rounds get the same ones
     gen = torch.Generator().manual_seed(5)
     rk12 = ev.ksk_to_mont(sch.ctx, sch.rekey_gen(sk1, pk2, gen))
@@ -96,8 +96,8 @@ def test_server_round_bitequal_to_jax(world, lazy):
     want_avg, want_back = jax.jit(
         lambda a, b, c, d: _jax_server_round(js, a, b, c, d, w["scale"], lazy))(
         jnp.asarray(w["s1"]), jnp.asarray(w["s2"]), k12, k21)
-    c1 = convert.ciphertext(w["s1"], w["scale"])
-    c2 = convert.ciphertext(w["s2"], w["scale"])
+    c1 = convert.ciphertext(w["s1"], w["scale"], device="cpu")
+    c2 = convert.ciphertext(w["s2"], w["scale"], device="cpu")
     avg, back = server_round(sch, c1, c2, w["rk12"], w["rk21"], lazy)
     np.testing.assert_array_equal(convert.residues_np(avg.data), np.asarray(want_avg))
     np.testing.assert_array_equal(convert.residues_np(back.data), np.asarray(want_back))
@@ -110,7 +110,7 @@ def test_server_round_bitequal_to_jax(world, lazy):
 
 def test_jax_ciphertexts_decrypt_in_port(world):
     w = world
-    cts = convert.ciphertext(w["s1"], w["scale"])
+    cts = convert.ciphertext(w["s1"], w["scale"], device="cpu")
     assert _max_err(w["sch"], w["sk1"], cts, w["v1"]) < TOL
 
 
@@ -127,7 +127,7 @@ def test_port_rekey_decrypts_in_jax(world):
     """A ciphertext the port re-encrypted to client 2 decrypts under the JAX
     package's secret key of client 2."""
     w = world
-    cts = convert.ciphertext(w["s1"][:1], w["scale"])
+    cts = convert.ciphertext(w["s1"][:1], w["scale"], device="cpu")
     moved = change_cipher_domain_batch(w["sch"], w["rk12"], cts)
     d = convert.to_numpy(Ciphertext(moved.data[0], moved.scale))
     got = np.asarray(w["js"].decrypt(w["jsk2"], JaxCt(jnp.asarray(d["data"]), d["scale"])))
@@ -137,7 +137,8 @@ def test_port_rekey_decrypts_in_jax(world):
 def test_port_only_round_n4096():
     """The port end to end on its own keys at N=2^12: keygen, rekeys,
     encryption, both schedules, decrypt against the plaintext mean."""
-    sch = CkksScheme(CkksParams.generate(n=1 << 12, mult_depth=2, scale_bits=40, dnum=2))
+    sch = CkksScheme(CkksParams.generate(n=1 << 12, mult_depth=2, scale_bits=40, dnum=2),
+                     device="cpu")
     gen = torch.Generator().manual_seed(1)
     sk1, pk1 = sch.keygen(gen)
     sk2, pk2 = sch.keygen(gen)
@@ -167,7 +168,7 @@ def test_encoder_and_exact_decode_match_reference(world):
     vals = [np.random.default_rng(6).uniform(-1, 1, js.encoder.slots) for _ in range(2)]
     np.testing.assert_array_equal(sch.encoder.encode_batch(vals, 2.0**40),
                                   js.encoder.encode_batch(vals, 2.0**40))
-    ct = Ciphertext(convert.residues(world["s1"][0]), world["scale"])
+    ct = Ciphertext(convert.residues(world["s1"][0], "cpu"), world["scale"])
     coeffs = rlwe.decrypt_to_coeffs(sch.ctx, world["sk1"].s_eval, ct)
     fast = rlwe.decode_coeffs(sch.ctx, coeffs, ct, sch.encoder, num=32)
     exact = rlwe.decode_coeffs(sch.ctx, coeffs, ct, sch.encoder, num=32, exact=True)
@@ -181,10 +182,12 @@ def test_convert_round_trips_and_refuses_other_orders():
     with pytest.raises(ValueError, match="fourstep"):
         convert.params(dict(convert.params_fields(p), ntt_backend="radix2"))
     data = np.random.default_rng(0).integers(0, 1 << 63, (2, 3, 8), dtype=np.uint64) * 2 + 1
-    assert np.array_equal(convert.to_numpy(convert.ciphertext(data, 3.0))["data"], data)
-    ksk = convert.to_numpy(convert.keyswitch_key(data[None], mont=True))
+    ct = convert.ciphertext(data, 3.0, device="cpu")
+    assert np.array_equal(convert.to_numpy(ct)["data"], data)
+    ksk = convert.to_numpy(convert.keyswitch_key(data[None], mont=True, device="cpu"))
     assert ksk["mont"] and np.array_equal(ksk["data"], data[None])
-    sk = convert.to_numpy(convert.secret_key(data[0], np.array([1, -1, 0], np.int8)))
+    sk = convert.to_numpy(convert.secret_key(data[0], np.array([1, -1, 0], np.int8),
+                                             device="cpu"))
     assert np.array_equal(sk["s_eval"], data[0]) and list(sk["s_int"]) == [1, -1, 0]
 
 
