@@ -20,7 +20,18 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   other CC settings, 8192 slots), both schedules: kernel 1b on the 40-bit
   limbs, kernels 4+5 on the 60-bit ones, 2, and 3 at full level;
 - **the butterfly configuration** of the N=2^14 round (``ntt_impl="pallas"``:
-  kernel 6 runs every NTT), both schedules, bit-equal to the default round.
+  kernel 6 runs every NTT), both schedules, bit-equal to the default round;
+- **the seven FL tools on files** (``ppqsflhe_tpu_torch.fl.api``) at N=2^14
+  in a temporary directory: ``configs/config_cc.json`` as genCC writes it
+  (radix-2, JSON container) and the same with the four-step digit-matmul
+  NTT (PQWD container); two clients' GRU weights (39,041 values, 27
+  ciphertexts each, one optimizer layer skipped), keyGen ×2, REkeyGen both
+  ways, pk (dense v2) and sk (seeded v3) encryption, changeCipherDomain,
+  aggregation, changeCipherDomain back, both decrypts; then one INDCCA hop
+  under ``configs/config_cc_indcca.json``;
+- **kernel 7**, the tensor-core / integer-chain overlap probe of
+  ``probes/mxu_vpu_overlap.py`` at its shapes (K=64 cells, m=256, nd=6,
+  c=256): µs/cell for its four orders, scan-marginal over chained launches.
 
 For each path:
 
@@ -37,7 +48,17 @@ For each path:
    the inner product within 1e-3 of np.dot);
 4. times it: ms/round per schedule, µs/rotation for plain, hoisted and
    rotation sum (CUDA events, median of 20 after warm-up), µs per limb-NTT
-   and limb-NTT/s (profiler device time and CUDA-event wall).
+   and limb-NTT/s (profiler device time and CUDA-event wall), ms per FL
+   tool (host clock around the call, file I/O included, synchronized) and
+   the server tools' device ms, µs/cell of the probe.
+
+The file round's gates: decrypt error < 1e-3 against the plaintext mean in
+both contexts, changeCipherDomain's document bit-equal to the in-memory
+``change_cipher_domain_batch`` on the same loaded ciphertexts, the
+radix-2 round launching kernels 2 and 3 and no NTT kernel, the four-step
+round kernels 1, 2 and 3; the INDCCA hop's error RMS below √(N/2)·2^-10
+(the flooding's cost per hop, ``docs/SECURITY.md:58``) and its largest
+value below four times that.
 
 Each kernel row carries its bound: the least time the card could take for
 the same work, the larger of the bytes it must move (each input read once,
@@ -45,7 +66,8 @@ each output written once) over 3.35 TB/s and its int8 operations over
 1,979 T/s (H100 SXM; the 64-bit integer work of the butterflies and base
 extensions has no published rate, so their bound is the bytes). No PyTorch
 call computes an NTT, base extension or key inner product mod q, so
-``library_ms`` is null in every row.
+``library_ms`` is null in those rows; the probe's mxu row carries the time
+of ``torch._int_mm`` over the same cells (one call per cell).
 
 Then it prints a JSON line of per-kernel results, the card line, and finally
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code ≠ 0). Needs
@@ -91,15 +113,18 @@ SRC_NTT = "ppqsflhe_tpu_torch/csrc/mxu_ntt.cu"
 SRC_FS = "ppqsflhe_tpu_torch/csrc/fourstep_ntt.cu"
 SRC_EXT = "ppqsflhe_tpu_torch/csrc/base_ext.cu"
 SRC_KS = "ppqsflhe_tpu_torch/csrc/ks_ip.cu"
-# launch counter → (module under ppqsflhe_tpu_torch.ops, attribute, kernel symbol)
+SRC_PROBE = "ppqsflhe_tpu_torch/csrc/overlap_probe.cu"
+K7 = "probes/mxu_vpu_overlap.py:59"
+# launch counter → (module under ppqsflhe_tpu_torch, attribute, kernel symbol)
 COUNTERS = {
-    "mxu_ntt": ("cuda_mxu_ntt", "launches", "mxu_ntt_stage_kernel"),
-    "mxu_ntt_mont": ("cuda_mxu_ntt", "launches_mont", "mxu_ntt_stage_mont_kernel"),
-    "mxu_stage_a": ("cuda_mxu_ntt", "launches_stage_a", "mxu_stage_a_kernel"),
-    "mxu_stage_b": ("cuda_mxu_ntt", "launches_stage_b", "mxu_stage_b_kernel"),
-    "base_extend": ("cuda_ext", "launches", "base_extend_kernel"),
-    "ks_inner_product": ("cuda_ks", "launches", "ks_ip_kernel"),
-    "fourstep_ntt": ("cuda_ntt", "launches", "fourstep_ntt_kernel"),
+    "mxu_ntt": ("ops.cuda_mxu_ntt", "launches", "mxu_ntt_stage_kernel"),
+    "mxu_ntt_mont": ("ops.cuda_mxu_ntt", "launches_mont", "mxu_ntt_stage_mont_kernel"),
+    "mxu_stage_a": ("ops.cuda_mxu_ntt", "launches_stage_a", "mxu_stage_a_kernel"),
+    "mxu_stage_b": ("ops.cuda_mxu_ntt", "launches_stage_b", "mxu_stage_b_kernel"),
+    "base_extend": ("ops.cuda_ext", "launches", "base_extend_kernel"),
+    "ks_inner_product": ("ops.cuda_ks", "launches", "ks_ip_kernel"),
+    "fourstep_ntt": ("ops.cuda_ntt", "launches", "fourstep_ntt_kernel"),
+    "overlap_probe": ("probes.mxu_vpu_overlap", "launches", "overlap_probe_kernel"),
 }
 HBM_BPS = 3.35e12    # H100 SXM device memory, bytes/s
 INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core ops/s (a multiply-add is 2)
@@ -155,7 +180,7 @@ def sh(cmd) -> str:
 def _module(name):
     import importlib
 
-    return importlib.import_module(f"ppqsflhe_tpu_torch.ops.{name}")
+    return importlib.import_module(f"ppqsflhe_tpu_torch.{name}")
 
 
 def reset_counts() -> None:
@@ -248,8 +273,10 @@ class KernelCases:
         self.card = card
         self.rows = []
 
-    def check(self, name, counter, source, replaces, got, want, fn, plain_fn, iters, work):
-        """``work``: (bytes, int8 operations) of one call, for its bound."""
+    def check(self, name, counter, source, replaces, got, want, fn, plain_fn, iters, work,
+              library_ms=None):
+        """``work``: (bytes, int8 operations) of one call, for its bound;
+        ``library_ms``: the time of one PyTorch call for the same function."""
         import torch
 
         if not torch.equal(got, want):
@@ -277,7 +304,7 @@ class KernelCases:
             name=name, route="cuda", source=source, replaces=replaces, counter=counter,
             max_abs_err=err, ms=dev if timing == "profiler" else wall,
             plain_ms=plain_dev if timing == "profiler" else plain_wall,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
             timing=timing, wall_ms=wall, plain_wall_ms=plain_wall))
 
     def take_launches(self, counts: dict) -> list:
@@ -1032,6 +1059,297 @@ def butterfly_phase(card, device, w, default_outs, profile_on):
     return cases.take_launches(launches)
 
 
+# ---------------------------------------------------------------------------
+# Path 6: the seven FL tools on files at N=2^14
+# ---------------------------------------------------------------------------
+
+GRU_SHAPES = ([7, 192], [64, 192], [2, 192], [64, 192], [64, 192], [2, 192], [64, 1], [1])
+# INDCCA hop: the flooding of 2^30 at Δ=2^40 costs about sqrt(N/2)·2^-10 per
+# slot (docs/SECURITY.md:58): the RMS error must stay below it and the
+# largest of the payload's 39,041 values below four times it
+CCA_UNIT = (N_ROUND / 2) ** 0.5 * 2.0 ** -10
+CONTEXTS = (("radix2/json", {}, "json"),
+            ("fourstep/pqwd", {"ntt_backend": "fourstep", "ntt_impl": "pallas_mxu"}, "bin"))
+
+
+def write_weights(path, rng):
+    """One client's weights JSON in the GRU's Keras layout (39,041 values,
+    uniform(-1, 1)) plus one optimizer layer the tools must skip."""
+    import numpy as np
+
+    summary = []
+    for i, shape in enumerate(GRU_SHAPES):
+        v = rng.uniform(-1, 1, int(np.prod(shape)))
+        summary.append({"layer": f"param_{i}", "shape": shape, "mean": float(v.mean()),
+                        "std_dev": float(v.std()), "values": v.tolist()})
+    summary.append({"layer": "optimizer/iter", "shape": [1], "mean": 0.0, "std_dev": 0.0,
+                    "values": [0.0]})
+    with open(path, "w") as f:
+        json.dump({"weights_summary": summary}, f)
+    return {e["layer"]: np.asarray(e["values"]) for e in summary[:-1]}
+
+
+def decrypt_err(doc, want):
+    """(max, RMS) of |decrypted - want| over every value of every layer."""
+    import numpy as np
+
+    diffs = np.concatenate([np.asarray(e["values"]) - want[e["layer"]]
+                            for e in doc["weights_summary"]])
+    if len(doc["weights_summary"]) != len(want) or diffs.size != sum(v.size for v in want.values()):
+        raise AssertionError("decrypted document lacks layers or values")
+    return float(np.abs(diffs).max()), float(np.sqrt(np.mean(diffs ** 2)))
+
+
+def files_kernel_checks(cases, sch, rk_mont, gen, device, tag):
+    """Kernels 2 and 3 (and 1 for four-step) at the shapes the full-level
+    changeCipherDomain of a 27-ciphertext document gives them."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.ops import cuda_ext, mxu_ntt
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    ctx, n = sch.ctx, sch.params.n
+    mq, L, K = ctx.moduli_qp, sch.params.num_q, sch.params.num_p
+    idx_ext = ctx.q_idx(L) + ctx.p_idx()
+    groups, consts = _ks_decomp_consts(ctx, L)
+    for src, dst, pre, lead in ((groups[0], tuple(i for i in idx_ext if i not in groups[0]),
+                                 consts[0], (N_CTS,)), (ctx.p_idx(), ctx.q_idx(L), None,
+                                                        (2, N_CTS))):
+        ext = ctx.extender(src, dst)
+        xe = rand_residues([mq[i] for i in src], lead, n, gen, device)
+        cases.check(f"base_extend ({tag}, {len(src)}->{len(dst)} limbs, "
+                    f"{'pre' if pre is not None else 'ModDown'}, {'x'.join(map(str, lead))} "
+                    f"polys, N=2^14)", "base_extend", SRC_EXT, K2,
+                    cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
+                    lambda: cuda_ext.fused_extend(xe, ext, pre), lambda: ext.extend(xe, pre),
+                    50, ext_work(int(np.prod(lead)), len(src), len(dst), n))
+    limbs = tuple(range(L + K))
+    q, qinv, _ = ctx.limb_consts(limbs, device)
+    sel = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+    dig = rand_residues(mq, (N_CTS, len(ctx.digit_groups)), n, gen, device)
+    args = (dig, rk_mont.data, sel, q, qinv)
+    cases.check(f"ks_inner_product ({tag}, nd={len(ctx.digit_groups)}, LK={len(limbs)}, "
+                f"{N_CTS} polys, N=2^14)", "ks_inner_product", SRC_KS, K3,
+                ks_inner_product(*args), ks_inner_product_plain(*args),
+                lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50,
+                ks_work(N_CTS, len(ctx.digit_groups), len(limbs), n))
+    if not ctx.radix2:
+        # kernel 1: the iNTT of c1 over Q at the start of the key switch
+        idx = ctx.q_idx(L)
+        x = rand_residues([mq[i] for i in idx], (N_CTS,), n, gen, device)
+        tabs = [ctx.fntt.tabs[i] for i in idx]
+        plain = lambda: torch.stack([mxu_ntt.mxu_intt_limb(x[:, k], t)
+                                     for k, t in enumerate(tabs)], dim=1)
+        cases.check(f"mxu_ntt ({tag}, inverse, 3 limbs x {N_CTS} polys, N=2^14)", "mxu_ntt",
+                    SRC_NTT, K1, ctx.intt(x, idx), plain(), lambda: ctx.intt(x, idx), plain, 20,
+                    mxu_work(tabs, N_CTS))
+    torch.cuda.synchronize()
+
+
+def files_phase(card, device, profile_on):
+    """The file round through the port's tools, in the radix-2/JSON and the
+    four-step/PQWD contexts, then one INDCCA hop; ms per tool, device ms of
+    the server's tools, radix-2 transform time. Returns the kernels' rows."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks import serialize as ser
+    from ppqsflhe_tpu_torch.fl import api
+
+    dev = str(device)
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        P = lambda name: os.path.join(tmp, name)
+        rng = np.random.default_rng(SEED)
+        want1, want2 = write_weights(P("w1.json"), rng), write_weights(P("w2.json"), rng)
+        mean = {k: (want1[k] + want2[k]) / 2 for k in want1}
+        with open(os.path.join(REPO, "configs", "config_cc.json")) as f:
+            base_cfg = json.load(f)
+        for tag, extra, container in CONTEXTS:
+            cc = P(f"cc_{container}.json")
+            e = lambda name: P(f"{name}.{container}")
+            key = lambda name: P(f"{name}.key.{container}")
+            api.gen_cc(dict(base_cfg, **extra), cc)
+            times = {}
+
+            def tool(name, fn, *a, **kw):
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                times[name] = (time.perf_counter() - t0) * 1e3
+                return out
+
+            ccd = lambda: api.change_cipher_domain(cc, key("rk12"), e("e1"), e("c12"), device=dev)
+            agg = lambda: api.aggregate_encrypted_weights(cc, [e("c12"), e("e2")], e("agg"),
+                                                          device=dev)
+            reset_counts()
+            for rep in ("cold", "warm"):
+                tool("keyGen 1", api.key_gen, cc, key("pk1"), key("sk1"), seed=SEED + 1, device=dev)
+                tool("keyGen 2", api.key_gen, cc, key("pk2"), key("sk2"), seed=SEED + 2, device=dev)
+                tool("REkeyGen 1->2", api.rekey_gen, cc, key("sk1"), key("pk2"), key("rk12"),
+                     seed=SEED + 3, device=dev)
+                tool("REkeyGen 2->1", api.rekey_gen, cc, key("sk2"), key("pk1"), key("rk21"),
+                     seed=SEED + 4, device=dev)
+                tool("encrypt pk (v2)", api.encrypt_weights, cc, key("pk1"), P("w1.json"), e("e1"),
+                     seed=SEED + 5, container=container, device=dev)
+                tool("encrypt sk (v3)", api.encrypt_weights, cc, key("sk2"), P("w2.json"), e("e2"),
+                     seed=SEED + 6, container=container, device=dev)
+                tool("changeCipherDomain 1->2", ccd)
+                tool("aggregate", agg)
+                tool("changeCipherDomain 2->1", api.change_cipher_domain, cc, key("rk21"),
+                     e("agg"), e("back"), device=dev)
+                d2 = tool("decrypt 2", api.decrypt_weights, cc, key("sk2"), e("agg"), P("d2.json"),
+                          device=dev)
+                d1 = tool("decrypt 1", api.decrypt_weights, cc, key("sk1"), e("back"),
+                          P("d1.json"), device=dev)
+                if rep == "cold":
+                    launches = read_counts()
+                print(f"[files {tag} {rep}] ms per tool (wall, file I/O included): "
+                      + ", ".join(f"{k} {v:.1f}" for k, v in times.items()) + f" ({card})")
+            sch = api.load_scheme(cc, dev)
+            n_cts = len(ser.load_enc_doc(e("e1"))["weights_summary"])
+            docs = {k: ser.load_enc_doc(e(k)) for k in ("e1", "c12")}
+            loaded = {k: api._stack(api._load_cts([f[3] for f in api._doc_fields(d)], sch))
+                      for k, d in docs.items()}
+            B = loaded["e1"].data.shape[0]
+            if (B != N_CTS or n_cts != len(GRU_SHAPES)
+                    or ser.doc_is_binary(e("e1")) != (container == "bin")):
+                raise AssertionError(f"{tag}: {B} ciphertexts over {n_cts} layers "
+                                     f"(want {N_CTS} over {len(GRU_SHAPES)}), container")
+            rk12 = api._load_rekey_mont(sch, key("rk12"))
+            mem = api.change_cipher_domain_batch(sch, rk12, loaded["e1"])
+            same = torch.equal(mem.data, loaded["c12"].data) and mem.scale == loaded["c12"].scale
+            e2, r2 = decrypt_err(d2, mean)
+            e1, r1 = decrypt_err(d1, mean)
+            print(f"[files {tag}] {B} ciphertexts per client; changeCipherDomain bit-equal to "
+                  f"change_cipher_domain_batch: {same}; decrypt max err vs the plaintext mean: "
+                  f"client 2 {e2:.3e}, client 1 {e1:.3e} (gate {ERR_GATE}); kernel launches "
+                  f"{ {k: v for k, v in launches.items() if v} }")
+            if not same:
+                raise AssertionError(f"{tag}: changeCipherDomain differs from the in-memory batch")
+            if not (np.isfinite(e1) and np.isfinite(e2) and max(e1, e2) < ERR_GATE):
+                raise AssertionError(f"{tag}: decrypt error {max(e1, e2)} over the gate")
+            need = ("base_extend", "ks_inner_product") + (() if sch.ctx.radix2 else ("mxu_ntt",))
+            ntt_kernels = ("mxu_ntt", "mxu_ntt_mont", "mxu_stage_a", "mxu_stage_b",
+                           "fourstep_ntt")
+            missing = [k for k in need if launches[k] == 0]
+            wrong = [k for k in ntt_kernels if launches[k]] if sch.ctx.radix2 else []
+            if missing or wrong:
+                raise AssertionError(f"{tag}: never launched {missing}; launched {wrong}")
+            for name, fn in (("changeCipherDomain", ccd), ("aggregate", agg)):
+                print(f"[files {tag}] {name}: device {show_us(device_ms(fn, 1))} per call "
+                      f"(profiler, all device activities) ({card})")
+            busy_line(f"files {tag} changeCipherDomain", ccd, times["changeCipherDomain 1->2"])
+            if profile_on:
+                profile_table(f"files {tag} changeCipherDomain", ccd)
+            if sch.ctx.radix2:
+                x = rand_residues(sch.ctx.moduli_qp[:3], (N_CTS,), sch.params.n,
+                                  torch.Generator().manual_seed(SEED), device)
+                for name, run in (("ntt", lambda: sch.ctx.ntt(x, (0, 1, 2))),
+                                  ("intt", lambda: sch.ctx.intt(x, (0, 1, 2)))):
+                    dms = device_ms(run, 3)
+                    per = None if dms is None else dms / (3 * N_CTS)
+                    print(f"[timing radix2 {name}] 3 limbs x {N_CTS} polys, N=2^14 (plain torch, "
+                          f"{sch.params.n.bit_length() - 1} stages): device {show_us(dms)} per "
+                          f"call, {show_us(per)} per limb-NTT; wall "
+                          f"{cuda_ms(run, 3) * 1e3:.1f} us per call ({card})")
+            cases = KernelCases(card)
+            files_kernel_checks(cases, sch, rk12, torch.Generator().manual_seed(SEED), device,
+                                tag)
+            rows += cases.take_launches(launches)
+
+        # one INDCCA hop on the radix-2 round's keys (same chain and order)
+        cca = P("cc_cca.json")
+        with open(os.path.join(REPO, "configs", "config_cc_indcca.json")) as f:
+            api.gen_cc(json.load(f), cca)
+        if api.load_scheme(cca, dev).params.pre_mode != "INDCCA":
+            raise AssertionError("config_cc_indcca.json did not give an INDCCA context")
+        t0 = time.perf_counter()
+        api.change_cipher_domain(cca, P("rk12.key.json"), P("e1.json"), P("cca.json"),
+                                 pub_path=P("pk2.key.json"), seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        err, rms = decrypt_err(api.decrypt_weights(cca, P("sk2.key.json"), P("cca.json"),
+                                                   P("dcca.json"), device=dev), want1)
+        print(f"[files INDCCA] one hop 1->2 with the target public key: {ms:.1f} ms; decrypt "
+              f"err max {err:.4f}, RMS {rms:.4f} (gates: RMS < sqrt(N/2)*2^-10 = {CCA_UNIT:.4f}, "
+              f"max < {4 * CCA_UNIT:.4f}; predicted RMS sqrt(N/2)*2^30/sqrt(3)/2^40 = "
+              f"{CCA_UNIT / 3 ** 0.5:.4f}) ({card})")
+        if not (np.isfinite(err) and rms < CCA_UNIT and err < 4 * CCA_UNIT):
+            raise AssertionError(f"INDCCA hop: error max {err}, RMS {rms} over the gate")
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Path 7: kernel 7, the tensor-core / integer-chain overlap probe
+# ---------------------------------------------------------------------------
+
+def probe_work(kind, x8, m):
+    """(bytes, int8 operations) of one probe launch over all K cells."""
+    K, W, c = x8.shape
+    out = 4 * K * m * c
+    if kind == "vpu":
+        return K * m * c + out, 0
+    return K * W * c + m * W + out, 2 * K * m * W * c
+
+
+def probe_phase(card, device):
+    """Kernel 7 at the TPU probe's shapes: bit-equal to its plain version
+    for the four kinds with carry 0 and non-zero, torch._int_mm as the mxu
+    kind's library call, then µs/cell scan-marginally (the main path)."""
+    import torch
+
+    from ppqsflhe_tpu_torch.probes import mxu_vpu_overlap as pr
+
+    x8, a = pr.inputs(device, seed=0)
+    m = pr.M
+    cells = [x8[k] for k in range(x8.shape[0])]
+    am = a[:m].contiguous()
+    lib = lambda: [torch._int_mm(am, xk) for xk in cells]
+    lib_dev = device_ms(lib, 3)
+    lib_wall = cuda_ms(lib, 3)
+    print(f"[probe] library: {len(cells)} torch._int_mm calls (one per cell): device "
+          f"{show_us(lib_dev)}, wall {lib_wall * 1e3:.1f} us per set ({card})")
+    want_mxu = torch.stack([c.to(torch.int64) & 0xFFFFFFFF for c in lib()])
+    cases = KernelCases(card)
+    crafted = torch.tensor([[[0x1A5]]], dtype=torch.int32, device=device)   # carry -91
+    for kind in pr.KINDS:
+        got = pr.probe(kind, x8, a, None, m)
+        cases.check(f"overlap_probe ({kind}, K={x8.shape[0]}, m={m}, nd={pr.ND}, c={pr.C})",
+                    "overlap_probe", SRC_PROBE, K7, got, pr.probe_plain(kind, x8, a, None, m),
+                    lambda: pr.probe(kind, x8, a, None, m),
+                    lambda: pr.probe_plain(kind, x8, a, None, m), 20, probe_work(kind, x8, m),
+                    library_ms=(lib_dev or lib_wall) if kind == "mxu" else None)
+        for prev in (got, crafted):       # a chained carry and a non-zero one
+            if not torch.equal(pr.probe(kind, x8, a, prev, m),
+                               pr.probe_plain(kind, x8, a, prev, m)):
+                raise AssertionError(f"overlap_probe {kind}: differs from plain with carry "
+                                     f"{pr.carry_byte(prev)}")
+        if kind == "mxu" and not torch.equal(got.to(torch.int64) & 0xFFFFFFFF, want_mxu):
+            raise AssertionError("overlap_probe mxu differs from torch._int_mm")
+    print(f"[probe] kernel 7 bit-equal to its plain version for {list(pr.KINDS)} with carry 0 "
+          f"and {pr.carry_byte(crafted)}; mxu = torch._int_mm per cell")
+    torch.cuda.synchronize()
+
+    reset_counts()
+    us = pr.measure(x8, a, m)
+    launches = read_counts()
+    if launches["overlap_probe"] == 0:
+        raise AssertionError("the probe never launched kernel 7")
+    print(f"[probe] us/cell (scan-marginal over R={pr.R_LO} and R={pr.R_HI} chained launches, "
+          f"K={x8.shape[0]} cells, one CTA each): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in us.items()) + f" ({card})")
+    lo, hi = max(us["mxu"], us["vpu"]), us["mxu"] + us["vpu"]
+    print(f"[probe] inter {us['inter']:.3f} vs max(mxu, vpu) {lo:.3f} and mxu+vpu {hi:.3f}: "
+          f"{(hi - us['inter']) / max(hi - lo, 1e-9):.0%} of the possible overlap; serial "
+          f"{us['serial']:.3f}")
+    return cases.take_launches(launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -1061,6 +1379,8 @@ def main() -> None:
     kernels += ntt_phase(card, device)
     kernels += round16_phase(card, device, args.profile)
     kernels += butterfly_phase(card, device, world, outs, args.profile)
+    kernels += files_phase(card, device, args.profile)
+    kernels += probe_phase(card, device)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -2,7 +2,8 @@
 
 Twin of :mod:`ppqsflhe_tpu.ckks.eval`: add, mult_scalar, rescale,
 level_reduce, HYBRID key switching, key-switch key generation (PRE rekeys
-from a public key, relinearization and Galois keys from a secret key),
+from a public key, relinearization and Galois keys from a secret key, with
+a fresh or a seed-expanded mask),
 ct×ct mult with relinearization, and Galois rotations (plain, hoisted,
 double-hoisted rotation sums) and conjugation. The KSK for digit j
 encrypts P·t·Q̂_j with Q̂_j = Q_full/D_j the full-basis CRT cofactor; the
@@ -236,18 +237,31 @@ def _ks_target_factors(ctx: CkksContext):
     return out
 
 
+def _ksk_digit_seed(a_seed: bytes, j: int) -> bytes:
+    """Digit j's 16-byte expansion seed of a seeded key-switch key."""
+    import hashlib
+
+    return hashlib.blake2b(a_seed + j.to_bytes(2, "little"), digest_size=16).digest()
+
+
 def keyswitch_key_gen(ctx: CkksContext, target_eval_q: torch.Tensor,
                       gen: torch.Generator, pk_to: PublicKey | None = None,
-                      sk_to: SecretKey | None = None) -> KeySwitchKey:
+                      sk_to: SecretKey | None = None,
+                      a_seed: bytes | None = None) -> KeySwitchKey:
     """KSK keying ``target_eval_q`` (int64[L, n], eval domain): each digit
     row encrypts P·Q̂_j·target over QP, either under the public key
     ``pk_to`` (the INDCPA PRE rekey) or, with ``sk_to``, directly under that
-    secret key with a fresh uniform a_j (relinearization, rotation and
-    conjugation keys; the JAX package's unseeded sk_to path)."""
-    from .rlwe import _poly_mul, _signed_to_eval
+    secret key with a uniform a_j (relinearization, rotation and
+    conjugation keys): fresh from ``gen``, or with ``a_seed`` expanded from
+    the digit's seed :func:`_ksk_digit_seed` (the seeded wire ships only the
+    b rows and the seed)."""
+    from .rlwe import _poly_mul, _signed_to_eval, expand_a
 
     if (pk_to is None) == (sk_to is None):
         raise ValueError("give exactly one of pk_to and sk_to")
+    if a_seed is not None and pk_to is not None:
+        raise ValueError("a_seed applies to secret-key KSKs only (the pk path's rows "
+                         "are not uniform)")
     n = ctx.params.n
     L = ctx.params.num_q
     K = ctx.params.num_p
@@ -268,7 +282,10 @@ def keyswitch_key_gen(ctx: CkksContext, target_eval_q: torch.Tensor,
             b = modadd(modadd(_poly_mul(ctx, pk_to.data[0], u, all_idx), e0, q_all), m, q_all)
             a = modadd(_poly_mul(ctx, pk_to.data[1], u, all_idx), e1, q_all)
         else:
-            a = ctx.ntt(sampling.uniform_rns(gen, ctx.moduli_qp, n, dev), all_idx)
+            if a_seed is not None:
+                a = expand_a(ctx, _ksk_digit_seed(a_seed, j), L + K, dev)
+            else:
+                a = ctx.ntt(sampling.uniform_rns(gen, ctx.moduli_qp, n, dev), all_idx)
             as_ = _poly_mul(ctx, a, sk_to.s_eval, all_idx)
             b = modadd(modadd(modneg(as_, q_all), noise(), q_all), m, q_all)
         rows.append(torch.stack([b, a]))

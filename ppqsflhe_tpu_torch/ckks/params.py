@@ -2,17 +2,20 @@
 
 Twin of :mod:`ppqsflhe_tpu.ckks.params`. The context owns the RNS chains
 (ciphertext chain Q = [q0..qL], special primes P for hybrid key switching),
-the four-step NTT runner over the QP basis (``ntt_impl``: the digit-matmul
-route or the butterfly transform), the digit partition, the Galois
+the NTT runner over the QP basis, the digit partition, the Galois
 permutations in its evaluation order, and lazily cached per-level
-constants. Constants are host Python
-ints / numpy; :meth:`CkksContext.consts` hands them out as int64 tensors on
-the device asked for, uploaded once per device.
+constants. Constants are host Python ints / numpy;
+:meth:`CkksContext.consts` hands them out as int64 tensors on the device
+asked for, uploaded once per device.
 
-The port's evaluation domain is the four-step kernel order — the JAX
-package's ``ntt_backend="fourstep"`` — on every device. Which implementation
-runs a transform follows the tensor: the plain torch version on the CPU, the
-CUDA kernels on the card (the JAX package's ``use_pallas_ks`` gate).
+``ntt_backend`` fixes the evaluation order, as in the JAX package:
+``"fourstep"`` (the four-step kernel order; ``ntt_impl`` picks the
+digit-matmul route or the butterfly transform) or ``"radix2"`` (the
+bit-reversed order of :class:`..core.ntt.Radix2Ntt`; ``ntt_impl`` is not
+read). Which implementation runs a four-step transform follows the tensor:
+the plain torch version on the CPU, the CUDA kernels on the card (the JAX
+package's ``use_pallas_ks`` gate). The radix-2 transforms are plain torch on
+every device.
 """
 
 from __future__ import annotations
@@ -26,9 +29,13 @@ import torch
 
 from ..core import primes
 from ..core.modarith import u64_to_i64
-from ..core.ntt import NttBasis
+from ..core.ntt import NttBasis, Radix2Ntt
 from ..core.rns import BaseExtender
 from ..ops import cuda_ntt
+
+# the reference artifacts' chain and roots (ppqsflhe_tpu/ckks/params.py:36-37)
+REFERENCE_MODULI = (1152921504606748673, 1099510054913, 1099511922689, 557057)
+REFERENCE_ROOTS = (62213374832584, 42618759, 36692422, 19)
 
 
 @dataclass(frozen=True)
@@ -44,15 +51,33 @@ class CkksParams:
     dnum: int = 2                     # hybrid KS digit count (reference: 2)
     slots: int = 0                    # batch size; 0 → N/2
     sigma: float = 3.19
-    # the four-step NTT's implementation, by the JAX name of its counterpart:
-    # "pallas_mxu" (digit-matmul route: kernels 1, 1b, 4, 5) or "pallas"
-    # (butterfly: kernel 6); both give the same evaluations, bit for bit
+    # the four-step NTT's implementation, by its JAX name: "pallas_mxu",
+    # "xla" or "mxu" (the digit-matmul route: kernels 1, 1b, 4, 5) or
+    # "pallas" (butterfly: kernel 6); all give the same evaluations, bit for
+    # bit. The name is kept as given, so a CC document re-emits unchanged.
     ntt_impl: str = cuda_ntt.MXU
+    # "fourstep" or "radix2". The JAX package defaults to "radix2" (and a CC
+    # document without the key reads as radix-2, ckks/serialize.py); the
+    # port's in-memory default stays the four-step order its kernels run in.
+    ntt_backend: str = "fourstep"
+    # PRE mode: "INDCPA" (one key switch) or "INDCCA" (plus Enc_pk(0) and
+    # uniform flooding of 2^pre_flood_bits on every re-encryption)
+    pre_mode: str = "INDCPA"
+    pre_flood_bits: int = 30
+
+    def __post_init__(self):
+        if self.ntt_backend not in ("fourstep", "radix2"):
+            raise ValueError(f"ntt_backend={self.ntt_backend!r}: 'fourstep' or 'radix2'")
+        if self.ntt_impl not in cuda_ntt.RUNNER:
+            raise ValueError(f"unknown ntt_impl {self.ntt_impl!r} "
+                             f"(one of {sorted(cuda_ntt.RUNNER)})")
+        if self.pre_mode not in ("INDCPA", "INDCCA"):
+            raise ValueError(f"unsupported PREMode {self.pre_mode!r} (INDCPA or INDCCA)")
 
     @staticmethod
     def generate(n: int = 1 << 14, mult_depth: int = 2, scale_bits: int = 40,
                  first_mod_bits: int = 60, dnum: int = 2, slots: int = 0,
-                 ntt_impl: str = cuda_ntt.MXU) -> "CkksParams":
+                 ntt_impl: str = cuda_ntt.MXU, ntt_backend: str = "fourstep") -> "CkksParams":
         """A fresh NTT-friendly chain, OpenFHE-style: one first modulus of
         ``first_mod_bits``, ``mult_depth`` scaling primes of ``scale_bits``,
         and enough 60-bit special primes to cover the largest KS digit —
@@ -69,7 +94,17 @@ class CkksParams:
         p = primes.prime_chain(60, n_special, m, avoid=set(q))
         return CkksParams(n=n, q_moduli=tuple(q), p_moduli=tuple(p),
                           scale_bits=scale_bits, dnum=dnum, slots=slots or n // 2,
-                          ntt_impl=ntt_impl)
+                          ntt_impl=ntt_impl, ntt_backend=ntt_backend)
+
+    @staticmethod
+    def reference(slots: int = 8192) -> "CkksParams":
+        """The exact chain of the reference's checked-in artifacts (the JAX
+        package's ``CkksParams.reference``), in the radix-2 order."""
+        m = 2 * (1 << 14)
+        p = tuple(primes.prime_chain(60, 2, m, avoid=set(REFERENCE_MODULI)))
+        return CkksParams(n=1 << 14, q_moduli=REFERENCE_MODULI, p_moduli=p,
+                          q_roots=REFERENCE_ROOTS, scale_bits=40, dnum=2, slots=slots,
+                          ntt_backend="radix2", ntt_impl="xla")
 
     @property
     def num_q(self) -> int:
@@ -96,8 +131,9 @@ class CkksContext:
                 primes.root_of_unity(2 * params.n, p) for p in params.p_moduli)
             roots = tuple(params.q_roots) + p_roots
         self.basis = NttBasis(params.n, self.moduli_qp, roots)
-        self.fntt = cuda_ntt.four_step_ntt(params.n, self.moduli_qp, self.basis.psis,
-                                           params.ntt_impl)
+        self.radix2 = params.ntt_backend == "radix2"
+        self.fntt = (Radix2Ntt(self.basis) if self.radix2 else cuda_ntt.four_step_ntt(
+            params.n, self.moduli_qp, self.basis.psis, cuda_ntt.RUNNER[params.ntt_impl]))
         self._dev: Dict[tuple, torch.Tensor] = {}
         self._ext_cache: Dict[tuple, BaseExtender] = {}
 
@@ -148,16 +184,19 @@ class CkksContext:
         return self.fntt.intt(a, idx=tuple(idx))
 
     def galois_perm(self, g: int, device="cuda") -> torch.Tensor:
-        """Eval-order permutation for the automorphism X→X^g, corrected for
-        the four-step kernel order (new[i] = old[perm[i]]), as a long tensor
-        on ``device``; cached per g and device."""
+        """Eval-order permutation for the automorphism X→X^g in the
+        backend's order (new[i] = old[perm[i]]): the bit-reversed one as it
+        is for radix-2, corrected for the kernel order for four-step; a long
+        tensor on ``device``, cached per g and device."""
         k = (("galois", g), str(device))
         if k not in self._dev:
             from .eval import _galois_perm
 
             P = _galois_perm(self.params.n, g)
-            T = self.fntt.perm_to_std
-            self._dev[k] = torch.as_tensor(T[P[np.argsort(T)]], device=device)
+            if not self.radix2:
+                T = self.fntt.perm_to_std
+                P = T[P[np.argsort(T)]]
+            self._dev[k] = torch.as_tensor(P, device=device)
         return self._dev[k]
 
     # -- cached precomputes --------------------------------------------------

@@ -3,7 +3,7 @@ that the server's aggregation round and the rotation path need: keygen,
 rekey_gen, relinearization, rotation and conjugation keys, encrypt_values,
 decrypt, add, mult_scalar, ct×ct mult, rescale, rotations (plain, hoisted,
 rotation sums), conjugation, the packed inner product, and re_encrypt in
-INDCPA mode. Operations run eagerly on the device their tensors live on;
+both PRE modes. Operations run eagerly on the device their tensors live on;
 the scheme's ``device`` is where it creates new ones: the card unless the
 caller asks for another (``device="cpu"`` runs the plain versions). Randomness comes from
 explicit ``torch.Generator``s.
@@ -46,8 +46,9 @@ class CkksScheme:
 
     # -- keys ---------------------------------------------------------------
 
-    def keygen(self, gen: torch.Generator) -> tuple[SecretKey, PublicKey]:
-        return rlwe.keygen(self.ctx, gen, self.device)
+    def keygen(self, gen: torch.Generator,
+               a_seed: bytes | None = None) -> tuple[SecretKey, PublicKey]:
+        return rlwe.keygen(self.ctx, gen, self.device, a_seed)
 
     def rekey_gen(self, sk_from: SecretKey, pk_to: PublicKey,
                   gen: torch.Generator) -> KeySwitchKey:
@@ -132,11 +133,24 @@ class CkksScheme:
 
     # -- PRE ----------------------------------------------------------------
 
-    def re_encrypt(self, ct: Ciphertext, rekey: KeySwitchKey) -> Ciphertext:
-        """changeCipherDomain in INDCPA PREMode: one key switch of c1, with
-        its d0 added to c0. Batched ciphertexts switch in one call."""
+    def re_encrypt(self, ct: Ciphertext, rekey: KeySwitchKey, pk_to: PublicKey | None = None,
+                   gen: torch.Generator | None = None) -> Ciphertext:
+        """changeCipherDomain: one key switch of c1, with its d0 added to
+        c0. Batched ciphertexts switch in one call. Under PREMode INDCCA the
+        output is re-randomized with a fresh Enc_{pk_to}(0) plus uniform
+        flooding of 2^pre_flood_bits, one per ciphertext of the batch;
+        ``pk_to`` (the TARGET public key) and ``gen`` are then required."""
+        indcca = self.params.pre_mode == "INDCCA"
+        if indcca and (pk_to is None or gen is None):
+            raise ValueError("PREMode INDCCA requires the target public key and a generator "
+                             "for re-encryption re-randomization")
         l = ct.nlimbs
-        q, _, _ = self.ctx.limb_consts(self.ctx.q_idx(l), ct.data.device)
+        dev = ct.data.device
+        q, _, _ = self.ctx.limb_consts(self.ctx.q_idx(l), dev)
         d0, d1 = ev.keyswitch(self.ctx, ct.data[..., 1, :, :], rekey, l)
         out = torch.stack([modadd(ct.data[..., 0, :, :], d0, q), d1], dim=-3)
+        if indcca:
+            z = rlwe.encrypt_zero(self.ctx, pk_to, l, gen, self.params.pre_flood_bits,
+                                  lead=ct.data.shape[:-3], device=dev)
+            out = modadd(out, z, q)
         return Ciphertext(data=out, scale=ct.scale)

@@ -6,30 +6,27 @@ imports neither package's framework beyond torch: residues are numpy
 holding JAX objects passes ``np.asarray(...)`` of their arrays. Tensors land
 on the card unless the caller names another ``device``.
 
-Only the JAX package's four-step evaluation order is accepted
-(``ntt_backend="fourstep"``, any ``ntt_impl``): a radix-2 ciphertext holds
-the same values in another order, and converting it would be silent
-corruption. Every four-step ``ntt_impl`` gives the same evaluations:
-``"pallas"`` maps to the port's butterfly transform, the others (``"xla"``,
-``"mxu"``, ``"pallas_mxu"``) to its digit-matmul route.
+Both evaluation orders cross: the params carry ``ntt_backend``, so keys and
+ciphertexts stay in the order their context was made for. Every four-step
+``ntt_impl`` gives the same evaluations: ``"pallas"`` runs the port's
+butterfly transform, the others (``"xla"``, ``"mxu"``, ``"pallas_mxu"``)
+its digit-matmul route. ``flexible_ext=True`` is refused (not ported).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .ckks.params import CkksParams
 from .ckks.types import Ciphertext, KeySwitchKey, PublicKey, SecretKey
-from .ops.cuda_ntt import BUTTERFLY, MXU
 
 # CkksParams fields the JAX package has and the port does not, with the only
 # value the port supports
-_JAX_ONLY = {"ntt_backend": "fourstep", "flexible_ext": False, "pre_mode": "INDCPA"}
-_PORT_FIELDS = ("n", "q_moduli", "p_moduli", "q_roots", "p_roots", "scale_bits",
-                "dnum", "slots", "sigma", "ntt_impl")
-# the JAX package's four-step ntt_impl values → the port's
-_NTT_IMPL = {"xla": MXU, "mxu": MXU, "pallas_mxu": MXU, "pallas": BUTTERFLY}
+_JAX_ONLY = {"flexible_ext": False}
+_PORT_FIELDS = tuple(f.name for f in dataclasses.fields(CkksParams))
 
 
 def residues(a, device="cuda") -> torch.Tensor:
@@ -50,10 +47,6 @@ def params(fields: dict) -> CkksParams:
         if k in fields and fields[k] != want:
             raise ValueError(f"the port supports {k}={want!r} only, got {fields[k]!r}")
     kw = {k: fields[k] for k in _PORT_FIELDS if k in fields}
-    if "ntt_impl" in kw:
-        if kw["ntt_impl"] not in _NTT_IMPL:
-            raise ValueError(f"unknown ntt_impl {kw['ntt_impl']!r}")
-        kw["ntt_impl"] = _NTT_IMPL[kw["ntt_impl"]]
     for k in ("q_moduli", "p_moduli", "q_roots", "p_roots"):
         if kw.get(k) is not None:
             kw[k] = tuple(int(v) for v in kw[k])
@@ -61,11 +54,8 @@ def params(fields: dict) -> CkksParams:
 
 
 def params_fields(p: CkksParams) -> dict:
-    """Keyword arguments for the JAX ``CkksParams`` that matches ``p``; its
-    ``ntt_impl`` names the JAX counterpart of the port's implementation."""
-    from dataclasses import asdict
-
-    return dict(asdict(p), ntt_backend="fourstep")
+    """Keyword arguments for the JAX ``CkksParams`` that matches ``p``."""
+    return dict(dataclasses.asdict(p), **_JAX_ONLY)
 
 
 def secret_key(s_eval, s_int, device="cuda") -> SecretKey:

@@ -1,8 +1,9 @@
 """RLWE noise and key sampling on an explicit ``torch.Generator``.
 
 Twin of :mod:`ppqsflhe_tpu.core.sampling`: the same distributions (uniform
-ternary secret, the exact CDT discrete Gaussian with σ = 3.19, per-limb
-uniform residues), drawn from torch's generator instead of ``jax.random`` —
+ternary secret, the exact CDT discrete Gaussian with σ = 3.19, uniform
+flooding noise, per-limb uniform residues), drawn from torch's generator
+instead of ``jax.random`` —
 so the bits differ from the JAX package's for the same seed, by design.
 Draws happen on the generator's device (the CPU for a CPU generator) and
 the result is moved to ``device``.
@@ -67,6 +68,16 @@ def discrete_gaussian(gen: torch.Generator, n: int, sigma: float = SIGMA,
     sign = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int64,
                          device=gen.device)
     return torch.where(sign == 1, -mag, mag).to(torch.int32).to(device)
+
+
+def uniform_signed(gen: torch.Generator, n: int, bits: int, device=None) -> torch.Tensor:
+    """Uniform flooding noise in [-2^bits, 2^bits] (int64): the
+    re-randomizer's flooding in INDCCA re-encryption."""
+    if bits <= 0:
+        return torch.zeros((n,), dtype=torch.int64, device=device)
+    bound = 1 << bits
+    return torch.randint(-bound, bound + 1, (n,), generator=gen, dtype=torch.int64,
+                         device=gen.device).to(device)
 
 
 def uniform_rns(gen: torch.Generator, moduli: Sequence[int], n: int,

@@ -1,29 +1,71 @@
-"""The server's two tools, in memory, and the composed aggregation round.
+"""The federated-learning tools: the reference's seven binaries on files, and
+the server's two tools in memory with the composed aggregation round.
 
-Twins of the compute cores of ``ppqsflhe_tpu.fl.api.change_cipher_domain``
-(``fl/api.py:527-552``) and ``aggregate_encrypted_weights`` (``:855-873``),
-on batched ciphertexts (leading dimension = the ciphertexts of one client's
-payload) instead of files: the wire formats wait for the port of
-``ckks/serialize.py``. :func:`server_round` composes them the way
-``bench.py``'s ``server_round`` does (``bench.py:197-222``).
+Twin of ``ppqsflhe_tpu.fl.api`` (``:72-885``), with the same file contracts:
+
+| reference binary                  | here                          |
+|-----------------------------------|-------------------------------|
+| genCC                             | :func:`gen_cc`                |
+| keyGen                            | :func:`key_gen`               |
+| REkeyGen                          | :func:`rekey_gen`             |
+| encryptModelWeights               | :func:`encrypt_weights`       |
+| decryptModelWeights               | :func:`decrypt_weights`       |
+| changeCipherDomain                | :func:`change_cipher_domain`  |
+| aggregateEncryptedWeights         | :func:`aggregate_encrypted_weights` |
+
+Weights JSON: ``{"weights_summary": [{layer, shape, mean, std_dev,
+values[]}…]}``; optimizer layers are skipped, values are chunked at the slot
+count and the padding is trimmed on decrypt. The encrypted document holds
+the same layers with ciphertext fields (Base64 PQTC blobs, or raw blobs in
+the PQWD container, which every tool preserves). Each tool runs the
+ciphertexts of a file as ONE stacked (B, 2, l, N) batch on ``device`` (the
+card unless the caller names another). Noise comes from a
+``torch.Generator``: with a seed, one seeded from it; without, one whose
+whole mt19937 state is OS entropy. The 16-byte expansion seeds
+(:func:`_derived_seed`) are the JAX tools', so for the same ``seed`` the
+public key's ``a`` half and the seeded wire's c1 are bit-equal to theirs.
+
+:func:`change_cipher_domain_batch` and :func:`aggregate_batch` are the
+tools' compute cores on batched ciphertexts; :func:`server_round` composes
+them the way ``bench.py``'s ``server_round`` does (``bench.py:197-222``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+import base64
+import functools
+import hashlib
+import json
+import math
+import os
+from typing import Dict, List, Sequence
 
+import numpy as np
+import torch
+
+from .. import convert
 from ..ckks import eval as ev
+from ..ckks import rlwe
+from ..ckks import serialize as ser
+from ..ckks.params import CkksParams
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext, KeySwitchKey
 
+OPTIMIZER_PREFIX = "optimizer"  # layers skipped at encrypt time
+
+
+# ---------------------------------------------------------------------------
+# The server's tools in memory, and the composed round
+# ---------------------------------------------------------------------------
 
 def change_cipher_domain_batch(sch: CkksScheme, rekey: KeySwitchKey, cts: Ciphertext,
-                               drop_limbs: int = 0,
-                               keep_limbs: int | None = None) -> Ciphertext:
+                               drop_limbs: int = 0, keep_limbs: int | None = None,
+                               pk_to=None, gen: torch.Generator | None = None) -> Ciphertext:
     """ReEncrypt every ciphertext of the batch ``cts`` (data (B, 2, l, n))
     into the rekey's target domain, after an optional LevelReduce:
     ``drop_limbs`` removes top limbs, ``keep_limbs`` keeps exactly that many.
-    The rekey should already be in Montgomery form (``ev.ksk_to_mont``)."""
+    The rekey should already be in Montgomery form (``ev.ksk_to_mont``).
+    Under INDCCA ``pk_to`` and ``gen`` re-randomize each output."""
     l = cts.nlimbs
     if keep_limbs is not None:
         if not 1 <= keep_limbs <= l:
@@ -33,7 +75,7 @@ def change_cipher_domain_batch(sch: CkksScheme, rekey: KeySwitchKey, cts: Cipher
         if drop_limbs >= l:
             raise ValueError(f"cannot drop {drop_limbs} of {l} limbs")
         cts = ev.level_reduce(sch.ctx, cts, l - drop_limbs)
-    return sch.re_encrypt(cts, rekey)
+    return sch.re_encrypt(cts, rekey, pk_to, gen)
 
 
 def aggregate_batch(sch: CkksScheme, stacks: Sequence[Ciphertext], lazy: bool) -> Ciphertext:
@@ -69,3 +111,381 @@ def server_round(sch: CkksScheme, stack1: Ciphertext, stack2: Ciphertext,
     c1in2 = change_cipher_domain_batch(sch, rk12, stack1, drop_limbs=drop)
     avg = aggregate_batch(sch, [c1in2, stack2], lazy=bool(lazy))
     return avg, change_cipher_domain_batch(sch, rk21, avg)
+
+
+# ---------------------------------------------------------------------------
+# Context, randomness, keys
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=4)
+def _scheme_for(params: CkksParams, device: str) -> CkksScheme:
+    return CkksScheme(params, device=device)
+
+
+def load_scheme(cc_path: str, device="cuda") -> CkksScheme:
+    return _scheme_for(ser.load_params(cc_path), str(torch.device(device)))
+
+
+# torch's CPU generator state: seed (u64), left, seeded (i32), next (u64),
+# then the 624 mt19937 words, each in a u64 slot
+_MT_OFFSET, _MT_WORDS = 24, 624
+
+
+def _rng(seed: int | None) -> torch.Generator:
+    """The generator of a tool's noise and key material. An explicit seed
+    keeps runs reproducible. Without one, long-term secrets must not be
+    capped at the 64 bits ``manual_seed`` takes: the generator's whole
+    mt19937 state (624 words) is filled from OS entropy."""
+    gen = torch.Generator()
+    if seed is not None:
+        return gen.manual_seed(seed)
+    state = gen.get_state()
+    end = _MT_OFFSET + 8 * _MT_WORDS
+    words = state[_MT_OFFSET:end].numpy().view(np.uint64)
+    if state.numel() < end or (words >> np.uint64(32)).any():
+        raise RuntimeError("unrecognised torch CPU generator state layout")
+    fresh = np.frombuffer(os.urandom(4 * _MT_WORDS), dtype=np.uint32).astype(np.uint64)
+    state[_MT_OFFSET:end] = torch.from_numpy(fresh.view(np.uint8).copy())
+    gen.set_state(state)
+    return gen
+
+
+def _derived_seed(seed: int | None, tag: str) -> bytes:
+    """16-byte expansion seed: OS entropy, or derived from an explicit seed
+    exactly as the JAX tools derive it."""
+    if seed is None:
+        return os.urandom(16)
+    return hashlib.blake2b(f"{tag}:{seed}".encode(), digest_size=16).digest()
+
+
+def gen_cc(config: Dict | str, cc_out: str) -> CkksParams:
+    """Build and write the shared context from the reference's
+    config_cc.json schema ({multiplicative_depth, scaling_mod_size,
+    batch_size, PREMode}) plus the optional ring_dim / first_mod_size /
+    dnum / ntt_backend / ntt_impl / use_reference_chain keys; the backend
+    defaults to radix-2, as in the JAX tool."""
+    import dataclasses
+
+    if isinstance(config, str):
+        with open(config) as f:
+            config = json.load(f)
+
+    def pick(*names, default=None):
+        for nm in names:
+            if nm in config:
+                return config[nm]
+        return default
+
+    depth = int(pick("multiplicative_depth", "mult_depth", default=2))
+    scale_bits = int(pick("scaling_mod_size", "scale_bits", default=40))
+    batch = int(pick("batch_size", "slots", default=0))
+    n = int(pick("ring_dim", default=1 << 14))
+    pre_mode = pick("PREMode", "pre_mode", default="INDCPA")
+    if not 1 <= depth <= 20:
+        raise ValueError(f"multiplicative_depth {depth} outside [1, 20]")
+    if not 30 < scale_bits < 100:
+        raise ValueError(f"scaling_mod_size {scale_bits} outside (30, 100)")
+    if batch and not 0 < batch <= n // 2:
+        raise ValueError(f"batch_size {batch} outside (0, ring_dim/2={n // 2}]")
+    backend = dict(ntt_backend=pick("ntt_backend", default="radix2"),
+                   ntt_impl=pick("ntt_impl", default="xla"))
+    if pick("use_reference_chain", default=False):
+        params = dataclasses.replace(CkksParams.reference(slots=batch or 8192), **backend)
+    else:
+        params = CkksParams.generate(n=n, mult_depth=depth, scale_bits=scale_bits,
+                                     first_mod_bits=int(pick("first_mod_size", default=60)),
+                                     dnum=int(pick("dnum", default=2)), slots=batch, **backend)
+    params = dataclasses.replace(params, pre_mode=pre_mode)
+    ser.save_params(params, cc_out)
+    return params
+
+
+def key_gen(cc_path: str, pub_out: str, priv_out: str, seed: int | None = None,
+            device="cuda") -> None:
+    """KeyGen and write both halves; the public key's uniform ``a`` half is
+    seed-expanded, so its document ships b and the 16-byte seed."""
+    sch = load_scheme(cc_path, device)
+    a_seed = _derived_seed(seed, "pk_a")
+    sk, pk = sch.keygen(_rng(seed), a_seed=a_seed)
+    ser.save_json(ser.serialize_public_key(pk, a_seed=a_seed), pub_out)
+    ser.save_json(ser.serialize_secret_key(sk), priv_out)
+
+
+def rekey_gen(cc_path: str, own_priv: str, peer_pub: str, rekey_out: str,
+              seed: int | None = None, device="cuda") -> None:
+    """ReKeyGen(own sk, peer pk): the PRE key own → peer."""
+    sch = load_scheme(cc_path, device)
+    sk = ser.deserialize_secret_key(ser.load_json(own_priv), sch.ctx, device)
+    pk = ser.deserialize_public_key(ser.load_json(peer_pub), sch.ctx, device)
+    ser.save_json(ser.serialize_ksk(sch.rekey_gen(sk, pk, _rng(seed))), rekey_out)
+
+
+# ---------------------------------------------------------------------------
+# Ciphertexts on the wire
+# ---------------------------------------------------------------------------
+
+def _check_wire(wire: str) -> None:
+    if wire != "native":
+        raise ValueError(f"wire={wire!r}: {ser.NOT_PORTED}")
+
+
+def _blobs_of(cts: Ciphertext, seeds=None) -> List[bytes]:
+    """PQTC blobs of every ciphertext of a batch (v3 where a seed is given),
+    after one copy of the batch to the host."""
+    host = cts.data.cpu()
+    seeds = seeds or [None] * host.shape[0]
+    return [ser.ciphertext_to_bytes(Ciphertext(d, cts.scale), a_seed=s)
+            for d, s in zip(host, seeds)]
+
+
+def _field(blob: bytes, raw: bool):
+    return blob if raw else base64.b64encode(blob).decode()
+
+
+def _doc_fields(enc: Dict):
+    """Every ciphertext field of an encrypted document in order, as
+    (entry, field, value index or None, payload)."""
+    for entry in enc["weights_summary"]:
+        yield entry, "mean", None, entry["mean"]
+        yield entry, "std_dev", None, entry["std_dev"]
+        for vi, s in enumerate(entry["values"]):
+            yield entry, "values", vi, s
+
+
+def _raw(payload) -> bytes:
+    return payload if isinstance(payload, (bytes, bytearray)) else base64.b64decode(payload)
+
+
+def _load_cts(payloads, sch: CkksScheme) -> List[Ciphertext]:
+    """Ciphertexts from wire payloads (Base64 or raw PQTC, any version).
+    Dense blobs upload one by one; seeded v3 blobs expand their c1 in ONE
+    batched transform per level."""
+    dev = sch.device
+    cts: List[Ciphertext | None] = []
+    seeded: Dict[int, list] = {}
+    for p in payloads:
+        data, seed, scale = ser.ciphertext_parts(_raw(p))
+        if seed is None:
+            cts.append(Ciphertext(data=convert.residues(data, dev), scale=scale))
+        else:
+            seeded.setdefault(data.shape[0], []).append((len(cts), data, seed, scale))
+            cts.append(None)
+    for l, recs in seeded.items():
+        a_all = rlwe.expand_a_batch(sch.ctx, [r[2] for r in recs], l, dev)
+        c0_all = convert.residues(np.stack([r[1] for r in recs]), dev)
+        for (pos, _, _, scale), c0, a in zip(recs, c0_all, a_all):
+            cts[pos] = Ciphertext(data=torch.stack([c0, a]), scale=scale)
+    return cts
+
+
+def _stack(cts: Sequence[Ciphertext]) -> Ciphertext:
+    """One batch (B, 2, l, n) of ciphertexts that share a level and scale."""
+    shapes = {tuple(c.data.shape) for c in cts}
+    scales = {float(c.scale) for c in cts}
+    if len(shapes) != 1 or len(scales) != 1:
+        raise ValueError(f"ciphertexts of one document differ in shape {sorted(shapes)} or "
+                         f"scale {sorted(scales)}")
+    return Ciphertext(data=torch.stack([c.data for c in cts]), scale=cts[0].scale)
+
+
+# ---------------------------------------------------------------------------
+# Weight encryption / decryption
+# ---------------------------------------------------------------------------
+
+def encrypt_weights(cc_path: str, pub_path: str, weights_in: str, enc_out: str,
+                    seed: int | None = None, wire: str = "native",
+                    container: str = "json", device="cuda") -> Dict:
+    """Per layer, encrypt the scalar mean and std_dev and the values in
+    slot-sized chunks, all as ONE batch. With the client's SECRET key file
+    as ``pub_path`` (detected by its type), each chunk is sk-encrypted with
+    a seed-expanded c1 and ships as a seeded v3 blob (c0 + 16-byte seed).
+    ``container="bin"`` writes the PQWD container."""
+    _check_wire(wire)
+    sch = load_scheme(cc_path, device)
+    keydoc = ser.load_json(pub_path)
+    sk_mode = keydoc.get("type") == "ckks_secret_key"
+    with open(weights_in) as f:
+        weights = json.load(f)
+
+    slots = sch.encoder.slots
+    vecs: List[np.ndarray] = []
+    layout = []                         # (layer entry, value chunks)
+    for entry in weights["weights_summary"]:
+        if entry["layer"].startswith(OPTIMIZER_PREFIX):
+            continue
+        values = np.asarray(entry["values"], dtype=np.float64)
+        vecs.append(np.array([entry["mean"]], np.float64))
+        vecs.append(np.array([entry["std_dev"]], np.float64))
+        nchunks = max(1, math.ceil(values.size / slots))
+        vecs += [values[c * slots : (c + 1) * slots] for c in range(nchunks)]
+        layout.append((entry, nchunks))
+
+    pt = sch.make_plaintext(vecs)                 # (B, L, n), one batched NTT
+    if sk_mode:
+        sk = ser.deserialize_secret_key(keydoc, sch.ctx, device)
+        seeds = [_derived_seed(seed if seed is None else seed + 7919 * j, f"ct_a:{j}")
+                 for j in range(len(vecs))]
+        cts = rlwe.encrypt_sk(sch.ctx, sk, pt, _rng(seed), seeds)
+    else:
+        seeds = None
+        pk = ser.deserialize_public_key(keydoc, sch.ctx, device)
+        cts = sch.encrypt(pk, pt, _rng(seed))
+    blobs = iter(_blobs_of(cts, seeds))
+    raw = container == "bin"
+    out = {"weights_summary": []}
+    for entry, nchunks in layout:
+        out["weights_summary"].append({
+            "layer": entry["layer"], "shape": entry["shape"],
+            "mean": _field(next(blobs), raw), "std_dev": _field(next(blobs), raw),
+            "values": [_field(next(blobs), raw) for _ in range(nchunks)]})
+    ser.save_enc_doc(out, enc_out, binary=raw)
+    return out
+
+
+def decrypt_weights(cc_path: str, priv_path: str, enc_in: str, plain_out: str,
+                    device="cuda") -> Dict:
+    """Inverse of :func:`encrypt_weights`, trimming each layer's padding to
+    prod(shape). The ciphertexts of one level, component count and scale
+    decrypt as one batch."""
+    sch = load_scheme(cc_path, device)
+    sk = ser.deserialize_secret_key(ser.load_json(priv_path), sch.ctx, device)
+    enc = ser.load_enc_doc(enc_in)
+    fields = list(_doc_fields(enc))
+    cts = _load_cts([f[3] for f in fields], sch)
+    groups: Dict[tuple, List[int]] = {}
+    for i, ct in enumerate(cts):
+        groups.setdefault((ct.nlimbs, ct.num_components, float(ct.scale)), []).append(i)
+    vals: Dict[int, np.ndarray] = {}
+    for idxs in groups.values():
+        batch = _stack([cts[i] for i in idxs])
+        coeffs = rlwe.decrypt_to_coeffs(sch.ctx, sk.s_eval, batch).cpu()
+        for i, co in zip(idxs, coeffs):
+            vals[i] = rlwe.decode_coeffs(sch.ctx, co, cts[i], sch.encoder)
+
+    out = {"weights_summary": []}
+    recs: Dict[int, Dict] = {}
+    for i, (entry, field, vi, _) in enumerate(fields):
+        rec = recs.get(id(entry))
+        if rec is None:
+            rec = recs[id(entry)] = {"layer": entry["layer"], "shape": entry["shape"],
+                                     "mean": 0.0, "std_dev": 0.0, "_vals": {}}
+            out["weights_summary"].append(rec)
+        if field == "values":
+            rec["_vals"][vi] = vals[i]
+        else:
+            rec[field] = float(vals[i][0])
+    for rec in out["weights_summary"]:
+        size = int(np.prod(rec["shape"]))
+        flat = np.concatenate([rec["_vals"][j] for j in sorted(rec["_vals"])])[:size]
+        rec["values"] = [float(x) for x in flat]
+        del rec["_vals"]
+    with open(plain_out, "w") as f:
+        json.dump(out, f)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Server side: PRE + aggregation
+# ---------------------------------------------------------------------------
+
+# Device-resident rekey cache: a server applies the same long-lived
+# re-encryption key every round. Keyed by (path, mtime, size, params,
+# device), the Montgomery-form key skips the parse, upload and conversion
+# on repeated rounds.
+_REKEY_CACHE: Dict[tuple, KeySwitchKey] = {}
+
+
+def _load_rekey_mont(sch: CkksScheme, rekey_path: str) -> KeySwitchKey:
+    st = os.stat(rekey_path)
+    key = (os.path.abspath(rekey_path), st.st_mtime_ns, st.st_size, sch.params,
+           str(sch.device))
+    rk = _REKEY_CACHE.get(key)
+    if rk is None:
+        if len(_REKEY_CACHE) > 16:          # bound device memory
+            _REKEY_CACHE.clear()
+        rk = _REKEY_CACHE[key] = ev.ksk_to_mont(
+            sch.ctx, ser.deserialize_ksk(ser.load_json(rekey_path), sch.ctx, sch.device))
+    return rk
+
+
+def _write_back(enc: Dict, fields, blobs: Sequence[bytes], raw: bool) -> None:
+    for (entry, field, vi, _), b in zip(fields, blobs):
+        if field == "values":
+            entry["values"][vi] = _field(b, raw)
+        else:
+            entry[field] = _field(b, raw)
+
+
+def change_cipher_domain(cc_path: str, rekey_path: str, enc_in: str, enc_out: str,
+                         pub_path: str | None = None, seed: int | None = None,
+                         drop_limbs: int = 0, wire: str = "native",
+                         keep_limbs: int | None = None, device="cuda") -> Dict:
+    """ReEncrypt every ciphertext field as one batched key switch, after an
+    optional LevelReduce (``drop_limbs``, or ``keep_limbs`` absolute).
+    Under PREMode INDCCA ``pub_path`` (the TARGET domain's public key) is
+    required: every output is re-randomized with Enc_pk(0) + flooding."""
+    _check_wire(wire)
+    sch = load_scheme(cc_path, device)
+    rekey = _load_rekey_mont(sch, rekey_path)
+    indcca = sch.params.pre_mode == "INDCCA"
+    if indcca and pub_path is None:
+        raise ValueError("PREMode INDCCA: changeCipherDomain needs the target domain's "
+                         "public key (pub_path)")
+    pk = (ser.deserialize_public_key(ser.load_json(pub_path), sch.ctx, device)
+          if indcca else None)
+    enc = ser.load_enc_doc(enc_in)
+    fields = list(_doc_fields(enc))
+    cts = _stack(_load_cts([f[3] for f in fields], sch))
+    out = change_cipher_domain_batch(sch, rekey, cts, drop_limbs, keep_limbs, pk,
+                                     _rng(seed) if indcca else None)
+    binary = ser.doc_is_binary(enc_in)
+    _write_back(enc, fields, _blobs_of(out), binary)
+    ser.save_enc_doc(enc, enc_out, binary=binary)
+    return enc
+
+
+def aggregate_encrypted_weights(cc_path: str, enc_paths: Sequence[str], agg_out: str,
+                                lazy: bool = False, wire: str = "native",
+                                device="cuda") -> Dict:
+    """Homomorphic FedAvg over N clients' documents in one key domain:
+    layers matched by name AND shape (unmatched ones dropped), ct_avg =
+    (Σ ct_i)·(1/N) as one batch. ``lazy``: for N a power of two, ÷N is
+    exact scale metadata plus one more LevelReduce. The first input's
+    container is kept."""
+    _check_wire(wire)
+    sch = load_scheme(cc_path, device)
+    docs = [ser.load_enc_doc(p) for p in enc_paths]
+
+    def key_of(e):
+        return (e["layer"], tuple(e["shape"]))
+
+    maps = [{key_of(e): e for e in d["weights_summary"]} for d in docs[1:]]
+    per_client: List[list] = [[] for _ in docs]      # payloads, one list per client
+    layout = []
+    for entry in docs[0]["weights_summary"]:
+        k = key_of(entry)
+        if not all(k in m for m in maps):
+            continue
+        group = [entry] + [m[k] for m in maps]
+        nv = min(len(e["values"]) for e in group)
+        for c, e in enumerate(group):
+            per_client[c] += [e["mean"], e["std_dev"]] + list(e["values"][:nv])
+        layout.append(({"layer": entry["layer"], "shape": entry["shape"]}, nv))
+    if not layout:
+        raise ValueError("no layers matched by name AND shape across all clients — "
+                         "federated averaging requires every client to train the same "
+                         "architecture")
+    loaded = [_load_cts(p, sch) for p in per_client]
+    lmin = min(ct.nlimbs for cl in loaded for ct in cl)
+    stacks = [_stack([ev.level_reduce(sch.ctx, ct, lmin) for ct in cl]) for cl in loaded]
+    avg = aggregate_batch(sch, stacks, lazy)
+    blobs = iter(_blobs_of(avg))
+    binary = ser.doc_is_binary(enc_paths[0])
+    out = {"weights_summary": []}
+    for rec, nv in layout:
+        rec["mean"] = _field(next(blobs), binary)
+        rec["std_dev"] = _field(next(blobs), binary)
+        rec["values"] = [_field(next(blobs), binary) for _ in range(nv)]
+        out["weights_summary"].append(rec)
+    ser.save_enc_doc(out, agg_out, binary=binary)
+    return out

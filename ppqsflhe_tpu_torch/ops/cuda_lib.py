@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppqsflhe_tpu_torch"
-SOURCES = ("mxu_ntt.cu", "fourstep_ntt.cu", "base_ext.cu", "ks_ip.cu")
+SOURCES = ("mxu_ntt.cu", "fourstep_ntt.cu", "base_ext.cu", "ks_ip.cu", "overlap_probe.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -37,6 +37,7 @@ _SIGNATURES = {
     "ppq_mxu_stage_b": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "ppq_base_extend": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ppq_ks_inner_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ppq_overlap_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 _lib = None

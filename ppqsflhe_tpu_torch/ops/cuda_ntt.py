@@ -4,7 +4,8 @@ Twin of ``ppqsflhe_tpu.ops.pallas_ntt``'s ``FourStepNtt``: ``ntt``/``intt``
 over a limb subset ``idx`` with leading batch dims, in two implementations
 chosen once, by the context's ``ntt_impl`` (:func:`four_step_ntt`):
 
-- :data:`MXU` (the JAX package's ``"pallas_mxu"``, the default): the
+- :data:`MXU` (the JAX package's ``"pallas_mxu"``, the default, and its
+  ``"xla"`` and ``"mxu"``, which give the same evaluations): the
   digit-matmul route, :class:`.cuda_mxu_ntt.CudaMxuNtt` (kernels 1, 1b, 4, 5);
 - :data:`BUTTERFLY` (``"pallas"``): the constant-geometry butterfly
   transform, :class:`CudaFourStepNtt` — kernel 6 (``csrc/fourstep_ntt.cu``,
@@ -29,6 +30,9 @@ from .cuda_mxu_ntt import CudaMxuNtt, _limb_subset
 from .fourstep import FourStepTables, intt_body_cg, kernel_to_std, ntt_body_cg
 
 MXU, BUTTERFLY = "pallas_mxu", "pallas"     # named by their JAX counterparts
+# every four-step ntt_impl of the JAX package → the runner that gives its
+# evaluations here
+RUNNER = {"xla": MXU, "mxu": MXU, MXU: MXU, BUTTERFLY: BUTTERFLY}
 launches = 0          # kernel 6 launches (two per transform) since the last reset
 INFO = 4              # per limb and pass: q, pre-, post- and stage-table offsets
 TILE = 16             # csrc/fourstep_ntt.cu TC: columns per block

@@ -127,16 +127,19 @@ def test_dispatch_and_launcher_stay_off_the_card():
 @pytest.mark.parametrize("jax_impl, port_impl", [("xla", MXU), ("mxu", MXU),
                                                  ("pallas_mxu", MXU), ("pallas", BUTTERFLY)])
 def test_convert_maps_ntt_impl(jax_impl, port_impl):
-    """convert.params maps every JAX four-step ntt_impl to the port's, and
-    params_fields maps it back to its JAX counterpart (a round trip)."""
+    """convert.params keeps every JAX four-step ntt_impl by its name (so a CC
+    document re-emits unchanged) and the context maps it to the port's
+    runner; params_fields gives it back (a round trip)."""
     fields = dataclasses.asdict(JaxParams.generate(n=1 << 10, ntt_backend="fourstep",
                                                    ntt_impl=jax_impl))
     p = convert.params(fields)
-    assert p.ntt_impl == port_impl
+    assert p.ntt_impl == jax_impl and cuda_ntt.RUNNER[p.ntt_impl] == port_impl
+    runner = CudaMxuNtt if port_impl == MXU else CudaFourStepNtt
+    assert isinstance(CkksScheme(p, device="cpu").ctx.fntt, runner)
     back = convert.params_fields(p)
-    assert back["ntt_impl"] == port_impl and back["ntt_backend"] == "fourstep"
+    assert back["ntt_impl"] == jax_impl and back["ntt_backend"] == "fourstep"
     assert convert.params(back) == p
-    assert CkksParams.generate(n=1 << 10, ntt_impl=port_impl) == p
+    assert CkksParams.generate(n=1 << 10, ntt_impl=jax_impl) == p
     with pytest.raises(ValueError, match="ntt_impl"):
         convert.params(dict(fields, ntt_impl="radix"))
 

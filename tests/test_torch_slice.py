@@ -177,10 +177,16 @@ def test_encoder_and_exact_decode_match_reference(world):
 
 
 def test_convert_round_trips_and_refuses_other_orders():
+    """Both evaluation orders round-trip through the JAX fields; an unknown
+    order and the unported FLEXIBLEAUTOEXT mode are refused."""
     p = CkksParams.generate(n=1 << 10)
     assert convert.params(convert.params_fields(p)) == p
-    with pytest.raises(ValueError, match="fourstep"):
-        convert.params(dict(convert.params_fields(p), ntt_backend="radix2"))
+    r2 = CkksParams.generate(n=1 << 10, ntt_backend="radix2")
+    assert convert.params(convert.params_fields(r2)) == r2
+    with pytest.raises(ValueError, match="ntt_backend"):
+        convert.params(dict(convert.params_fields(p), ntt_backend="radix4"))
+    with pytest.raises(ValueError, match="flexible_ext"):
+        convert.params(dict(convert.params_fields(p), flexible_ext=True))
     data = np.random.default_rng(0).integers(0, 1 << 63, (2, 3, 8), dtype=np.uint64) * 2 + 1
     ct = convert.ciphertext(data, 3.0, device="cpu")
     assert np.array_equal(convert.to_numpy(ct)["data"], data)
