@@ -18,7 +18,9 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   4+5 and 1b at 2^16) and the butterfly, kernel 6;
 - **the server round at N=2^16** (``ring_dim: 65536`` with the reference's
   other CC settings, 8192 slots), both schedules: kernel 1b on the 40-bit
-  limbs, kernels 4+5 on the 60-bit ones, 2, and 3 at full level;
+  limbs, kernels 4+5 on the 60-bit ones, 2, and 3 at full level; then the
+  device memory of the context's NTT tables, and the big route's transforms
+  on the 60-bit limbs bit-equal to kernel 6's and kernel 1b's;
 - **the butterfly configuration** of the N=2^14 round (``ntt_impl="pallas"``:
   kernel 6 runs every NTT), both schedules, bit-equal to the default round;
 - **the seven FL tools on files** (``ppqsflhe_tpu_torch.fl.api``) at N=2^14
@@ -64,7 +66,9 @@ Each kernel row carries its bound: the least time the card could take for
 the same work, the larger of the bytes it must move (each input read once,
 each output written once) over 3.35 TB/s and its int8 operations over
 1,979 T/s (H100 SXM; the 64-bit integer work of the butterflies and base
-extensions has no published rate, so their bound is the bytes). No PyTorch
+extensions has no published rate, so their bound is the bytes). The rows of
+kernels 4 and 5, Shoup butterflies on this card, also print the floor of the
+TPU's digit method for the same stage (its int8 operations at 1,979 T/s). No PyTorch
 call computes an NTT, base extension or key inner product mod q, so
 ``library_ms`` is null in those rows; the probe's mxu row carries the time
 of ``torch._int_mm`` over the same cells (one call per cell).
@@ -110,6 +114,7 @@ K1, K2, K3 = ("ppqsflhe_tpu/ops/pallas_mxu_ntt.py:390", "ppqsflhe_tpu/ops/pallas
 K4, K5 = "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:512", "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:566"
 K1B, K6 = "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:347", "ppqsflhe_tpu/ops/pallas_ntt.py:207"
 SRC_NTT = "ppqsflhe_tpu_torch/csrc/mxu_ntt.cu"
+SRC_STREAMED = "ppqsflhe_tpu_torch/csrc/streamed_ntt.cu"
 SRC_FS = "ppqsflhe_tpu_torch/csrc/fourstep_ntt.cu"
 SRC_EXT = "ppqsflhe_tpu_torch/csrc/base_ext.cu"
 SRC_KS = "ppqsflhe_tpu_torch/csrc/ks_ip.cu"
@@ -119,8 +124,8 @@ K7 = "probes/mxu_vpu_overlap.py:59"
 COUNTERS = {
     "mxu_ntt": ("ops.cuda_mxu_ntt", "launches", "mxu_ntt_stage_kernel"),
     "mxu_ntt_mont": ("ops.cuda_mxu_ntt", "launches_mont", "mxu_ntt_stage_mont_kernel"),
-    "mxu_stage_a": ("ops.cuda_mxu_ntt", "launches_stage_a", "mxu_stage_a_kernel"),
-    "mxu_stage_b": ("ops.cuda_mxu_ntt", "launches_stage_b", "mxu_stage_b_kernel"),
+    "streamed_stage_a": ("ops.streamed_ntt", "launches_stage_a", "streamed_stage_a_kernel"),
+    "streamed_stage_b": ("ops.streamed_ntt", "launches_stage_b", "streamed_stage_b_kernel"),
     "base_extend": ("ops.cuda_ext", "launches", "base_extend_kernel"),
     "ks_inner_product": ("ops.cuda_ks", "launches", "ks_ip_kernel"),
     "fourstep_ntt": ("ops.cuda_ntt", "launches", "fourstep_ntt_kernel"),
@@ -148,14 +153,18 @@ def mxu_work(tabs, B, twiddle_bytes=16):
     return nbytes, ops
 
 
-def stage_work(tabs, B, m, c, twiddle):
-    """One streamed stage over an (m, c) block of B polys per limb."""
-    nbytes = ops = 0
-    for t in tabs:
-        a = (t.nd * m) ** 2
-        nbytes += 16 * B * m * c + a + (16 * m * c if twiddle else 0)
-        ops += 2 * B * a * c
-    return nbytes, ops
+def streamed_work(L, B, m, c, stage_a):
+    """One streamed stage (kernel 4 or 5) over an (m, c) block of B polys
+    per limb: x in and y out once, the limb's m-vector and Pease row 0
+    (value, companion) pairs, and stage A's twiddle pair over the block."""
+    return L * (16 * B * m * c + 24 * m + (16 * m * c if stage_a else 0)), 0
+
+
+def digit_floor(tabs, B, m, c):
+    """The TPU method's floor for the same stage, for comparison: its int8
+    digit product does 2·(nd·m)² operations per column, at 1,979 T/s."""
+    ops = sum(2 * B * (t.nd * m) ** 2 * c for t in tabs)
+    return f"; TPU method's floor {ops / INT8_OPS * 1e6:.1f} us ({ops / 1e9:.2f} G int8 ops)"
 
 
 def butterfly_work(L, B, n1, n2):
@@ -274,9 +283,10 @@ class KernelCases:
         self.rows = []
 
     def check(self, name, counter, source, replaces, got, want, fn, plain_fn, iters, work,
-              library_ms=None):
+              library_ms=None, note=""):
         """``work``: (bytes, int8 operations) of one call, for its bound;
-        ``library_ms``: the time of one PyTorch call for the same function."""
+        ``library_ms``: the time of one PyTorch call for the same function;
+        ``note``: appended to the printed line."""
         import torch
 
         if not torch.equal(got, want):
@@ -299,7 +309,7 @@ class KernelCases:
               f"wall mean per "
               f"call: kernel {wall * 1e3:.1f} us, plain {plain_wall * 1e3:.1f} us; bound "
               f"{bound_ms * 1e3:.2f} us by {bound_by} ({work[0] / 1e6:.2f} MB, "
-              f"{work[1] / 1e9:.2f} G int8 ops) ({self.card})")
+              f"{work[1] / 1e9:.2f} G int8 ops){note} ({self.card})")
         self.rows.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, counter=counter,
             max_abs_err=err, ms=dev if timing == "profiler" else wall,
@@ -574,11 +584,11 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
     import torch
 
     from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
-    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, mxu_ntt
+    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, mxu_ntt, streamed_ntt
     from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
 
     ctx, n = sch.ctx, sch.params.n
-    fntt, tables = ctx.fntt, ctx.fntt.tables
+    fntt = ctx.fntt
     mq = ctx.moduli_qp
     L, K = sch.params.num_q, sch.params.num_p
     nd9 = [i for i, t in enumerate(fntt.tabs) if cuda_mxu_ntt.route(n, t.nd) == "big"]
@@ -589,38 +599,39 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
 
     # kernels 4 and 5: the nd=9 limbs of the key switch's extended digit
     # (q0, p0, p1, forward, one poly) and of ModDown's iNTT (p0, p1 over both
-    # components), each stage against its plain version, then the whole
-    # transform through the big route against kernel 1 and the plain version
+    # components), each stage against its plain version (stage A also on
+    # half the columns, with lazy inputs < 4q), then the whole transform
+    # through the big route against kernel 1 and the plain version
+    st = fntt.big.streamed
     for sel, lead, fwd in (([0] + list(ctx.p_idx()), (1,), True), (list(ctx.p_idx()), (2,), False)):
         sel = [i for i in sel if i in nd9]
         tag = f"{'forward' if fwd else 'inverse'}, limbs {sel} x {lead[0]} poly(s), N=2^15"
         m1, m2 = (fntt.n1, fntt.n2) if fwd else (fntt.n2, fntt.n1)
-        first, second = ("a1", "a2") if fwd else ("a2i", "a1i")
         x = rand_residues([mq[i] for i in sel], lead, n, gen, device).reshape(
             lead[0], len(sel), m1, m2)
-        mats, tw, info1, info2 = tables.device(device, sel, fwd)
-        tabs = [fntt.tabs[i] for i in sel]
-        pm1, pm2 = (tables.plain_mats(sel, nm, device) for nm in (first, second))
-        twp = tables.twiddles(sel, fwd)
+        buf, info_a, info_b = st.device(device, sel, fwd)
+        tabs = [st.limb(i) for i in sel]
         ya = torch.empty_like(x)
-        run_a = lambda: cuda_mxu_ntt.stage_a(x, ya, mats, info1, tw, m2)
-        plain_a = lambda: mxu_ntt.stage_a(x, pm1, twp, tabs)
-        cases.check(f"mxu_stage_a ({tag})", "mxu_stage_a", SRC_NTT, K4,
+        run_a = lambda: streamed_ntt.stage_a(x, ya, buf, info_a, fwd, m2)
+        plain_a = lambda: streamed_ntt.stage_a_plain(x, tabs, fwd)
+        cases.check(f"streamed_stage_a ({tag})", "streamed_stage_a", SRC_STREAMED, K4,
                     run_a().clone(), plain_a(), run_a, plain_a, 20,
-                    stage_work(tabs, lead[0], m1, m2, True))
+                    streamed_work(len(sel), lead[0], m1, m2, True),
+                    note=digit_floor([fntt.tabs[i] for i in sel], lead[0], m1, m2))
         zb = torch.empty((lead[0], len(sel), m2, m1), dtype=torch.int64, device=device)
-        run_b = lambda: cuda_mxu_ntt.stage_b(ya, zb, mats, info2)
-        plain_b = lambda: mxu_ntt.stage_b(ya, pm2, tabs)
-        cases.check(f"mxu_stage_b ({tag})", "mxu_stage_b", SRC_NTT, K5,
+        run_b = lambda: streamed_ntt.stage_b(ya, zb, buf, info_b, fwd)
+        plain_b = lambda: streamed_ntt.stage_b_plain(ya, tabs, fwd)
+        cases.check(f"streamed_stage_b ({tag})", "streamed_stage_b", SRC_STREAMED, K5,
                     run_b().clone(), plain_b(), run_b, plain_b, 20,
-                    stage_work(tabs, lead[0], m2, m1, False))
+                    streamed_work(len(sel), lead[0], m2, m1, False),
+                    note=digit_floor([fntt.tabs[i] for i in sel], lead[0], m2, m1))
         # stage A on one half of the columns, reading its slice of the table
         h = m2 // 2
-        xh = x[..., h:].contiguous()
-        got = cuda_mxu_ntt.stage_a(xh, torch.empty_like(xh), mats, info1, tw, m2, h)
-        want = mxu_ntt.stage_a(xh, pm1, tuple(a[..., h:] for a in twp), tabs)
-        if not torch.equal(got, want):
-            raise AssertionError(f"mxu_stage_a on columns [{h}, {m2}) differs ({tag})")
+        qs = torch.tensor([mq[i] for i in sel], device=device)[None, :, None, None]
+        xh = (x[..., h:] + 3 * qs).contiguous()
+        got = streamed_ntt.stage_a(xh, torch.empty_like(xh), buf, info_a, fwd, m2, h)
+        if not torch.equal(got, streamed_ntt.stage_a_plain(xh, tabs, fwd, h)):
+            raise AssertionError(f"streamed_stage_a on columns [{h}, {m2}) differs ({tag})")
         # the whole transform: big route = kernel 1's fused launches = plain
         xf = x.reshape(lead + (len(sel), n))
         run = fntt.ntt if fwd else fntt.intt
@@ -729,7 +740,7 @@ def rotation_phase(card, device, profile_on):
     launches = read_counts()
     print(f"[rotations] kernel launches (R={len(ROTS)} plain + hoisted + rotation sum): "
           f"{launches}")
-    missing = [k for k in ("mxu_ntt", "mxu_stage_a", "mxu_stage_b", "base_extend",
+    missing = [k for k in ("mxu_ntt", "streamed_stage_a", "streamed_stage_b", "base_extend",
                            "ks_inner_product") if launches[k] == 0]
     if missing:
         raise AssertionError(f"the rotation path never launched {missing}")
@@ -880,7 +891,7 @@ def ntt_phase(card, device):
               f"input back; kernel launches "
               f"{ {k: v for k, v in launches_by_n[n].items() if v} }")
     need = {NTT_SIZES[0][0]: ("mxu_ntt", "fourstep_ntt"),
-            N_BIG: ("mxu_ntt_mont", "mxu_stage_a", "mxu_stage_b", "fourstep_ntt")}
+            N_BIG: ("mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b", "fourstep_ntt")}
     for n, keys in need.items():
         missing = [k for k in keys if launches_by_n[n][k] == 0]
         if missing:
@@ -914,7 +925,7 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
     import torch
 
     from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
-    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, mxu_ntt
+    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, mxu_ntt, streamed_ntt
     from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
 
     ctx, n = sch.ctx, sch.params.n
@@ -942,23 +953,25 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
 
     # kernels 4 and 5: the extended digit's forward NTT on the 60-bit limbs
     sel = [i for i in big if i not in ctx.q_idx(1)] or big
-    tables, tabs = fntt.tables, [fntt.tabs[i] for i in sel]
+    st = fntt.big.streamed
+    tabs = [st.limb(i) for i in sel]
     xb = rand_residues([mq[i] for i in sel], (N_CTS,), n, gen, device).reshape(
         N_CTS, len(sel), fntt.n1, fntt.n2)
-    mats, tw, info1, info2 = tables.device(device, sel, True)
+    buf, info_a, info_b = st.device(device, sel, True)
     ya = torch.empty_like(xb)
-    pm1, pm2 = (tables.plain_mats(sel, nm, device) for nm in ("a1", "a2"))
-    twp = tables.twiddles(sel, True)
-    run_a = lambda: cuda_mxu_ntt.stage_a(xb, ya, mats, info1, tw, fntt.n2)
-    plain_a = lambda: mxu_ntt.stage_a(xb, pm1, twp, tabs)
+    run_a = lambda: streamed_ntt.stage_a(xb, ya, buf, info_a, True, fntt.n2)
+    plain_a = lambda: streamed_ntt.stage_a_plain(xb, tabs, True)
     tag = f"forward, limbs {sel} x {N_CTS} polys, N=2^16"
-    cases.check(f"mxu_stage_a ({tag})", "mxu_stage_a", SRC_NTT, K4, run_a().clone(), plain_a(),
-                run_a, plain_a, 5, stage_work(tabs, N_CTS, fntt.n1, fntt.n2, True))
+    floor = digit_floor([fntt.tabs[i] for i in sel], N_CTS, fntt.n1, fntt.n2)
+    cases.check(f"streamed_stage_a ({tag})", "streamed_stage_a", SRC_STREAMED, K4,
+                run_a().clone(), plain_a(), run_a, plain_a, 5,
+                streamed_work(len(sel), N_CTS, fntt.n1, fntt.n2, True), note=floor)
     zb = torch.empty((N_CTS, len(sel), fntt.n2, fntt.n1), dtype=torch.int64, device=device)
-    run_b = lambda: cuda_mxu_ntt.stage_b(ya, zb, mats, info2)
-    plain_b = lambda: mxu_ntt.stage_b(ya, pm2, tabs)
-    cases.check(f"mxu_stage_b ({tag})", "mxu_stage_b", SRC_NTT, K5, run_b().clone(), plain_b(),
-                run_b, plain_b, 5, stage_work(tabs, N_CTS, fntt.n2, fntt.n1, False))
+    run_b = lambda: streamed_ntt.stage_b(ya, zb, buf, info_b, True)
+    plain_b = lambda: streamed_ntt.stage_b_plain(ya, tabs, True)
+    cases.check(f"streamed_stage_b ({tag})", "streamed_stage_b", SRC_STREAMED, K5,
+                run_b().clone(), plain_b(), run_b, plain_b, 5,
+                streamed_work(len(sel), N_CTS, fntt.n2, fntt.n1, False), note=floor)
 
     # kernel 2: the full-level first digit's extension and ModDown P → Q
     idx_ext = ctx.q_idx(L) + ctx.p_idx()
@@ -988,16 +1001,76 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
     torch.cuda.synchronize()
 
 
+def fused_tables_mib(fntt, device) -> tuple:
+    """(limbs, MiB) of the fused route's tables on ``device``: the limbs whose
+    digit matrices and twiddles are uploaded, and those buffers' size."""
+    d = fntt.tables._dev.get(str(device))
+    if d is None:
+        return [], 0.0
+    return sorted(d["limbs"]), (d["mats"].nbytes + d["tw"].nbytes) / 2 ** 20
+
+
+def round16_route_check(sch, gen, device, card):
+    """The big route's whole transform on the 60-bit limbs, forward and
+    inverse over N_CTS polys, bit-equal to kernel 6's transform and kernel
+    1b's, with the device time of all three."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import route
+    from ppqsflhe_tpu_torch.ops.cuda_ntt import CudaFourStepNtt
+
+    ctx, n = sch.ctx, sch.params.n
+    fntt, mq = ctx.fntt, ctx.moduli_qp
+    big = [i for i, t in enumerate(fntt.tabs) if route(n, t.nd) == "big"]
+    bf = CudaFourStepNtt(n, [mq[i] for i in big], [fntt.tabs[i].psi for i in big])
+    x = rand_residues([mq[i] for i in big], (N_CTS,), n, gen, device)
+    for fwd in (True, False):
+        name = "ntt" if fwd else "intt"
+        runs = {"big route (kernels 4+5)": lambda: getattr(fntt, name)(x, big),
+                "kernel 6": lambda: getattr(bf, name)(x),
+                "kernel 1b": lambda: fntt.fused(x, fwd, big, mont=True)}
+        outs = [f() for f in runs.values()]
+        if not all(torch.equal(outs[0], o) for o in outs[1:]):
+            raise AssertionError(f"N=2^16 {name}: the big route, kernel 6 and kernel 1b differ")
+        dev = [device_ms(f, 10) for f in runs.values()]
+        wall = [cuda_ms(f, 10) for f in runs.values()]
+        print(f"[route N=2^16] {'forward' if fwd else 'inverse'}, limbs {big} x {N_CTS} polys: "
+              f"bit-equal (big route = kernel 6 = kernel 1b); device time per transform: "
+              + ", ".join(f"{k} {show_us(d)}" for k, d in zip(runs, dev))
+              + f"; wall mean {' / '.join(f'{v * 1e3:.1f}' for v in wall)} us ({card})")
+
+
 def round16_phase(card, device, profile_on):
     """The server round at N=2^16 (8192 slots): set-up, kernel checks, main
-    path in both schedules, decrypt, ms/round."""
+    path in both schedules, decrypt, ms/round, the context's device memory,
+    then the big route against kernels 6 and 1b."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     w = round_world(N_BIG, device, slots=SLOTS)
     cases = KernelCases(card)
     round16_kernel_checks(cases, w.sch, w.rk12, w.gen, device)
-    ntt_kernels = ("mxu_ntt_mont", "mxu_stage_a", "mxu_stage_b", "base_extend")
+    ntt_kernels = ("mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b", "base_extend")
     _, launches = drive_round("round N=2^16", w.sch, w, {
         4: ntt_kernels, 0: ntt_kernels + ("ks_inner_product",)})
     time_round("round N=2^16", w.sch, w, card, profile_on)
+    mib = lambda v: (v - base) / 2 ** 20
+    fntt = w.sch.ctx.fntt
+    limbs, fused = fused_tables_mib(fntt, device)
+    streamed = fntt.big.streamed._dev[str(device)]
+    print(f"[memory N=2^16] after the round: {mib(torch.cuda.memory_allocated()):.1f} MiB "
+          f"allocated above the phase's start, peak {mib(torch.cuda.max_memory_allocated()):.1f}"
+          f" MiB (context, keys, 2x{N_CTS} ciphertexts, the kernel checks); fused-route tables "
+          f"{fused:.1f} MiB for limbs {limbs}, streamed tables "
+          f"{streamed['tabs'].nbytes / 2 ** 20:.1f} MiB for limbs {sorted(streamed['limbs'])}")
+    round16_route_check(w.sch, w.gen, device, card)
+    limbs, fused_after = fused_tables_mib(fntt, device)
+    print(f"[memory N=2^16] after the route check ran kernel 1b on the big-route limbs: "
+          f"fused-route tables {fused_after:.1f} MiB for limbs {limbs} "
+          f"(+{fused_after - fused:.1f} MiB: the digit matrices and twiddles of the big-route "
+          f"limbs, which the streamed pair does not need)")
     return cases.take_launches(launches)
 
 
@@ -1035,10 +1108,10 @@ def butterfly_phase(card, device, w, default_outs, profile_on):
                     plain, 20, butterfly_work(len(sel), polys, bf.n1, bf.n2))
     torch.cuda.synchronize()
 
-    digit_matmul = ("mxu_ntt", "mxu_ntt_mont", "mxu_stage_a", "mxu_stage_b")
+    mxu_route = ("mxu_ntt", "mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b")
     outs, launches = drive_round("butterfly round", sch, w, {
         4: ("fourstep_ntt", "base_extend"),
-        0: ("fourstep_ntt", "base_extend", "ks_inner_product")}, absent=digit_matmul)
+        0: ("fourstep_ntt", "base_extend", "ks_inner_product")}, absent=mxu_route)
     for lazy in (4, 0):
         same = all(torch.equal(a.data, b.data) for a, b in zip(outs[lazy], default_outs[lazy]))
         print(f"[butterfly round lazy={lazy}] bit-equal to the default round: {same}")
@@ -1234,7 +1307,7 @@ def files_phase(card, device, profile_on):
             if not (np.isfinite(e1) and np.isfinite(e2) and max(e1, e2) < ERR_GATE):
                 raise AssertionError(f"{tag}: decrypt error {max(e1, e2)} over the gate")
             need = ("base_extend", "ks_inner_product") + (() if sch.ctx.radix2 else ("mxu_ntt",))
-            ntt_kernels = ("mxu_ntt", "mxu_ntt_mont", "mxu_stage_a", "mxu_stage_b",
+            ntt_kernels = ("mxu_ntt", "mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b",
                            "fourstep_ntt")
             missing = [k for k in need if launches[k] == 0]
             wrong = [k for k in ntt_kernels if launches[k]] if sch.ctx.radix2 else []

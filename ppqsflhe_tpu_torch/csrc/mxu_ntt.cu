@@ -1,6 +1,6 @@
 // Digit-matmul four-step NTT stages on Hopper's int8 tensor cores.
 //
-// Four entry points share one stage body:
+// Two entry points share one stage body:
 //
 // - ppq_mxu_ntt_stage (kernel `mxu_ntt_stage_kernel`) replaces
 //   ppqsflhe_tpu/ops/pallas_mxu_ntt.py, PallasMxuNtt._run_group (the fused
@@ -20,25 +20,17 @@
 //   coefficient against one more 64-bit high product (__umul64hi); stage 2
 //   is kernel 1's. Both launches of a transform run this symbol, so the
 //   profiler and the launch count tell it from kernel 1.
-// - ppq_mxu_stage_a (kernel `mxu_stage_a_kernel`) replaces
-//   PallasMxuNttBig._stage_a (pallas_call at :512): the first stage with the
-//   lazy twiddle and NO transpose, y[b, l, k, col], for any block of columns
-//   of a wider twiddle table (the per-shard first half of the sharded
-//   transform).
-// - ppq_mxu_stage_b (kernel `mxu_stage_b_kernel`) replaces
-//   PallasMxuNttBig._stage_b (pallas_call at :566): the transpose moves into
-//   the load — the contraction runs along the LAST axis of t[b, l, r, j] —
-//   then the second stage and two conditional subtracts, stored at
-//   y[b, l, k, r].
+//
+// The streamed pair of PallasMxuNttBig (kernels 4 and 5) is not a digit
+// product on this card: csrc/streamed_ntt.cu.
 //
 // Plain torch versions: ops/mxu_ntt.py (mxu_ntt_limb/mxu_intt_limb with
-// mont=False/True, stage_a/stage_b).
+// mont=False/True).
 //
 // What bounds it here: a stage matrix is (nd*m)^2 int8 — 1.33 MB for a 60-bit
 // limb at m=128 (nd=9), 5.3 MB at m=256 — far above the 227 KB of shared
 // memory a block can use, so the matrix cannot stay resident the way it did
-// in VMEM (and no VMEM-style budget decides between the fused and the
-// streamed pair: both stream the matrix). The work is an int8 GEMM per limb:
+// in VMEM. The work is an int8 GEMM per limb:
 // M = nd*m rows (plane e, output row k), K = nd*m (digit d, input row j),
 // N = B*c columns (every ciphertext of the batch side by side). Its arithmetic
 // is 2*M*K*N int8 ops, well under the tensor cores' rate; what costs is
@@ -54,10 +46,8 @@
 // 2^31 (the host asserts it). The epilogue recomposes (one Montgomery
 // reduction by R = 2^28 without a 128-bit product), then either applies the
 // lazy twiddle (Shoup or Montgomery) or two conditional subtracts, and stores
-// in the layout the entry point asks for. Stage B's transposed load reads 16
-// consecutive int64 of one column per thread (128 B, one cache line), so
-// neighbouring threads are a row apart: correct first, coalescing is later
-// work, as are wgmma/TMA and keeping the digitized columns resident.
+// in the layout the entry point asks for. wgmma/TMA and keeping the
+// digitized columns resident are later work.
 #include "common.cuh"
 
 namespace {
@@ -87,23 +77,21 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// One column stage over limb blockIdx.z: contraction rows j < m, columns
-// (b, cc) with cc < c.
-//   LOAD_T:   x is (B, L, c, m) and the contraction runs along its last axis;
-//             else x is (B, L, m, c).
+// One column stage over limb blockIdx.z: contraction rows j < m of x
+// (B, L, m, c), columns (b, cc) with cc < c.
 //   TW:       SHOUP: lazy Shoup twiddle of row k, column cc by
-//             tw[info[4] + k*tw_cols + tw_col0 + cc] (its companion m*tw_cols
+//             tw[info[4] + k*c + cc] (its companion m*c
 //             further on), output < 2q; MONT: lazy Montgomery product by the
 //             same entry of a w*2^64 mod q table with info[5] = -q^{-1} mod
 //             2^64, output < 1.25q; CSUB: two csubs, output < q.
 //   STORE_T:  y is (B, L, c, m); else (B, L, m, c).
-template <bool LOAD_T, Twiddle TW, bool STORE_T>
+template <Twiddle TW, bool STORE_T>
 __device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict__ x,
                                            uint64_t* __restrict__ y,
                                            const int8_t* __restrict__ mats,
                                            const int64_t* __restrict__ info,
                                            const uint64_t* __restrict__ tw, int B, int L,
-                                           int m, int c, int tw_cols, int tw_col0) {
+                                           int m, int c) {
   const int limb = blockIdx.z;
   const int64_t* inf = info + INFO * limb;
   const int8_t* A = mats + inf[0];
@@ -131,12 +119,10 @@ __device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict_
   const int jhalf = tid >> 6;
   const int gcol = col0 + bcol;
   const bool col_ok = gcol < ncol;
-  const int64_t jstride = LOAD_T ? 1 : c;
   const uint64_t* xcol = x;
   if (col_ok) {
     const int b = gcol / c, cc = gcol - b * c;
-    const int64_t base = static_cast<int64_t>(b) * L + limb;
-    xcol = LOAD_T ? x + (base * c + cc) * m : x + base * m * c + cc;
+    xcol = x + (static_cast<int64_t>(b) * L + limb) * m * c + cc;
   }
 
   const int nchunks = width / KC;
@@ -157,7 +143,7 @@ __device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict_
 #pragma unroll
       for (int bb = 0; bb < 4; ++bb) {
         const int jj = jhalf * 16 + w4 * 4 + bb;
-        const uint64_t v = col_ok ? xcol[(j0 + jj) * jstride] : 0;
+        const uint64_t v = col_ok ? xcol[static_cast<int64_t>(j0 + jj) * c] : 0;
         word |= (static_cast<uint32_t>(v >> (7 * d)) & 127u) << (8 * bb);
       }
       packed[w4] = word;
@@ -192,7 +178,7 @@ __device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict_
   const uint64_t mask = (1ull << SPLIT_BITS) - 1;
   const uint64_t q_lo = q & mask, q_hi = q >> SPLIT_BITS;
   const uint64_t* tw_w = tw + inf[4];
-  const uint64_t* tw_s = tw_w + static_cast<int64_t>(m) * tw_cols;
+  const uint64_t* tw_s = tw_w + static_cast<int64_t>(m) * c;
 #pragma unroll
   for (int nt = 0; nt < 2; ++nt) {
 #pragma unroll
@@ -214,10 +200,10 @@ __device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict_
       const uint64_t mm = ((s_lo & mask) * qinv_r) & mask;
       uint64_t u = ((s_lo + mm * q_lo) >> SPLIT_BITS) + mm * q_hi + hi_grp;  // < 4q
       if (TW == SHOUP) {
-        const int64_t ti = static_cast<int64_t>(k) * tw_cols + tw_col0 + cc;
+        const int64_t ti = static_cast<int64_t>(k) * c + cc;
         u = ppq::shoup_lazy(u, tw_w[ti], tw_s[ti], q);                        // < 2q
       } else if (TW == MONT) {
-        const int64_t ti = static_cast<int64_t>(k) * tw_cols + tw_col0 + cc;
+        const int64_t ti = static_cast<int64_t>(k) * c + cc;
         u = ppq::mont_lazy(u, tw_w[ti], q, static_cast<uint64_t>(inf[5]));    // < 2q
       } else {
         u = u >= 2 * q ? u - 2 * q : u;
@@ -237,8 +223,8 @@ mxu_ntt_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
                      const uint64_t* __restrict__ tw, int B, int L, int m, int c,
                      int twiddle) {
   __shared__ __align__(16) Smem sm;
-  if (twiddle) stage_body<false, SHOUP, true>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
-  else stage_body<false, CSUB, false>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
+  if (twiddle) stage_body<SHOUP, true>(sm, x, y, mats, info, tw, B, L, m, c);
+  else stage_body<CSUB, false>(sm, x, y, mats, info, tw, B, L, m, c);
 }
 
 // kernel 1b: the same two stages with the Montgomery twiddle
@@ -248,27 +234,8 @@ mxu_ntt_stage_mont_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__
                           const uint64_t* __restrict__ tw, int B, int L, int m, int c,
                           int twiddle) {
   __shared__ __align__(16) Smem sm;
-  if (twiddle) stage_body<false, MONT, true>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
-  else stage_body<false, CSUB, false>(sm, x, y, mats, info, tw, B, L, m, c, c, 0);
-}
-
-// kernel 4: stage A (twiddle from a column block of the table, no transpose)
-__global__ void __launch_bounds__(THREADS)
-mxu_stage_a_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
-                   const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
-                   const uint64_t* __restrict__ tw, int B, int L, int m, int c,
-                   int tw_cols, int tw_col0) {
-  __shared__ __align__(16) Smem sm;
-  stage_body<false, SHOUP, false>(sm, x, y, mats, info, tw, B, L, m, c, tw_cols, tw_col0);
-}
-
-// kernel 5: stage B (transposed load, csubs)
-__global__ void __launch_bounds__(THREADS)
-mxu_stage_b_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
-                   const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
-                   int B, int L, int m, int rows) {
-  __shared__ __align__(16) Smem sm;
-  stage_body<true, CSUB, false>(sm, x, y, mats, info, nullptr, B, L, m, rows, 0, 0);
+  if (twiddle) stage_body<MONT, true>(sm, x, y, mats, info, tw, B, L, m, c);
+  else stage_body<CSUB, false>(sm, x, y, mats, info, tw, B, L, m, c);
 }
 
 dim3 grid_of(int B, int L, int m, int c) { return dim3((B * c + TN - 1) / TN, m / TK, L); }
@@ -296,27 +263,5 @@ extern "C" int ppq_mxu_ntt_stage_mont(const void* x, void* y, const void* mats,
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
       static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info),
       static_cast<const uint64_t*>(tw), B, L, m, c, twiddle);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// x, y: (B, L, m, c); the twiddle table of each limb is (m, tw_cols) and x
-// holds its columns [tw_col0, tw_col0 + c).
-extern "C" int ppq_mxu_stage_a(const void* x, void* y, const void* mats, const void* info,
-                               const void* tw, int B, int L, int m, int c, int tw_cols,
-                               int tw_col0, void* stream) {
-  mxu_stage_a_kernel<<<grid_of(B, L, m, c), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
-      static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info),
-      static_cast<const uint64_t*>(tw), B, L, m, c, tw_cols, tw_col0);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// t: (B, L, rows, m), contracted over its last axis; y: (B, L, m, rows).
-extern "C" int ppq_mxu_stage_b(const void* t, void* y, const void* mats, const void* info,
-                               int B, int L, int m, int rows, void* stream) {
-  mxu_stage_b_kernel<<<grid_of(B, L, m, rows), THREADS, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(t), static_cast<uint64_t*>(y),
-      static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info), B, L, m, rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,349 @@
+// Kernels 4 and 5: the streamed four-step NTT pair as Shoup butterflies.
+//
+// - ppq_streamed_stage_a (kernel `streamed_stage_a_kernel`) replaces
+//   ppqsflhe_tpu/ops/pallas_mxu_ntt.py, PallasMxuNttBig._stage_a
+//   (pallas_call at :512): the first column stage with its lazy twiddle and
+//   no transpose, for any tile-aligned block of columns of a wider twiddle
+//   table (the per-shard first half of the sharded transform).
+// - ppq_streamed_stage_b (kernel `streamed_stage_b_kernel`) replaces
+//   PallasMxuNttBig._stage_b (pallas_call at :566): the second stage along
+//   the LAST axis of t[b, l, r, j], stored at y[b, l, k, r].
+//
+// Plain torch versions and wrappers: ops/streamed_ntt.py (stage_a_plain,
+// stage_b_plain; stage_a, stage_b). The functions are those of the TPU
+// kernels; the method is not. The TPU had no 64-bit multiply and an int8
+// matrix unit, so it ran each stage as an exact int8 product against a
+// digit-sliced (nd*m)^2 matrix: 2*(nd*m)^2 int8 operations per column
+// (41k per coefficient at nd=9, m=256) and a 5.3 MB matrix per limb. The
+// matrix is the product of a twist, a Pease butterfly network and a
+// twiddle; this card multiplies 64-bit words (__umul64hi), so here each stage
+// runs those factors, the plain version's butterfly graph step for step
+// (Harvey-lazy, < 2q between stages): stage A forward twist psi1^j1, GS
+// network, lazy twiddle; stage B forward twist psi^j2, GS network, csub;
+// stage A inverse csub by 2q, CT network, psi^-j2, lazy twiddle; stage B
+// inverse CT network, strict Shoup by N^-1 * psi1^-j1.
+//
+// What bounds it: bytes. Each residue must be read once and written once
+// (16 B per coefficient), stage A also reads its twiddle pair (16 B per
+// coefficient of the table, shared by every poly); the work is log2(m)/2
+// 64-bit Shoup products per coefficient plus one or two for the twist and
+// twiddle, on the CUDA cores.
+//
+// Design:
+// - A block owns one tile, m rows x 16 columns (stage A: 128-byte row
+//   segments) or 16 rows x m (stage B: contiguous runs of m*8 bytes), and
+//   reads it once, with 16-byte cp.async copies, together with its limb's
+//   m-vector of twist or scale factors, row 0 of the Pease table (root^i,
+//   i < m/2: row s entry i is root^((i >> s) << s), so row 0 holds every
+//   twiddle of the network), and, in stage A, its tile of the twiddle pair.
+//   No residue is read twice; there is no digitizing and no matrix.
+// - m/16 threads per column hold 16 values each. The top four bits of the
+//   row index are the thread's own (label t + T*k), so four stages run in
+//   registers; one exchange through shared memory gives each thread 16
+//   consecutive rows (label 16*t + k), and the last log2(m) - 4 stages run in
+//   registers too. Two barriers per tile: after the copies, and at the
+//   exchange. The inverse network runs the other way round (low stages
+//   first).
+// - The stores go straight from registers: in a warp, 16 threads of one
+//   row write 16 consecutive int64 (128 bytes) of y.
+// - Several blocks per SM let one tile's copies overlap another's
+//   butterflies: at m=256, 2 of stage A (its 102 KB of shared memory, the
+//   twiddle tile included) and 3 of stage B (70-80 registers a thread).
+// - Stage B's tile rows are padded by one 16-byte chunk, so the reads down
+//   a row spread over the banks.
+#include "common.cuh"
+
+namespace {
+
+constexpr int TC = 16;      // columns (stage A) or rows (stage B) per tile
+constexpr int R = 16;       // values per thread
+constexpr int INFO = 4;     // per limb: q, vector, Pease row 0 and twiddle offsets
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// copy n uint64 (n even, both ends 16-byte aligned) into shared memory
+__device__ __forceinline__ void copy_block(uint64_t* dst, const uint64_t* src, int n, int tid,
+                                           int nthreads) {
+  for (int i = 2 * tid; i < n; i += 2 * nthreads) cp_async16(dst + i, src + i);
+}
+
+// Gentleman-Sande (forward) and Cooley-Tukey (inverse) butterflies of the
+// plain _col_gs_cg / _col_ct_cg: inputs and outputs < 2q
+__device__ __forceinline__ void gs(uint64_t& u, uint64_t& v, uint64_t w, uint64_t ws, uint64_t q,
+                                   uint64_t q2) {
+  uint64_t s = u + v;
+  const uint64_t d = ppq::shoup_lazy(u + q2 - v, w, ws, q);
+  u = s >= q2 ? s - q2 : s;
+  v = d;
+}
+
+__device__ __forceinline__ void ct(uint64_t& u, uint64_t& v, uint64_t w, uint64_t ws, uint64_t q,
+                                   uint64_t q2) {
+  const uint64_t b = ppq::shoup_lazy(v, w, ws, q);
+  const uint64_t s = u + b, d = u + q2 - b;
+  u = s >= q2 ? s - q2 : s;
+  v = d >= q2 ? d - q2 : d;
+}
+
+// Stages s = 0..3 (GS; CT: 3..0) on values of row labels t + T*k, k < 16.
+// The pair of stage s is (a, a + d), d = m >> (s + 1), i.e. k and k + 8>>s;
+// its twiddle is root^((a mod d) << s).
+template <bool FWD>
+__device__ __forceinline__ void high_stages(uint64_t (&v)[R], int t, int T, const uint64_t* rw,
+                                            const uint64_t* rs, uint64_t q, uint64_t q2) {
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int s = FWD ? it : 3 - it;
+    const int dk = 8 >> s;
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (k & dk) continue;
+      const int e = (t + T * (k & (dk - 1))) << s;
+      if (FWD) gs(v[k], v[k + dk], rw[e], rs[e], q, q2);
+      else ct(v[k], v[k + dk], rw[e], rs[e], q, q2);
+    }
+  }
+}
+
+// Stages s = 4..LOGM-1 (GS; CT: LOGM-1..4) on values of row labels
+// 16*t + k: d = 1 << (LOGM - 1 - s) < 16, the pair is k and k + d.
+template <int LOGM, bool FWD>
+__device__ __forceinline__ void low_stages(uint64_t (&v)[R], const uint64_t* rw,
+                                           const uint64_t* rs, uint64_t q, uint64_t q2) {
+#pragma unroll
+  for (int it = 0; it < LOGM - 4; ++it) {
+    const int s = FWD ? 4 + it : LOGM - 1 - it;
+    const int d = 1 << (LOGM - 1 - s);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      if (k & d) continue;
+      const int e = (k & (d - 1)) << s;
+      if (FWD) gs(v[k], v[k + d], rw[e], rs[e], q, q2);
+      else ct(v[k], v[k + d], rw[e], rs[e], q, q2);
+    }
+  }
+}
+
+// Stage A over tile (blockIdx.x) of limb blockIdx.y of poly blockIdx.z:
+// x, y (B, L, M, c); the limb's twiddle table is (M, tw_cols) at
+// tabs + info[3] (companions M*tw_cols further on), x holding its columns
+// [col0, col0 + c).
+template <int LOGM, bool FWD>
+__global__ void __launch_bounds__(1 << LOGM, 2)
+streamed_stage_a_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                        const uint64_t* __restrict__ tabs, const int64_t* __restrict__ info,
+                        int L, int c, int tw_cols, int col0) {
+  constexpr int M = 1 << LOGM, T = M / R;
+  extern __shared__ __align__(16) uint64_t smem[];
+  uint64_t* tile = smem;               // [M][TC]
+  uint64_t* tww = tile + M * TC;       // [M][TC] twiddle values
+  uint64_t* tws = tww + M * TC;        // [M][TC] their companions
+  uint64_t* vec = tws + M * TC;        // M values, M companions
+  uint64_t* root = vec + 2 * M;        // M/2 values, M/2 companions
+  const int64_t* inf = info + INFO * blockIdx.y;
+  const uint64_t q = static_cast<uint64_t>(inf[0]), q2 = 2 * q;
+  const int64_t base = (static_cast<int64_t>(blockIdx.z) * L + blockIdx.y) * M * c;
+  const int c0 = blockIdx.x * TC;
+  const int tid = threadIdx.x;
+
+  const uint64_t* tw = tabs + inf[3];
+  const int64_t tw_size = static_cast<int64_t>(M) * tw_cols;
+  for (int i = tid; i < M * TC / 2; i += M) {
+    const int r = i / (TC / 2), ch = 2 * (i % (TC / 2));
+    const int64_t g = static_cast<int64_t>(r) * tw_cols + col0 + c0 + ch;
+    cp_async16(tile + r * TC + ch, x + base + static_cast<int64_t>(r) * c + c0 + ch);
+    cp_async16(tww + r * TC + ch, tw + g);
+    cp_async16(tws + r * TC + ch, tw + tw_size + g);
+  }
+  copy_block(vec, tabs + inf[1], 2 * M, tid, M);
+  copy_block(root, tabs + inf[2], M, tid, M);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int cc = tid % TC, t = tid / TC;
+  const uint64_t *rw = root, *rs = root + M / 2;
+  uint64_t v[R];
+  if (FWD) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int a = t + T * k;
+      v[k] = ppq::shoup_lazy(tile[a * TC + cc], vec[a], vec[M + a], q);
+    }
+    high_stages<true>(v, t, T, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) tile[(t + T * k) * TC + cc] = v[k];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = tile[(R * t + k) * TC + cc];
+    low_stages<LOGM, true>(v, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int a = R * t + k;
+      y[base + static_cast<int64_t>(a) * c + c0 + cc] =
+          ppq::shoup_lazy(v[k], tww[a * TC + cc], tws[a * TC + cc], q);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const uint64_t u = tile[(R * t + k) * TC + cc];
+      v[k] = u >= q2 ? u - q2 : u;
+    }
+    low_stages<LOGM, false>(v, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) tile[(R * t + k) * TC + cc] = v[k];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = tile[(t + T * k) * TC + cc];
+    high_stages<false>(v, t, T, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int a = t + T * k;
+      const uint64_t u = ppq::shoup_lazy(v[k], vec[a], vec[M + a], q);
+      y[base + static_cast<int64_t>(a) * c + c0 + cc] =
+          ppq::shoup_lazy(u, tww[a * TC + cc], tws[a * TC + cc], q);
+    }
+  }
+}
+
+// Stage B over tile (blockIdx.x) of limb blockIdx.y of poly blockIdx.z:
+// x (B, L, rows, M) transformed along its last axis, y (B, L, M, rows).
+template <int LOGM, bool FWD>
+__global__ void __launch_bounds__(1 << LOGM, 2)
+streamed_stage_b_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
+                        const uint64_t* __restrict__ tabs, const int64_t* __restrict__ info,
+                        int L, int rows) {
+  constexpr int M = 1 << LOGM, T = M / R, LD = M + 2;
+  extern __shared__ __align__(16) uint64_t smem[];
+  uint64_t* tile = smem;               // [TC][LD]: row r of the tile holds x[r0 + r][0..M)
+  uint64_t* vec = tile + TC * LD;      // M values, M companions
+  uint64_t* root = vec + 2 * M;        // M/2 values, M/2 companions
+  const int64_t* inf = info + INFO * blockIdx.y;
+  const uint64_t q = static_cast<uint64_t>(inf[0]), q2 = 2 * q;
+  const int64_t base = (static_cast<int64_t>(blockIdx.z) * L + blockIdx.y) * M * rows;
+  const int r0 = blockIdx.x * TC;
+  const int tid = threadIdx.x;
+
+  for (int i = tid; i < TC * M / 2; i += M) {
+    const int r = i / (M / 2), ch = 2 * (i % (M / 2));
+    cp_async16(tile + r * LD + ch, x + base + static_cast<int64_t>(r0 + r) * M + ch);
+  }
+  copy_block(vec, tabs + inf[1], 2 * M, tid, M);
+  copy_block(root, tabs + inf[2], M, tid, M);
+  cp_async_wait_all();
+  __syncthreads();
+
+  const int cc = tid % TC, t = tid / TC;
+  const uint64_t* row = tile + cc * LD;
+  const uint64_t *rw = root, *rs = root + M / 2;
+  uint64_t* out = y + base + r0 + cc;
+  uint64_t v[R];
+  if (FWD) {
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int a = t + T * k;
+      v[k] = ppq::shoup_lazy(row[a], vec[a], vec[M + a], q);
+    }
+    high_stages<true>(v, t, T, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) tile[cc * LD + t + T * k] = v[k];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = row[R * t + k];
+    low_stages<LOGM, true>(v, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const uint64_t u = v[k];
+      out[static_cast<int64_t>(R * t + k) * rows] = u >= q ? u - q : u;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = row[R * t + k];
+    low_stages<LOGM, false>(v, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) tile[cc * LD + R * t + k] = v[k];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = row[t + T * k];
+    high_stages<false>(v, t, T, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const int a = t + T * k;
+      out[static_cast<int64_t>(a) * rows] = ppq::shoup(v[k], vec[a], vec[M + a], q);
+    }
+  }
+}
+
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
+template <int LOGM, bool FWD>
+int launch_a(const void* x, void* y, const void* tabs, const void* info, int B, int L, int c,
+             int tw_cols, int col0, cudaStream_t stream) {
+  constexpr int M = 1 << LOGM;
+  const size_t smem = (3 * M * TC + 3 * M) * sizeof(uint64_t);
+  static const cudaError_t set = allow_smem(streamed_stage_a_kernel<LOGM, FWD>, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  streamed_stage_a_kernel<LOGM, FWD><<<dim3(c / TC, L, B), M, smem, stream>>>(
+      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
+      static_cast<const uint64_t*>(tabs), static_cast<const int64_t*>(info), L, c, tw_cols,
+      col0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOGM, bool FWD>
+int launch_b(const void* x, void* y, const void* tabs, const void* info, int B, int L, int rows,
+             cudaStream_t stream) {
+  constexpr int M = 1 << LOGM;
+  const size_t smem = (TC * (M + 2) + 3 * M) * sizeof(uint64_t);
+  static const cudaError_t set = allow_smem(streamed_stage_b_kernel<LOGM, FWD>, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  streamed_stage_b_kernel<LOGM, FWD><<<dim3(rows / TC, L, B), M, smem, stream>>>(
+      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
+      static_cast<const uint64_t*>(tabs), static_cast<const int64_t*>(info), L, rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// x, y: (B, L, m, c) int64, m in {128, 256}, c a multiple of 16; info (L, 4):
+// q and the offsets in tabs of the limb's m-vector pair, Pease row 0 pair and
+// (m, tw_cols) twiddle pair, x holding the table's columns [col0, col0 + c)
+// (col0 a multiple of 16).
+extern "C" int ppq_streamed_stage_a(const void* x, void* y, const void* tabs, const void* info,
+                                    int B, int L, int m, int c, int tw_cols, int col0,
+                                    int forward, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m == 256)
+    return forward ? launch_a<8, true>(x, y, tabs, info, B, L, c, tw_cols, col0, s)
+                   : launch_a<8, false>(x, y, tabs, info, B, L, c, tw_cols, col0, s);
+  if (m == 128)
+    return forward ? launch_a<7, true>(x, y, tabs, info, B, L, c, tw_cols, col0, s)
+                   : launch_a<7, false>(x, y, tabs, info, B, L, c, tw_cols, col0, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// t: (B, L, rows, m) int64, transformed along its last axis (m in {128, 256},
+// rows a multiple of 16); y: (B, L, m, rows); info (L, 4) as above (the
+// twiddle offset unused).
+extern "C" int ppq_streamed_stage_b(const void* t, void* y, const void* tabs, const void* info,
+                                    int B, int L, int m, int rows, int forward, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m == 256)
+    return forward ? launch_b<8, true>(t, y, tabs, info, B, L, rows, s)
+                   : launch_b<8, false>(t, y, tabs, info, B, L, rows, s);
+  if (m == 128)
+    return forward ? launch_b<7, true>(t, y, tabs, info, B, L, rows, s)
+                   : launch_b<7, false>(t, y, tabs, info, B, L, rows, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

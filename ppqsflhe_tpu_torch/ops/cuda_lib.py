@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppqsflhe_tpu_torch"
-SOURCES = ("mxu_ntt.cu", "fourstep_ntt.cu", "base_ext.cu", "ks_ip.cu", "overlap_probe.cu")
+SOURCES = ("mxu_ntt.cu", "streamed_ntt.cu", "fourstep_ntt.cu", "base_ext.cu", "ks_ip.cu",
+           "overlap_probe.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
@@ -33,8 +34,8 @@ _SIGNATURES = {
     "ppq_mxu_ntt_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ppq_mxu_ntt_stage_mont": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ppq_fourstep_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ppq_mxu_stage_a": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "ppq_mxu_stage_b": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "ppq_streamed_stage_a": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "ppq_streamed_stage_b": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ppq_base_extend": [_P, _P, _P, _I, _I, _I, _I, _P],
     "ppq_ks_inner_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ppq_overlap_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

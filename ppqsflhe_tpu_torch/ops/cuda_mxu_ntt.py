@@ -1,19 +1,18 @@
-"""Kernels 1, 1b, 4 and 5: the digit-matmul NTT on the card, and its runners.
+"""Kernels 1 and 1b (the digit-matmul NTT) on the card, and the runners.
 
 Twins of ``ppqsflhe_tpu.ops.pallas_mxu_ntt``: :class:`CudaMxuNtt` is
 ``PallasMxuNtt`` (``ntt``/``intt`` over a limb subset ``idx``) folded
 together with the ``FourStepNtt`` dispatch, and :class:`CudaMxuNttBig` is
-``PallasMxuNttBig``, the streamed two-pass variant. All kernels are in
-``csrc/mxu_ntt.cu``:
+``PallasMxuNttBig``, the streamed two-pass variant:
 
-- kernel 1 (:func:`ntt_stage`, two launches per transform): the fused
-  route, the first stage storing transposed;
+- kernel 1 (:func:`ntt_stage`, two launches per transform, in
+  ``csrc/mxu_ntt.cu``): the fused route, the first stage storing transposed;
 - kernel 1b (:func:`ntt_stage` with ``mont=True``): the same with the
   Montgomery twiddle, the route of a group whose Shoup tables did not fit
   the TPU kernel's VMEM but whose Montgomery ones did;
-- kernels 4 and 5 (:func:`stage_a`, :func:`stage_b`): the streamed pair,
-  stage A storing untransposed and stage B reading its contraction along the
-  last axis.
+- kernels 4 and 5 (:func:`.streamed_ntt.stage_a`, :func:`.streamed_ntt.stage_b`,
+  in ``csrc/streamed_ntt.cu``): the streamed pair, as Shoup butterflies,
+  stage A storing untransposed and stage B transforming along the last axis.
 
 :func:`route` reproduces the JAX runner's choice per digit-count group, so
 each limb runs through the kernels that its TPU counterpart ran. A CPU
@@ -32,13 +31,11 @@ import torch
 from ..core.modarith import u64_to_i64
 from . import cuda_lib
 from .fourstep import kernel_to_std
-from .mxu_ntt import MxuNttTables, mxu_intt_limb, mxu_ntt_limb, stage_a as plain_stage_a
-from .mxu_ntt import stage_b as plain_stage_b
+from .mxu_ntt import MxuNttTables, mxu_intt_limb, mxu_ntt_limb
+from .streamed_ntt import StreamedChain, stage_a, stage_a_plain, stage_b, stage_b_plain
 
 launches = 0          # kernel 1 launches (two per transform) since the last reset
 launches_mont = 0     # kernel 1b launches (two per transform)
-launches_stage_a = 0  # kernel 4 launches
-launches_stage_b = 0  # kernel 5 launches
 INFO = 6              # per limb: matrix offset, nd, q, qinv_r, twiddle offset, qinv64
 SPLIT = 4             # the kernel's REDC recompose by 2^28
 MAX_ND = 9            # csrc/mxu_ntt.cu MAX_ND
@@ -65,10 +62,8 @@ def _check_stage(name, x, y, y_shape, mats, info, tw, m):
     cuda_lib.require(x, f"{name} x")
     cuda_lib.require(y, f"{name} y", y_shape)
     cuda_lib.require(info, f"{name} info", (x.shape[1], INFO))
-    tensors = [x, y, mats, info]
-    if tw is not None:
-        cuda_lib.require(tw, f"{name} twiddles")
-        tensors.append(tw)
+    cuda_lib.require(tw, f"{name} twiddles")
+    tensors = [x, y, mats, info, tw]
     if mats.dtype != torch.int8 or not mats.is_contiguous():
         raise ValueError(f"{name} matrices must be a contiguous int8 tensor")
     if len({t.device for t in tensors}) != 1:
@@ -103,50 +98,16 @@ def ntt_stage(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor, info: torch.
     return y
 
 
-def stage_a(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor, info: torch.Tensor,
-            tw: torch.Tensor, tw_cols: int, col0: int = 0) -> torch.Tensor:
-    """Kernel 4: x (B, L, m, c) int64, contracted over m → y (B, L, m, c),
-    values < 2q, no transpose. Limb l's twiddle table is (m, tw_cols) at
-    ``tw[info[l, 4]:]`` (its Shoup companions m·tw_cols further on) and x
-    holds its columns [col0, col0 + c)."""
-    global launches_stage_a
-    B, L, m, c = x.shape
-    if col0 < 0 or col0 + c > tw_cols:
-        raise ValueError(f"stage_a: columns [{col0}, {col0 + c}) outside a "
-                         f"{tw_cols}-column twiddle table")
-    _check_stage("stage_a", x, y, (B, L, m, c), mats, info, tw, m)
-    lib = cuda_lib.library()
-    with torch.cuda.device(x.device):
-        code = lib.ppq_mxu_stage_a(
-            x.data_ptr(), y.data_ptr(), mats.data_ptr(), info.data_ptr(), tw.data_ptr(),
-            B, L, m, c, tw_cols, col0, cuda_lib.stream_of(x))
-    launches_stage_a += 1
-    cuda_lib.check(code, "ppq_mxu_stage_a")
-    return y
-
-
-def stage_b(t: torch.Tensor, y: torch.Tensor, mats: torch.Tensor,
-            info: torch.Tensor) -> torch.Tensor:
-    """Kernel 5: t (B, L, rows, m) int64, values < 2q, contracted over its
-    last axis → y (B, L, m, rows) canonical residues."""
-    global launches_stage_b
-    B, L, rows, m = t.shape
-    _check_stage("stage_b", t, y, (B, L, m, rows), mats, info, None, m)
-    lib = cuda_lib.library()
-    with torch.cuda.device(t.device):
-        code = lib.ppq_mxu_stage_b(t.data_ptr(), y.data_ptr(), mats.data_ptr(),
-                                   info.data_ptr(), B, L, m, rows, cuda_lib.stream_of(t))
-    launches_stage_b += 1
-    cuda_lib.check(code, "ppq_mxu_stage_b")
-    return y
-
-
 class MxuChainTables:
-    """A chain's per-limb tables and their upload to each device: every
-    limb's four stage matrices in one int8 buffer, its twiddles in one int64
-    buffer (per direction the Shoup pair, w then w_shoup, and the Montgomery
-    table w·2^64 mod q, each row-major), and the kernels' info rows per
-    (limb subset, direction, twiddle kind)."""
+    """A chain's per-limb tables and their upload to each device for the
+    fused route: the four stage matrices of each limb in one int8 buffer,
+    its twiddles in one int64 buffer (per direction the Shoup pair, w then
+    w_shoup, and the Montgomery table w·2^64 mod q, each row-major), and the
+    kernels' info rows per (limb subset, direction, twiddle kind). Only the
+    limbs the fused route has asked for are uploaded: a call naming a new
+    limb builds its matrices and re-uploads the union (so the offsets in the
+    info rows change), and a limb that only runs the streamed pair carries
+    none."""
 
     _MATS = ("a1", "a2", "a2i", "a1i")
 
@@ -167,43 +128,42 @@ class MxuChainTables:
 
     def device(self, device, sel, forward, mont=False):
         """(matrices, twiddles, first-stage info, second-stage info) on
-        ``device``; the chain's tables upload once per device, the info rows
-        once per limb subset, direction and twiddle kind (``mont``: the
-        first stage's twiddle offset points at the Montgomery table)."""
+        ``device`` for limbs ``sel``; the info rows are cached per limb
+        subset, direction and twiddle kind (``mont``: the first stage's
+        twiddle offset points at the Montgomery table)."""
         key = str(device)
         d = self._dev.get(key)
-        if d is None:
-            for t in self.tabs:
+        if d is None or not set(sel) <= d["limbs"]:
+            limbs = sorted(set(sel) | (d["limbs"] if d else set()))
+            for i in limbs:
+                t = self.tabs[i]
                 if t.plan.split != SPLIT or t.nd > MAX_ND:
                     raise ValueError(f"CUDA NTT needs the split={SPLIT} REDC plan and at "
                                      f"most {MAX_ND} digits (q={t.q})")
-            mats, mat_off, off = [], [], 0
-            for t in self.tabs:
-                offs = {}
+            mats, mat_off, off = [], {}, 0
+            for i in limbs:
                 for name in self._MATS:
-                    a = t.stage_matrix(name).reshape(-1)
-                    offs[name] = off
+                    a = self.tabs[i].stage_matrix(name).reshape(-1)
+                    mat_off[i, name] = off
                     mats.append(a)
                     off += a.size
-                mat_off.append(offs)
-            tws, tw_off, off = [], [], 0
-            for t in self.tabs:
-                offs = {}
+            tws, tw_off, off = [], {}, 0
+            for i in limbs:
+                t = self.tabs[i]
                 for fwd, (w, ws), wm in ((True, t.t1, t.t1m), (False, t.t1i, t.t1im)):
-                    offs[fwd, False], offs[fwd, True] = off, off + 2 * w.size
+                    tw_off[i, fwd, False], tw_off[i, fwd, True] = off, off + 2 * w.size
                     tws += [w.reshape(-1), ws.reshape(-1), wm.reshape(-1)]
                     off += 3 * w.size
-                tw_off.append(offs)
             d = self._dev[key] = dict(
                 mats=torch.as_tensor(np.concatenate(mats), device=device),
                 tw=torch.as_tensor(np.concatenate(tws).view(np.int64), device=device),
-                mat_off=mat_off, tw_off=tw_off, info={})
+                mat_off=mat_off, tw_off=tw_off, limbs=set(limbs), info={})
         ikey = (tuple(sel), forward, mont)
         if ikey not in d["info"]:
             first, second = ("a1", "a2") if forward else ("a2i", "a1i")
             rows = lambda name, with_tw: [
-                [d["mat_off"][i][name], self.tabs[i].nd, self.tabs[i].q,
-                 self.tabs[i].plan.qinv_r, d["tw_off"][i][forward, mont] if with_tw else 0,
+                [d["mat_off"][i, name], self.tabs[i].nd, self.tabs[i].q,
+                 self.tabs[i].plan.qinv_r, d["tw_off"][i, forward, mont] if with_tw else 0,
                  self.tabs[i].qinv64] for i in sel]
             d["info"][ikey] = tuple(
                 torch.as_tensor(u64_to_i64(rows(name, tw)), device=device)
@@ -247,12 +207,14 @@ def _by_group(tables, x, sel, key, run):
 
 class CudaMxuNttBig:
     """The streamed pair over a chain: per digit-count group, stage A
-    (kernel 4) then stage B (kernel 5), with no transpose between them.
-    int64[..., L, N] with L = len(idx) limbs of the chain."""
+    (kernel 4) then stage B (kernel 5), with no transpose between them, both
+    Shoup butterflies (:mod:`.streamed_ntt`). int64[..., L, N] with
+    L = len(idx) limbs of the chain."""
 
     def __init__(self, tables: MxuChainTables):
         self.tables = tables
         self.n, self.n1, self.n2 = tables.n, tables.n1, tables.n2
+        self.streamed = StreamedChain(tables.tabs)
 
     def ntt(self, x: torch.Tensor, idx=None) -> torch.Tensor:
         return self._run(x, True, idx)
@@ -270,18 +232,15 @@ class CudaMxuNttBig:
         lead, L = x.shape[:-2], len(sel)
         m1, m2 = (self.n1, self.n2) if forward else (self.n2, self.n1)
         xb = x.reshape(-1, L, m1, m2)
-        first, second = ("a1", "a2") if forward else ("a2i", "a1i")
         if not x.is_cuda:
-            t = self.tables
-            y = plain_stage_a(xb, t.plain_mats(sel, first, x.device), t.twiddles(sel, forward),
-                              [t.tabs[i] for i in sel])
-            z = plain_stage_b(y, t.plain_mats(sel, second, x.device), [t.tabs[i] for i in sel])
+            tabs = [self.streamed.limb(i) for i in sel]
+            z = stage_b_plain(stage_a_plain(xb, tabs, forward), tabs, forward)
             return z.reshape(lead + (L, self.n))
         xb = xb.contiguous()
-        mats, tw, info1, info2 = self.tables.device(x.device, sel, forward)
-        y = stage_a(xb, torch.empty_like(xb), mats, info1, tw, m2)
+        tabs, info_a, info_b = self.streamed.device(x.device, sel, forward)
+        y = stage_a(xb, torch.empty_like(xb), tabs, info_a, forward, m2)
         z = torch.empty((xb.shape[0], L, m2, m1), dtype=torch.int64, device=x.device)
-        stage_b(y, z, mats, info2)
+        stage_b(y, z, tabs, info_b, forward)
         return z.reshape(lead + (L, self.n))
 
 

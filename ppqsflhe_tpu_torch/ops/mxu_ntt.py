@@ -27,15 +27,16 @@ to every four-step implementation of the JAX package.
 The table builders are the JAX package's host numpy code; the twiddles are
 kept as (w, ⌊w·2^64/q⌋) 64-bit pairs instead of u32 quads. The plain
 transforms (:func:`mxu_ntt_limb`, :func:`mxu_intt_limb`) run the int8
-product through ``torch._int_mm``. :func:`stage_a` and :func:`stage_b` are
-the same transform cut at the transpose into two passes (the streamed pair
-of ``PallasMxuNttBig``). The CUDA kernels that replace all of them on the
-card are in :mod:`.cuda_mxu_ntt`.
+product through ``torch._int_mm``; kernels 1 and 1b (:mod:`.cuda_mxu_ntt`)
+replace them on the card. :func:`stage_a` and :func:`stage_b` are the same
+transform cut at the transpose into two passes, the digit-matmul twins of
+``PallasMxuNttBig``'s stages; the port runs that pair as Shoup butterflies
+(:mod:`.streamed_ntt`), and these stay as the reference its tests hold it to.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -100,23 +101,24 @@ class _Recompose:
 
 @dataclass
 class MxuNttTables:
-    """Per-modulus precompute for forward+inverse digit-matmul transforms."""
+    """Per-modulus precompute for forward+inverse digit-matmul transforms.
+    The four int8 stage matrices (``a1``, ``a2``, ``a2i``, ``a1i``) are built
+    on first use: at N=2^16 a 60-bit limb's are 4 × 5.3 MB, and a limb that
+    runs the streamed pair (:mod:`.streamed_ntt`) never needs them."""
 
     n: int
     n1: int
     n2: int
     q: int
+    psi: int
     nd: int
-    a1: np.ndarray        # int8 [nd, n1, nd·n1]   stage-1 fwd (negacyclic ψ1)
-    a2: np.ndarray        # int8 [nd, n2, nd·n2]   stage-2 fwd (ω2·ψ^{j2})
-    a2i: np.ndarray       # int8 [nd, n2, nd·n2]   stage-1 inv
-    a1i: np.ndarray       # int8 [nd, n1, nd·n1]   stage-2 inv (N^{-1} folded)
     t1: tuple             # uint64 (w, w_shoup), each (n1, n2): ω^{j2·rev1(r)}
     t1i: tuple            # uint64 (w, w_shoup), each (n2, n1): ω^{-j2·rev1(r1)}
     t1m: np.ndarray       # uint64 (n1, n2): t1's w·2^64 mod q (Montgomery twiddle)
     t1im: np.ndarray      # uint64 (n2, n1): t1i's w·2^64 mod q
     qinv64: int           # -q^{-1} mod 2^64, the Montgomery twiddle's constant
     plan: _Recompose
+    _mats: dict = field(default_factory=dict, repr=False)
 
     @staticmethod
     def build(n: int, q: int, psi: int) -> "MxuNttTables":
@@ -126,29 +128,7 @@ class MxuNttTables:
         psi = int(psi)
         nd = _digit_count(q)
         rev1 = bit_reverse_indices(n1)
-        rev2 = bit_reverse_indices(n2)
-        j1 = np.arange(n1)
         j2 = np.arange(n2)
-
-        psi1 = pow(psi, n2, q)          # primitive 2·n1-th root
-        om2 = pow(psi, 2 * n1, q)       # primitive n2-th root
-        ninv = primes.mod_inverse(n % q, q)
-
-        # stage-1 fwd: M1[r, j1] = ψ1^{j1·(2·rev1[r]+1)}
-        m1 = _pow_table(psi1, np.outer(2 * rev1 + 1, j1), q)
-        # stage-2 fwd: M2[r2, j2] = ψ^{j2}·ω2^{j2·rev2[r2]}
-        m2 = _pow_table(om2, np.outer(rev2, j2), q)
-        colscale = _pow_table(psi, j2, q)
-        m2 = ((m2.astype(object) * colscale.astype(object)[None, :]) % q
-              ).astype(np.uint64)
-        # inverse stage-1: M2i[j2, r2] = ψ^{-j2}·ω2^{-j2·rev2[r2]}
-        m2i = _pow_table(om2, -np.outer(j2, rev2), q)
-        icolscale = _pow_table(psi, -j2, q)
-        m2i = ((m2i.astype(object) * icolscale.astype(object)[:, None]) % q
-               ).astype(np.uint64)
-        # inverse stage-2: M1i[j1, r1] = N^{-1}·ψ1^{-j1·(2·rev1[r1]+1)}
-        m1i = _pow_table(psi1, -np.outer(j1, 2 * rev1 + 1), q)
-        m1i = ((m1i.astype(object) * ninv) % q).astype(np.uint64)
 
         # the surviving elementwise twiddle ω^{±j2·k1} (ω = ψ²)
         t1 = _pow_table(psi, 2 * np.outer(rev1, j2), q)
@@ -177,24 +157,50 @@ class MxuNttTables:
                 break
         if plan is None:
             raise ValueError(f"no REDC recompose plan for q={q} at n={n}")
-        redc_fold = pow(2, DIGIT_BITS * plan.split, q)   # folded into the matrices
-        for m in (m1, m2, m2i, m1i):
-            m[...] = ((m.astype(object) * redc_fold) % q).astype(np.uint64)
 
         return MxuNttTables(
-            n=n, n1=n1, n2=n2, q=q, nd=nd,
-            a1=_slice_matrix(m1, q, nd), a2=_slice_matrix(m2, q, nd),
-            a2i=_slice_matrix(m2i, q, nd), a1i=_slice_matrix(m1i, q, nd),
+            n=n, n1=n1, n2=n2, q=q, psi=psi, nd=nd,
             t1=_shoup_pair(t1, q), t1i=_shoup_pair(t1i, q),
             t1m=_mont_form(t1, q), t1im=_mont_form(t1i, q),
             qinv64=primes.mont_qinv_neg(q), plan=plan,
         )
 
+    def _matrix(self, name: str) -> np.ndarray:
+        """Stage matrix ``name`` as int8 [nd, m, nd·m], built once."""
+        if name not in self._mats:
+            n1, n2, q, psi = self.n1, self.n2, self.q, self.psi
+            rev1, rev2 = bit_reverse_indices(n1), bit_reverse_indices(n2)
+            j1, j2 = np.arange(n1), np.arange(n2)
+            psi1 = pow(psi, n2, q)          # primitive 2·n1-th root
+            om2 = pow(psi, 2 * n1, q)       # primitive n2-th root
+            if name == "a1":    # stage-1 fwd: M1[r, j1] = ψ1^{j1·(2·rev1[r]+1)}
+                m = _pow_table(psi1, np.outer(2 * rev1 + 1, j1), q)
+            elif name == "a2":  # stage-2 fwd: M2[r2, j2] = ψ^{j2}·ω2^{j2·rev2[r2]}
+                m = (_pow_table(om2, np.outer(rev2, j2), q).astype(object)
+                     * _pow_table(psi, j2, q).astype(object)[None, :])
+            elif name == "a2i":  # inverse stage-1: M2i[j2, r2] = ψ^{-j2}·ω2^{-j2·rev2[r2]}
+                m = (_pow_table(om2, -np.outer(j2, rev2), q).astype(object)
+                     * _pow_table(psi, -j2, q).astype(object)[:, None])
+            elif name == "a1i":  # inverse stage-2: M1i[j1, r1] = N^{-1}·ψ1^{-j1·(2·rev1[r1]+1)}
+                m = (_pow_table(psi1, -np.outer(j1, 2 * rev1 + 1), q).astype(object)
+                     * primes.mod_inverse(self.n % q, q))
+            else:
+                raise KeyError(name)
+            redc_fold = pow(2, DIGIT_BITS * self.plan.split, q)   # cancelled by the REDC
+            m = ((m.astype(object) % q * redc_fold) % q).astype(np.uint64)
+            self._mats[name] = _slice_matrix(m, q, self.nd)
+        return self._mats[name]
+
+    a1 = property(lambda self: self._matrix("a1"))     # [nd, n1, nd·n1] stage-1 fwd (ψ1)
+    a2 = property(lambda self: self._matrix("a2"))     # [nd, n2, nd·n2] stage-2 fwd (ω2·ψ^{j2})
+    a2i = property(lambda self: self._matrix("a2i"))   # [nd, n2, nd·n2] stage-1 inv
+    a1i = property(lambda self: self._matrix("a1i"))   # [nd, n1, nd·n1] stage-2 inv (N^{-1})
+
     def stage_matrix(self, name: str) -> np.ndarray:
         """A stage's int8 matrix as one (nd·m, nd·m) block: plane-major rows
         (e, k), digit-major contraction (d, j) — the layout both the plain
         product and the CUDA kernel consume."""
-        a = getattr(self, name)
+        a = self._matrix(name)
         nd, m, _ = a.shape
         return a.reshape(nd * m, nd * m)
 

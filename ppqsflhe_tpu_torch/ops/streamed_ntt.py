@@ -1,0 +1,250 @@
+"""Kernels 4 and 5: the streamed NTT pair as Shoup butterflies.
+
+The port's counterpart of ``ppqsflhe_tpu.ops.pallas_mxu_ntt.PallasMxuNttBig``
+(``_stage_a``, ``_stage_b``): one four-step transform cut at its transpose
+into two passes, with the same functions, shapes and interfaces. The TPU ran
+each stage as an exact int8 product against a digit-sliced m×m matrix; the
+matrices are products of well-known factors, and this module runs those
+factors instead, in the names of :mod:`.fourstep` (ψ1 = ψ^{n2}, ω1 = ψ1²,
+ω2 = ψ^{2·n1}):
+
+- **stage A forward**: x ⊙ ψ1^{j1} down the rows, the Pease GS network of
+  ω1 (``pgs1``), then the lazy Shoup twiddle ``t1`` at the block's columns;
+- **stage B forward**: t ⊙ ψ^{j2} along its contiguous axis, the GS network
+  of ω2 (``pgs2``) down the transposed block, one csub;
+- **stage A inverse**: one csub by 2q (the digit stage took inputs < 4q, the
+  network keeps the Harvey invariant for inputs < 2q), the CT network of
+  ω2⁻¹ (``pct2``), ⊙ ψ^{-j2}, then the lazy twiddle ``t1i``;
+- **stage B inverse**: the CT network of ω1⁻¹ (``pct1``), then a strict
+  Shoup product by N⁻¹·ψ1^{-j1}.
+
+Stage B's outputs are canonical, so they equal the digit stages' bit for
+bit. Stage A's outputs are < 2q and ≡ the digit stage's mod q, but the lazy
+representative differs (the digit stage ends in a REDC, this one in a Shoup
+product): the stage's contract has always been "< 2q, ≡ mod q", and its one
+consumer, stage B, ends canonical.
+
+:func:`stage_a_plain` and :func:`stage_b_plain` are the plain versions (int64,
+any device), composed of :func:`.fourstep._col_gs_cg` / ``_col_ct_cg`` and
+the Shoup products of :mod:`..core.modarith`. :func:`stage_a` and
+:func:`stage_b` launch the kernels of ``csrc/streamed_ntt.cu``, which run the
+plain versions' butterfly graph (the same pairs, twiddles and lazy steps),
+so both stages are bit-equal to their plain versions.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..core import primes
+from ..core.modarith import shoup_mul, shoup_mul_lazy, u64_to_i64
+from . import cuda_lib
+from .fourstep import _col_ct_cg, _col_gs_cg, _pair, _pease, _powers
+
+launches_stage_a = 0  # kernel 4 launches since the last reset
+launches_stage_b = 0  # kernel 5 launches
+INFO = 4              # per limb: q, vector, root-row and twiddle offsets in the table buffer
+TILE = 16             # csrc/streamed_ntt.cu TC: columns (stage A) or rows (stage B) per block
+SIZES = (128, 256)    # the m the kernels take: 16 threads of 16 values per column at 256
+
+
+@dataclass
+class StreamedTables:
+    """One limb's tables, each a (value, Shoup companion) uint64 pair."""
+
+    q: int
+    n1: int
+    n2: int
+    twist1: tuple     # (n1,): ψ1^{j1}, stage A forward, before the network
+    twist2: tuple     # (n2,): ψ^{j2}, stage B forward, before the network
+    itwist2: tuple    # (n2,): ψ^{-j2}, stage A inverse, after the network
+    itwist1: tuple    # (n1,): N^{-1}·ψ1^{-j1}, stage B inverse, strict
+    pgs1: tuple       # (S1, n1/2) Pease rows of ω1
+    pgs2: tuple       # (S2, n2/2) of ω2
+    pct2: tuple       # (S2, n2/2) of ω2^{-1}
+    pct1: tuple       # (S1, n1/2) of ω1^{-1}
+    t1: tuple         # (n1, n2): ω^{rev1(r)·j2}, stage A forward's twiddle
+    t1i: tuple        # (n2, n1): its inverse, stage A inverse's
+    _dev: dict = field(default_factory=dict, repr=False)
+
+    @staticmethod
+    def build(tabs) -> "StreamedTables":
+        """From a limb's :class:`.mxu_ntt.MxuNttTables`: its q, ψ (a
+        primitive 2N-th root of unity), shape and twiddle pairs."""
+        n, n1, n2, q, psi = tabs.n, tabs.n1, tabs.n2, tabs.q, tabs.psi
+        ipsi = primes.mod_inverse(psi, q)
+        psi1, ipsi1 = pow(psi, n2, q), pow(ipsi, n2, q)
+        om1, om2 = psi1 * psi1 % q, pow(psi, 2 * n1, q)
+        iom1, iom2 = primes.mod_inverse(om1, q), primes.mod_inverse(om2, q)
+        return StreamedTables(
+            q=q, n1=n1, n2=n2,
+            twist1=_pair(_powers(1, psi1, n1, q), q), twist2=_pair(_powers(1, psi, n2, q), q),
+            itwist2=_pair(_powers(1, ipsi, n2, q), q),
+            itwist1=_pair(_powers(primes.mod_inverse(n, q), ipsi1, n1, q), q),
+            pgs1=_pair(_pease(n1, om1, q), q), pgs2=_pair(_pease(n2, om2, q), q),
+            pct2=_pair(_pease(n2, iom2, q), q), pct1=_pair(_pease(n1, iom1, q), q),
+            t1=tabs.t1, t1i=tabs.t1i)
+
+    def tensor(self, name: str, device) -> tuple:
+        """Table ``name`` as an int64 (value, companion) pair on ``device``."""
+        key = (name, str(device))
+        if key not in self._dev:
+            self._dev[key] = tuple(torch.as_tensor(a.view(np.int64), device=device)
+                                   for a in getattr(self, name))
+        return self._dev[key]
+
+    def blocks(self, forward: bool) -> dict:
+        """The kernels' tables of one direction as flat uint64 blocks, each a
+        pair stored values then companions: stage A's and stage B's vector
+        (length m) and Pease row 0 (root^i, i < m/2: every later row repeats
+        its entries, W_s[i] = W_0[(i >> s) << s]), and stage A's twiddle."""
+        flat = lambda pair: np.concatenate([a.reshape(-1) for a in pair])
+        vec_a, root_a, vec_b, root_b, tw = (
+            (self.twist1, self.pgs1, self.twist2, self.pgs2, self.t1) if forward else
+            (self.itwist2, self.pct2, self.itwist1, self.pct1, self.t1i))
+        return dict(vec_a=flat(vec_a), root_a=flat(tuple(a[0] for a in root_a)),
+                    vec_b=flat(vec_b), root_b=flat(tuple(a[0] for a in root_b)), tw=flat(tw))
+
+
+def _vec(t: StreamedTables, name: str, device):
+    w, ws = t.tensor(name, device)
+    return w[:, None], ws[:, None]
+
+
+def stage_a_plain(x: torch.Tensor, tabs, forward: bool, col0: int = 0) -> torch.Tensor:
+    """Stage A: x (B, L, m, c) int64, transformed down its m rows →
+    (B, L, m, c), values < 2q, no transpose. x holds columns [col0, col0 + c)
+    of each limb's twiddle table; ``tabs``: the L limbs' tables."""
+    dev, c = x.device, x.shape[-1]
+    outs = []
+    for l, t in enumerate(tabs):
+        q, y = t.q, x[:, l]
+        if forward:
+            y = _col_gs_cg(shoup_mul_lazy(y, *_vec(t, "twist1", dev), q), t.tensor("pgs1", dev), q)
+            w, ws = t.tensor("t1", dev)
+        else:
+            y = _col_ct_cg(torch.where(y >= 2 * q, y - 2 * q, y), t.tensor("pct2", dev), q)
+            y = shoup_mul_lazy(y, *_vec(t, "itwist2", dev), q)
+            w, ws = t.tensor("t1i", dev)
+        outs.append(shoup_mul_lazy(y, w[:, col0:col0 + c], ws[:, col0:col0 + c], q))
+    return torch.stack(outs, dim=1)
+
+
+def stage_b_plain(t: torch.Tensor, tabs, forward: bool) -> torch.Tensor:
+    """Stage B: t (B, L, rows, m) int64, values < 2q, transformed along its
+    last axis → (B, L, m, rows) canonical residues."""
+    dev = t.device
+    outs = []
+    for l, tb in enumerate(tabs):
+        q, y = tb.q, t[:, l].transpose(-1, -2)
+        if forward:
+            y = _col_gs_cg(shoup_mul_lazy(y, *_vec(tb, "twist2", dev), q), tb.tensor("pgs2", dev),
+                           q)
+            y = torch.where(y >= q, y - q, y)
+        else:
+            y = shoup_mul(_col_ct_cg(y, tb.tensor("pct1", dev), q), *_vec(tb, "itwist1", dev), q)
+        outs.append(y)
+    return torch.stack(outs, dim=1)
+
+
+def _check(name, x, y, y_shape, tabs, info, m):
+    cuda_lib.require(x, f"{name} x")
+    cuda_lib.require(y, f"{name} y", y_shape)
+    cuda_lib.require(tabs, f"{name} tables")
+    cuda_lib.require(info, f"{name} info", (x.shape[1], INFO))
+    if len({t.device for t in (x, y, tabs, info)}) != 1:
+        raise ValueError(f"{name} tensors must share one device")
+    if m not in SIZES:
+        raise ValueError(f"{name} kernel takes m in {SIZES}, got m={m}")
+
+
+def stage_a(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Tensor,
+            forward: bool, tw_cols: int, col0: int = 0) -> torch.Tensor:
+    """Kernel 4: x (B, L, m, c) int64 → y (B, L, m, c), values < 2q, no
+    transpose. Limb l's twiddle table is (m, tw_cols) at
+    ``tabs[info[l, 3]:]`` (its companions m·tw_cols further on) and x holds
+    its columns [col0, col0 + c); ``info[l]`` = (q, vector, Pease row 0,
+    twiddle offsets)."""
+    global launches_stage_a
+    B, L, m, c = x.shape
+    if col0 < 0 or col0 + c > tw_cols:
+        raise ValueError(f"stage_a: columns [{col0}, {col0 + c}) outside a "
+                         f"{tw_cols}-column twiddle table")
+    if c % TILE or col0 % TILE:
+        raise ValueError(f"stage_a: columns [{col0}, {col0 + c}) are not whole "
+                         f"{TILE}-column tiles")
+    _check("stage_a", x, y, (B, L, m, c), tabs, info, m)
+    lib = cuda_lib.library()
+    with torch.cuda.device(x.device):
+        code = lib.ppq_streamed_stage_a(x.data_ptr(), y.data_ptr(), tabs.data_ptr(),
+                                        info.data_ptr(), B, L, m, c, tw_cols, col0,
+                                        int(forward), cuda_lib.stream_of(x))
+    launches_stage_a += 1
+    cuda_lib.check(code, "ppq_streamed_stage_a")
+    return y
+
+
+def stage_b(t: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Tensor,
+            forward: bool) -> torch.Tensor:
+    """Kernel 5: t (B, L, rows, m) int64, values < 2q, transformed along its
+    last axis → y (B, L, m, rows) canonical residues."""
+    global launches_stage_b
+    B, L, rows, m = t.shape
+    if rows % TILE:
+        raise ValueError(f"stage_b: {rows} rows are not whole {TILE}-row tiles")
+    _check("stage_b", t, y, (B, L, m, rows), tabs, info, m)
+    lib = cuda_lib.library()
+    with torch.cuda.device(t.device):
+        code = lib.ppq_streamed_stage_b(t.data_ptr(), y.data_ptr(), tabs.data_ptr(),
+                                        info.data_ptr(), B, L, m, rows, int(forward),
+                                        cuda_lib.stream_of(t))
+    launches_stage_b += 1
+    cuda_lib.check(code, "ppq_streamed_stage_b")
+    return y
+
+
+class StreamedChain:
+    """The streamed pair's tables over a modulus chain: each limb's built on
+    first use from the chain's :class:`.mxu_ntt.MxuNttTables`, and
+    uploaded to a device for the limbs asked for so far (a call naming a new
+    limb re-uploads the union, so the offsets in the info rows change)."""
+
+    def __init__(self, tabs):
+        self.mxu_tabs = tabs
+        self._limbs: dict = {}
+        self._dev: dict = {}
+
+    def limb(self, i: int) -> StreamedTables:
+        if i not in self._limbs:
+            self._limbs[i] = StreamedTables.build(self.mxu_tabs[i])
+        return self._limbs[i]
+
+    def device(self, device, sel, forward: bool):
+        """(tables, stage A info, stage B info) on ``device`` for limbs
+        ``sel`` in one direction."""
+        key = str(device)
+        d = self._dev.get(key)
+        if d is None or not set(sel) <= d["limbs"]:
+            limbs = sorted(set(sel) | (d["limbs"] if d else set()))
+            parts, offs, off = [], {}, 0
+            for i in limbs:
+                for fwd in (True, False):
+                    for name, a in self.limb(i).blocks(fwd).items():
+                        offs[i, fwd, name] = off
+                        parts.append(a)
+                        off += a.size
+            d = self._dev[key] = dict(
+                tabs=torch.as_tensor(np.concatenate(parts).view(np.int64), device=device),
+                offs=offs, limbs=set(limbs), info={})
+        ikey = (tuple(sel), forward)
+        if ikey not in d["info"]:
+            o = d["offs"]
+            rows = lambda stage, tw: [[self.mxu_tabs[i].q, o[i, forward, "vec_" + stage],
+                                       o[i, forward, "root_" + stage],
+                                       o[i, forward, "tw"] if tw else 0] for i in sel]
+            d["info"][ikey] = tuple(torch.as_tensor(u64_to_i64(rows(s, s == "a")), device=device)
+                                    for s in ("a", "b"))
+        return (d["tabs"],) + d["info"][ikey]

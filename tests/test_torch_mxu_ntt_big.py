@@ -1,8 +1,8 @@
-"""The port's streamed NTT pair (plain ``stage_a``/``stage_b``, the runner
-``CudaMxuNttBig``) and its routing against the JAX package: bit-equal to
-``PallasMxuNttBig._stage_a``/``_stage_b`` run in interpret mode, to
-``FourStepNtt`` (``"mxu"``) through the "big" route, and ``route`` equal to
-the JAX runner's ``_group_fits`` decision. Exact integer residues, tolerance
+"""The port's streamed NTT pair (the digit-matmul plain ``stage_a``/
+``stage_b``, the runner ``CudaMxuNttBig``) and its routing against the JAX
+package: bit-equal to ``PallasMxuNttBig._stage_a``/``_stage_b`` run in
+interpret mode, to ``FourStepNtt`` (``"mxu"``) through the "big" route, and
+``route`` equal to the JAX runner's ``_group_fits`` decision. Exact integer residues, tolerance
 0, on a 60/40/40/20-bit chain (nd = 9, 6, 6, 4)."""
 
 import jax.numpy as jnp
@@ -14,7 +14,7 @@ from ppqsflhe_tpu.ops.fourstep import kernel_to_std as jax_kernel_to_std
 from ppqsflhe_tpu.ops.pallas_mxu_ntt import PallasMxuNtt, PallasMxuNttBig
 from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt
 from ppqsflhe_tpu_torch.core import primes
-from ppqsflhe_tpu_torch.ops import cuda_lib, cuda_mxu_ntt
+from ppqsflhe_tpu_torch.ops import cuda_lib, cuda_mxu_ntt, streamed_ntt
 from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import CudaMxuNtt, MxuChainTables
 from ppqsflhe_tpu_torch.ops.fourstep import kernel_to_std
 from ppqsflhe_tpu_torch.ops.mxu_ntt import stage_a, stage_b
@@ -99,7 +99,7 @@ def test_plain_stages_match_pallas_big_interpret(big512, idxs, forward, block):
 @pytest.mark.parametrize("routing", ["big", "mixed"])
 def test_runner_big_route_matches_fourstep(monkeypatch, idx, routing):
     """CudaMxuNtt's CPU path with every group (or the nd=9 group alone)
-    routed "big" — the plain stage_a/stage_b pair — is bit-equal to
+    routed "big" — the plain streamed pair — is bit-equal to
     FourStepNtt's "mxu" transform, forward and inverse, with leading batch
     dims and limb subsets in any order."""
     monkeypatch.setattr(cuda_mxu_ntt, "route",
@@ -157,18 +157,18 @@ def test_big_route_stays_on_cpu_and_launchers_reject_cpu_tensors(monkeypatch):
     n = 256
     moduli = _chain(n)
     runner = CudaMxuNtt(n, moduli, [primes.root_of_unity(2 * n, q) for q in moduli])
-    before = (cuda_mxu_ntt.launches, cuda_mxu_ntt.launches_stage_a,
-              cuda_mxu_ntt.launches_stage_b)
+    before = (cuda_mxu_ntt.launches, streamed_ntt.launches_stage_a,
+              streamed_ntt.launches_stage_b)
     x = _t(np.stack([np.arange(n, dtype=np.uint64) % q for q in moduli]))
     assert torch.equal(runner.intt(runner.ntt(x)), x)
-    x = torch.zeros((1, 1, 32, 32), dtype=torch.int64)
-    mats, info = torch.zeros(1, dtype=torch.int8), torch.zeros((1, 5), dtype=torch.int64)
+    x = torch.zeros((1, 1, 128, 32), dtype=torch.int64)
+    tabs, info = torch.zeros(8, dtype=torch.int64), torch.zeros((1, 4), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_mxu_ntt.stage_a(x, x, mats, info, x, tw_cols=32)
+        streamed_ntt.stage_a(x, x, tabs, info, True, tw_cols=32)
     with pytest.raises(ValueError, match="outside"):
-        cuda_mxu_ntt.stage_a(x, x, mats, info, x, tw_cols=48, col0=32)
+        streamed_ntt.stage_a(x, x, tabs, info, True, tw_cols=48, col0=32)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_mxu_ntt.stage_b(x, x, mats, info)
-    assert (cuda_mxu_ntt.launches, cuda_mxu_ntt.launches_stage_a,
-            cuda_mxu_ntt.launches_stage_b) == before
+        streamed_ntt.stage_b(x.reshape(1, 1, 32, 128), x, tabs, info, True)
+    assert (cuda_mxu_ntt.launches, streamed_ntt.launches_stage_a,
+            streamed_ntt.launches_stage_b) == before
     assert cuda_lib._lib is None

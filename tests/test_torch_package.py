@@ -21,6 +21,7 @@ MODULES = [
     "ppqsflhe_tpu_torch.ops.fourstep",
     "ppqsflhe_tpu_torch.ops.cuda_lib",
     "ppqsflhe_tpu_torch.ops.cuda_mxu_ntt",
+    "ppqsflhe_tpu_torch.ops.streamed_ntt",
     "ppqsflhe_tpu_torch.ops.cuda_ntt",
     "ppqsflhe_tpu_torch.ops.cuda_ext",
     "ppqsflhe_tpu_torch.ops.cuda_ks",
