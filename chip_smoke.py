@@ -67,8 +67,10 @@ the same work, the larger of the bytes it must move (each input read once,
 each output written once) over 3.35 TB/s and its int8 operations over
 1,979 T/s (H100 SXM; the 64-bit integer work of the butterflies and base
 extensions has no published rate, so their bound is the bytes). The rows of
-kernels 4 and 5, Shoup butterflies on this card, also print the floor of the
-TPU's digit method for the same stage (its int8 operations at 1,979 T/s). No PyTorch
+kernels 1, 1b, 4 and 5, Shoup butterflies on this card, also print the floor
+of the TPU's digit method for the same stages (its int8 operations at 1,979
+T/s); kernels 1 and 1b are checked per transform (and once against the digit
+transform) and, on the NTT loop's inputs, per stage. No PyTorch
 call computes an NTT, base extension or key inner product mod q, so
 ``library_ms`` is null in those rows; the probe's mxu row carries the time
 of ``torch._int_mm`` over the same cells (one call per cell).
@@ -142,29 +144,86 @@ def bound(work) -> tuple:
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def mxu_work(tabs, B, twiddle_bytes=16):
-    """A whole digit-matmul transform of B polys over limbs with tables
-    ``tabs``: x in and out, both stage matrices, the twiddle table."""
-    nbytes = ops = 0
-    for t in tabs:
-        a, b = (t.nd * t.n1) ** 2, (t.nd * t.n2) ** 2
-        nbytes += 16 * B * t.n + a + b + twiddle_bytes * t.n
-        ops += 2 * B * (a * t.n2 + b * t.n1)
-    return nbytes, ops
+def fused_work(tabs, B, twiddle_bytes):
+    """A whole kernel-1 (1b) transform of B polys over limbs with tables
+    ``tabs``: x in and out once, the limb's twiddle table (16 B an entry for
+    the Shoup pair, 8 for the Montgomery table), both stages' m-vector and
+    Pease row 0 (value, companion) pairs."""
+    return sum(16 * B * t.n + twiddle_bytes * t.n + 24 * (t.n1 + t.n2) for t in tabs), 0
 
 
-def streamed_work(L, B, m, c, stage_a):
-    """One streamed stage (kernel 4 or 5) over an (m, c) block of B polys
-    per limb: x in and y out once, the limb's m-vector and Pease row 0
-    (value, companion) pairs, and stage A's twiddle pair over the block."""
-    return L * (16 * B * m * c + 24 * m + (16 * m * c if stage_a else 0)), 0
+def stage_work(L, B, m, c, twiddle_bytes=0):
+    """One butterfly stage (kernels 1, 1b, 4, 5) over an (m, c) block of B
+    polys per limb: x in and y out once, the limb's m-vector and Pease row 0
+    (value, companion) pairs, and a first stage's twiddle over the block."""
+    return L * (16 * B * m * c + 24 * m + twiddle_bytes * m * c), 0
 
 
-def digit_floor(tabs, B, m, c):
-    """The TPU method's floor for the same stage, for comparison: its int8
-    digit product does 2·(nd·m)² operations per column, at 1,979 T/s."""
-    ops = sum(2 * B * (t.nd * m) ** 2 * c for t in tabs)
+def digit_floor(tabs, B, *stages):
+    """The TPU method's floor for the same stages (m, c), for comparison: its
+    int8 digit product does 2·(nd·m)² operations per column, at 1,979 T/s."""
+    ops = sum(2 * B * (t.nd * m) ** 2 * c for t in tabs for m, c in stages)
     return f"; TPU method's floor {ops / INT8_OPS * 1e6:.1f} us ({ops / 1e9:.2f} G int8 ops)"
+
+
+def fused_case(cases, fntt, x, sel, fwd, mont, run, iters, tag):
+    """A whole kernel-1 (1b with ``mont``) transform ``run`` of x over limbs
+    ``sel`` against its plain version (the two butterfly stages in torch),
+    after a one-off check against the digit-matmul plain transform (the TPU
+    method's twin)."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ops import mxu_ntt
+
+    got = run()
+    fn = mxu_ntt.mxu_ntt_limb if fwd else mxu_ntt.mxu_intt_limb
+    digit = torch.stack([fn(x[..., k, :], fntt.tabs[i], mont) for k, i in enumerate(sel)],
+                        dim=-2)
+    if not torch.equal(got, digit):
+        raise AssertionError(f"kernel 1{'b' if mont else ''} differs from the digit transform "
+                             f"({tag})")
+    B, tabs = x.numel() // (len(sel) * fntt.n), [fntt.tabs[i] for i in sel]
+    counter = "mxu_ntt_mont" if mont else "mxu_ntt"
+    plain = lambda: fntt.fused_plain(x, fwd, sel, mont)
+    cases.check(f"{counter} ({'forward' if fwd else 'inverse'}, {tag})", counter, SRC_NTT,
+                K1B if mont else K1, got, plain(), run, plain, iters,
+                fused_work(tabs, B, 8 if mont else 16),
+                note=digit_floor(tabs, B, (fntt.n1, fntt.n2), (fntt.n2, fntt.n1)))
+
+
+def fused_stage_checks(cases, fntt, x, tag):
+    """Kernels 1 and 1b one stage at a time on x (B, L, N) over all L limbs:
+    stage 1 then stage 2 of each direction and twiddle kind against their
+    plain versions."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ops import cuda_mxu_ntt as cm
+
+    B, L = x.shape[:2]
+    sel = list(range(L))
+    st = fntt.tables.streamed
+    tabs = [st.limb(i) for i in sel]
+    for fwd in (True, False):
+        m1, m2 = (fntt.n1, fntt.n2) if fwd else (fntt.n2, fntt.n1)
+        xb = x.reshape(B, L, m1, m2)
+        for mont in (False, True):
+            buf, info1, info2 = st.device(x.device, sel, fwd, mont)
+            y = torch.empty((B, L, m2, m1), dtype=torch.int64, device=x.device)
+            z = torch.empty_like(y)
+            counter = "mxu_ntt_mont" if mont else "mxu_ntt"
+            name = (f"{counter} stage %d ({'forward' if fwd else 'inverse'}, m=%d, limbs {sel} x "
+                    f"{B} polys, {tag})")
+            k = K1B if mont else K1
+            run1 = lambda: cm.ntt_stage(xb, y, buf, info1, fwd, True, mont)
+            plain1 = lambda: cm.stage1_plain(xb, tabs, fwd, mont)
+            cases.check(name % (1, m1), counter, SRC_NTT, k, run1().clone(), plain1(), run1,
+                        plain1, 5, stage_work(L, B, m1, m2, 8 if mont else 16),
+                        note=digit_floor(fntt.tabs, B, (m1, m2)))
+            run2 = lambda: cm.ntt_stage(y, z, buf, info2, fwd, False, mont)
+            plain2 = lambda: cm.stage2_plain(y, tabs, fwd)
+            cases.check(name % (2, m2), counter, SRC_NTT, k, run2().clone(), plain2(), run2,
+                        plain2, 5, stage_work(L, B, m2, m1),
+                        note=digit_floor(fntt.tabs, B, (m2, m1)))
 
 
 def butterfly_work(L, B, n1, n2):
@@ -335,7 +394,7 @@ def round_kernel_checks(cases, sch, rk_mont, gen, device):
     import torch
 
     from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
-    from ppqsflhe_tpu_torch.ops import cuda_ext, mxu_ntt
+    from ppqsflhe_tpu_torch.ops import cuda_ext
     from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
 
     ctx, n = sch.ctx, sch.params.n
@@ -346,17 +405,11 @@ def round_kernel_checks(cases, sch, rk_mont, gen, device):
     # q1: nd=6) over both components of 27 ciphertexts
     idx = (0, 1)
     x = rand_residues([mq[i] for i in idx], (2 * N_CTS,), n, gen, device)
-    tabs = [ctx.fntt.tabs[i] for i in idx]
-    plain_ntt = lambda v: torch.stack(
-        [mxu_ntt.mxu_ntt_limb(v[:, k], t) for k, t in enumerate(tabs)], dim=1)
+    fused_case(cases, ctx.fntt, x, idx, True, False, lambda: ctx.ntt(x, idx), 20,
+               f"2 limbs x {2 * N_CTS} polys, N=2^14")
     got = ctx.ntt(x, idx)
-    cases.check(f"mxu_ntt (forward, 2 limbs x {2 * N_CTS} polys, N=2^14)", "mxu_ntt", SRC_NTT,
-                K1, got, plain_ntt(x), lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20,
-                mxu_work(tabs, 2 * N_CTS))
     back = ctx.intt(got, idx)
-    plain_back = torch.stack(
-        [mxu_ntt.mxu_intt_limb(got[:, k], t) for k, t in enumerate(tabs)], dim=1)
-    if not (torch.equal(back, plain_back) and torch.equal(back, x)):
+    if not (torch.equal(back, ctx.fntt.fused_plain(got, False, idx)) and torch.equal(back, x)):
         raise AssertionError("mxu_ntt inverse differs from plain version or input")
 
     # kernel 2: every base extension the two schedules run — at each PRE
@@ -584,7 +637,7 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
     import torch
 
     from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
-    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, mxu_ntt, streamed_ntt
+    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, streamed_ntt
     from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
 
     ctx, n = sch.ctx, sch.params.n
@@ -616,15 +669,15 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
         plain_a = lambda: streamed_ntt.stage_a_plain(x, tabs, fwd)
         cases.check(f"streamed_stage_a ({tag})", "streamed_stage_a", SRC_STREAMED, K4,
                     run_a().clone(), plain_a(), run_a, plain_a, 20,
-                    streamed_work(len(sel), lead[0], m1, m2, True),
-                    note=digit_floor([fntt.tabs[i] for i in sel], lead[0], m1, m2))
+                    stage_work(len(sel), lead[0], m1, m2, 16),
+                    note=digit_floor([fntt.tabs[i] for i in sel], lead[0], (m1, m2)))
         zb = torch.empty((lead[0], len(sel), m2, m1), dtype=torch.int64, device=device)
         run_b = lambda: streamed_ntt.stage_b(ya, zb, buf, info_b, fwd)
         plain_b = lambda: streamed_ntt.stage_b_plain(ya, tabs, fwd)
         cases.check(f"streamed_stage_b ({tag})", "streamed_stage_b", SRC_STREAMED, K5,
                     run_b().clone(), plain_b(), run_b, plain_b, 20,
-                    streamed_work(len(sel), lead[0], m2, m1, False),
-                    note=digit_floor([fntt.tabs[i] for i in sel], lead[0], m2, m1))
+                    stage_work(len(sel), lead[0], m2, m1),
+                    note=digit_floor([fntt.tabs[i] for i in sel], lead[0], (m2, m1)))
         # stage A on one half of the columns, reading its slice of the table
         h = m2 // 2
         qs = torch.tensor([mq[i] for i in sel], device=device)[None, :, None, None]
@@ -653,13 +706,9 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
     # components), forward and back
     idx = tuple(i for i in ctx.q_idx(L) if i in nd6)
     x = rand_residues([mq[i] for i in idx], (2,), n, gen, device)
-    plain_ntt = lambda v: torch.stack(
-        [mxu_ntt.mxu_ntt_limb(v[:, k], fntt.tabs[i]) for k, i in enumerate(idx)], dim=1)
-    got = ctx.ntt(x, idx)
-    cases.check(f"mxu_ntt (forward, limbs {list(idx)} x 2 polys, N=2^15)", "mxu_ntt", SRC_NTT,
-                K1, got, plain_ntt(x), lambda: ctx.ntt(x, idx), lambda: plain_ntt(x), 20,
-                mxu_work([fntt.tabs[i] for i in idx], 2))
-    if not torch.equal(ctx.intt(got, idx), x):
+    fused_case(cases, fntt, x, idx, True, False, lambda: ctx.ntt(x, idx), 20,
+               f"limbs {list(idx)} x 2 polys, N=2^15")
+    if not torch.equal(ctx.intt(ctx.ntt(x, idx), idx), x):
         raise AssertionError("mxu_ntt inverse at N=2^15 does not give the input back")
 
     # kernel 2: the full-level key switch's three extensions — each digit
@@ -800,10 +849,8 @@ def ntt_chain(run, x, steps):
 
 def ntt_kernel_checks(cases, n, impls, x, card):
     """Kernel 6 (and 1b at 2^16) against the plain versions on the phase's
-    inputs, with a limb subset, and the A/B lines."""
-    import torch
-
-    from ppqsflhe_tpu_torch.ops import mxu_ntt
+    inputs, with a limb subset; kernels 1 and 1b stage by stage on every
+    limb (m = 128 at 2^14, 256 at 2^16); the A/B lines."""
     from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import route
 
     mx, bf = impls["digit-matmul"], impls["butterfly"]
@@ -823,16 +870,13 @@ def ntt_kernel_checks(cases, n, impls, x, card):
             raise AssertionError("no limb of the N=2^16 chain routes to kernel 1b")
         xs = x[:, mont].contiguous()
         for fwd in (True, False):
-            fn = mxu_ntt.mxu_ntt_limb if fwd else mxu_ntt.mxu_intt_limb
             run = lambda: mx.fused(xs, fwd, mont, mont=True)
-            plain = lambda: torch.stack([fn(xs[:, k], mx.tabs[i], True)
-                                         for k, i in enumerate(mont)], dim=1)
-            cases.check(f"mxu_ntt_mont ({'forward' if fwd else 'inverse'}, limbs {mont} x {B} "
-                        f"polys, {tag})", "mxu_ntt_mont", SRC_NTT, K1B, run(), plain(), run,
-                        plain, 10, mxu_work([mx.tabs[i] for i in mont], B, 8))
+            fused_case(cases, mx, xs, mont, fwd, True, run, 10,
+                       f"limbs {mont} x {B} polys, {tag}")
             ab_line(f"nd=6 {'forward' if fwd else 'inverse'}, limbs {mont} x {B} polys, {tag}",
                     run, lambda: mx.fused(xs, fwd, mont), ("kernel 1b (Montgomery twiddle)",
                                                            "kernel 1 (Shoup twiddle)"), card)
+    fused_stage_checks(cases, mx, x, tag)
     for fwd in (True, False):
         name = "ntt" if fwd else "intt"
         ab_line(f"{name}, limbs 0-{L - 1} x {B} polys, {tag}",
@@ -925,7 +969,7 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
     import torch
 
     from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
-    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, mxu_ntt, streamed_ntt
+    from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt, streamed_ntt
     from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
 
     ctx, n = sch.ctx, sch.params.n
@@ -943,13 +987,9 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
     # components) and the lazy schedule's iNTT of c1 (q1 over 27 polys)
     for sel, lead, fwd in ((mont, (2 * N_CTS,), True), (mont[:1], (N_CTS,), False)):
         x = rand_residues([mq[i] for i in sel], lead, n, gen, device)
-        fn = mxu_ntt.mxu_ntt_limb if fwd else mxu_ntt.mxu_intt_limb
         run = lambda: (ctx.ntt if fwd else ctx.intt)(x, sel)
-        plain = lambda: torch.stack([fn(x[:, k], fntt.tabs[i], True)
-                                     for k, i in enumerate(sel)], dim=1)
-        cases.check(f"mxu_ntt_mont ({'forward' if fwd else 'inverse'}, limbs {sel} x "
-                    f"{lead[0]} polys, N=2^16)", "mxu_ntt_mont", SRC_NTT, K1B, run(), plain(),
-                    run, plain, 5, mxu_work([fntt.tabs[i] for i in sel], lead[0], 8))
+        fused_case(cases, fntt, x, sel, fwd, True, run, 5,
+                   f"limbs {sel} x {lead[0]} polys, N=2^16")
 
     # kernels 4 and 5: the extended digit's forward NTT on the 60-bit limbs
     sel = [i for i in big if i not in ctx.q_idx(1)] or big
@@ -962,16 +1002,16 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
     run_a = lambda: streamed_ntt.stage_a(xb, ya, buf, info_a, True, fntt.n2)
     plain_a = lambda: streamed_ntt.stage_a_plain(xb, tabs, True)
     tag = f"forward, limbs {sel} x {N_CTS} polys, N=2^16"
-    floor = digit_floor([fntt.tabs[i] for i in sel], N_CTS, fntt.n1, fntt.n2)
+    floor = digit_floor([fntt.tabs[i] for i in sel], N_CTS, (fntt.n1, fntt.n2))
     cases.check(f"streamed_stage_a ({tag})", "streamed_stage_a", SRC_STREAMED, K4,
                 run_a().clone(), plain_a(), run_a, plain_a, 5,
-                streamed_work(len(sel), N_CTS, fntt.n1, fntt.n2, True), note=floor)
+                stage_work(len(sel), N_CTS, fntt.n1, fntt.n2, 16), note=floor)
     zb = torch.empty((N_CTS, len(sel), fntt.n2, fntt.n1), dtype=torch.int64, device=device)
     run_b = lambda: streamed_ntt.stage_b(ya, zb, buf, info_b, True)
     plain_b = lambda: streamed_ntt.stage_b_plain(ya, tabs, True)
     cases.check(f"streamed_stage_b ({tag})", "streamed_stage_b", SRC_STREAMED, K5,
                 run_b().clone(), plain_b(), run_b, plain_b, 5,
-                streamed_work(len(sel), N_CTS, fntt.n2, fntt.n1, False), note=floor)
+                stage_work(len(sel), N_CTS, fntt.n2, fntt.n1), note=floor)
 
     # kernel 2: the full-level first digit's extension and ModDown P → Q
     idx_ext = ctx.q_idx(L) + ctx.p_idx()
@@ -1001,13 +1041,13 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
     torch.cuda.synchronize()
 
 
-def fused_tables_mib(fntt, device) -> tuple:
-    """(limbs, MiB) of the fused route's tables on ``device``: the limbs whose
-    digit matrices and twiddles are uploaded, and those buffers' size."""
-    d = fntt.tables._dev.get(str(device))
+def butterfly_tables_mib(fntt, device) -> tuple:
+    """(limbs, MiB) of the chain's butterfly tables on ``device``, one buffer
+    for kernels 1, 1b, 4 and 5: the limbs uploaded so far and its size."""
+    d = fntt.tables.streamed._dev.get(str(device))
     if d is None:
         return [], 0.0
-    return sorted(d["limbs"]), (d["mats"].nbytes + d["tw"].nbytes) / 2 ** 20
+    return sorted(d["limbs"]), d["tabs"].nbytes / 2 ** 20
 
 
 def round16_route_check(sch, gen, device, card):
@@ -1046,6 +1086,8 @@ def round16_phase(card, device, profile_on):
     then the big route against kernels 6 and 1b."""
     import torch
 
+    from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import route
+
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
@@ -1058,19 +1100,18 @@ def round16_phase(card, device, profile_on):
     time_round("round N=2^16", w.sch, w, card, profile_on)
     mib = lambda v: (v - base) / 2 ** 20
     fntt = w.sch.ctx.fntt
-    limbs, fused = fused_tables_mib(fntt, device)
-    streamed = fntt.big.streamed._dev[str(device)]
+    limbs, tables = butterfly_tables_mib(fntt, device)
+    per_limb = tables / len(limbs)
+    fused = [i for i in limbs if route(N_BIG, fntt.tabs[i].nd) != "big"]
     print(f"[memory N=2^16] after the round: {mib(torch.cuda.memory_allocated()):.1f} MiB "
           f"allocated above the phase's start, peak {mib(torch.cuda.max_memory_allocated()):.1f}"
-          f" MiB (context, keys, 2x{N_CTS} ciphertexts, the kernel checks); fused-route tables "
-          f"{fused:.1f} MiB for limbs {limbs}, streamed tables "
-          f"{streamed['tabs'].nbytes / 2 ** 20:.1f} MiB for limbs {sorted(streamed['limbs'])}")
+          f" MiB (context, keys, 2x{N_CTS} ciphertexts, the kernel checks); butterfly tables "
+          f"(kernels 1, 1b, 4, 5; no digit matrix) {tables:.1f} MiB for limbs {limbs}, of which "
+          f"the fused route's {per_limb * len(fused):.1f} MiB for limbs {fused}")
     round16_route_check(w.sch, w.gen, device, card)
-    limbs, fused_after = fused_tables_mib(fntt, device)
+    limbs, after = butterfly_tables_mib(fntt, device)
     print(f"[memory N=2^16] after the route check ran kernel 1b on the big-route limbs: "
-          f"fused-route tables {fused_after:.1f} MiB for limbs {limbs} "
-          f"(+{fused_after - fused:.1f} MiB: the digit matrices and twiddles of the big-route "
-          f"limbs, which the streamed pair does not need)")
+          f"butterfly tables {after:.1f} MiB for limbs {limbs} (+{after - tables:.1f} MiB)")
     return cases.take_launches(launches)
 
 
@@ -1180,7 +1221,7 @@ def files_kernel_checks(cases, sch, rk_mont, gen, device, tag):
     import torch
 
     from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
-    from ppqsflhe_tpu_torch.ops import cuda_ext, mxu_ntt
+    from ppqsflhe_tpu_torch.ops import cuda_ext
     from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
 
     ctx, n = sch.ctx, sch.params.n
@@ -1212,12 +1253,8 @@ def files_kernel_checks(cases, sch, rk_mont, gen, device, tag):
         # kernel 1: the iNTT of c1 over Q at the start of the key switch
         idx = ctx.q_idx(L)
         x = rand_residues([mq[i] for i in idx], (N_CTS,), n, gen, device)
-        tabs = [ctx.fntt.tabs[i] for i in idx]
-        plain = lambda: torch.stack([mxu_ntt.mxu_intt_limb(x[:, k], t)
-                                     for k, t in enumerate(tabs)], dim=1)
-        cases.check(f"mxu_ntt ({tag}, inverse, 3 limbs x {N_CTS} polys, N=2^14)", "mxu_ntt",
-                    SRC_NTT, K1, ctx.intt(x, idx), plain(), lambda: ctx.intt(x, idx), plain, 20,
-                    mxu_work(tabs, N_CTS))
+        fused_case(cases, ctx.fntt, x, idx, False, False, lambda: ctx.intt(x, idx), 20,
+                   f"{tag}, 3 limbs x {N_CTS} polys, N=2^14")
     torch.cuda.synchronize()
 
 

@@ -7,11 +7,13 @@ modules under the same name, and each is held bit for bit against it by the
 
 - ``core``  : int64 twins of the RNS modular arithmetic, prime/NTT tables,
               HPS base extension constants, samplers on ``torch.Generator``.
-- ``ops``   : the digit-matmul NTT tables and its plain torch versions
-              (fused, and the streamed two-stage pair), the four-step
+- ``ops``   : the digit-matmul NTT tables and plain transforms (the TPU
+              method, kept as the reference), the butterfly stages that
+              run the same transforms on the card (fused, and the streamed
+              two-stage pair) with their plain torch versions, the four-step
               evaluation order, and the wrappers of the hand-written CUDA
-              kernels (``csrc/``): the digit-matmul NTT stages, the HPS
-              base extension and the key-switch-key inner product.
+              kernels (``csrc/``): the NTT stages, the HPS base extension
+              and the key-switch-key inner product.
 - ``ckks``  : the RNS-CKKS subset the server's aggregation round and the
               rotation path need — params/context, keygen, PRE rekey,
               relinearization and Galois key generation, encrypt,

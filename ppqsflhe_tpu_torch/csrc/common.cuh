@@ -41,6 +41,15 @@ __device__ __forceinline__ uint64_t mont_lazy(uint64_t a, uint64_t b, uint64_t q
   return __umul64hi(a, b) + __umul64hi(lo * qinv, q) + (lo != 0);
 }
 
+// -q^{-1} mod 2^64 for odd q, mont_lazy's constant: Newton's iteration
+// x <- x*(2 - q*x) doubles the correct low bits, from 3 at x = q
+__device__ __forceinline__ uint64_t neg_inv64(uint64_t q) {
+  uint64_t x = q;
+#pragma unroll
+  for (int i = 0; i < 5; ++i) x *= 2 - q * x;
+  return 0 - x;
+}
+
 // Montgomery product a*b*2^-64 mod q, a, b < q
 __device__ __forceinline__ uint64_t mont_mul(uint64_t a, uint64_t b, uint64_t q,
                                              uint64_t qinv) {

@@ -1,267 +1,264 @@
-// Digit-matmul four-step NTT stages on Hopper's int8 tensor cores.
-//
-// Two entry points share one stage body:
+// Kernels 1 and 1b: the fused four-step NTT's two column stages as Shoup
+// butterflies.
 //
 // - ppq_mxu_ntt_stage (kernel `mxu_ntt_stage_kernel`) replaces
 //   ppqsflhe_tpu/ops/pallas_mxu_ntt.py, PallasMxuNtt._run_group (the fused
 //   Shoup-twiddle kernel; its pallas_call is at :390). That kernel ran both
-//   column transforms of one (limb, ciphertext) in VMEM: digitize → int8 MXU
-//   dot → REDC recompose → twiddle → transpose → digitize → dot → REDC → two
-//   csubs. Here it is two launches: stage 1 stores transposed, stage 2 in
-//   place.
+//   column transforms of one (limb, ciphertext) in VMEM; here a transform is
+//   two launches: stage 1 stores transposed, stage 2 in place.
 // - ppq_mxu_ntt_stage_mont (kernel `mxu_ntt_stage_mont_kernel`) replaces the
-//   same function's mont=True branch (pallas_mxu_ntt.py:347-350): the
+//   same function's mont=True branch (pallas_mxu_ntt.py:347-350): stage 1's
 //   twiddle is a lazy Montgomery product against one table w*2^64 mod q
-//   (tables :211-229, constant -q^{-1} mod 2^64 at :203-208) instead of the
-//   Shoup pair (w, floor(w*2^64/q)). On the TPU it existed to fit VMEM: the
-//   2-plane table let the nd=6 group at N=2^16 stay fused. Here the twiddle
-//   is read once per coefficient from device memory in stage 1's epilogue
-//   either way, so what it changes is 8 of the 16 table bytes per
-//   coefficient against one more 64-bit high product (__umul64hi); stage 2
-//   is kernel 1's. Both launches of a transform run this symbol, so the
-//   profiler and the launch count tell it from kernel 1.
+//   (ppq::mont_lazy, with -q^{-1} mod 2^64 computed from q) instead of the
+//   Shoup pair (w, floor(w*2^64/q)). On the TPU the two-plane table let the
+//   nd=6 group at N=2^16 fit VMEM; here it halves stage 1's twiddle tile,
+//   8 B per entry instead of 16 (70 KB of shared memory a block at m=256
+//   instead of 102 KB: 3 blocks an SM instead of 2). Its stage 2 is kernel
+//   1's; both launches of a transform run this symbol, so the profiler and
+//   the launch count tell it from kernel 1.
 //
-// The streamed pair of PallasMxuNttBig (kernels 4 and 5) is not a digit
-// product on this card: csrc/streamed_ntt.cu.
+// Plain torch versions: ops/cuda_mxu_ntt.py stage1_plain / stage2_plain.
 //
-// Plain torch versions: ops/mxu_ntt.py (mxu_ntt_limb/mxu_intt_limb with
-// mont=False/True).
+// The function is the TPU kernel's: canonical outputs in the four-step
+// kernel order, equal to the digit plain versions (ops/mxu_ntt.py
+// mxu_ntt_limb / mxu_intt_limb). The method is not. The TPU had no 64-bit
+// multiply and an int8 matrix unit, so it ran each stage as an exact int8
+// product against a digit-sliced (nd*m)^2 matrix (2*(nd*m)^2 int8
+// operations per column). The matrix is the product of a twist, a Pease
+// butterfly network and a twiddle; this card multiplies 64-bit words, so here
+// each stage runs those factors, the plain versions' butterfly graph step for
+// step (Harvey-lazy, < 2q between stages):
+//   stage 1 forward: twist psi1^j1 down the rows, GS network of omega1, lazy
+//     twiddle (kernel 4's function);
+//   stage 2 forward: twist psi^j2, GS network of omega2, csub (kernel 5's
+//     function, down the columns);
+//   stage 1 inverse: csub by 2q (inputs < 4q), CT network of omega2^-1,
+//     psi^-j2, lazy twiddle;
+//   stage 2 inverse: CT network of omega1^-1, strict Shoup by N^-1*psi1^-j1.
+// Stage 1's output is < 2q and = the digit stage's mod q; its lazy
+// representative may differ (a Shoup or Montgomery product ends it, not a
+// REDC). Stage 2 ends canonical.
 //
-// What bounds it here: a stage matrix is (nd*m)^2 int8 — 1.33 MB for a 60-bit
-// limb at m=128 (nd=9), 5.3 MB at m=256 — far above the 227 KB of shared
-// memory a block can use, so the matrix cannot stay resident the way it did
-// in VMEM. The work is an int8 GEMM per limb:
-// M = nd*m rows (plane e, output row k), K = nd*m (digit d, input row j),
-// N = B*c columns (every ciphertext of the batch side by side). Its arithmetic
-// is 2*M*K*N int8 ops, well under the tensor cores' rate; what costs is
-// re-reading the matrix tiles from L2 and the digitize prologue.
+// What bounds it: bytes. A transform must read each residue once and write
+// it once (16 B per coefficient) and read its twiddle table (16 B per entry
+// for kernel 1, 8 B for 1b, shared by every poly of the batch); the work is
+// log2(N)/2 64-bit Shoup products per coefficient plus three for the twists
+// and the twiddle, on the CUDA cores. Two launches move the residues twice,
+// so unless the 50 MB L2 holds the intermediate the design tops out near
+// half of the transform's bytes bound. Fusing both stages into one launch
+// would keep a whole N=2^14 limb (128 KB) in shared memory, as the TPU kept
+// it in VMEM, at one block an SM: an under-filled wave at the round's
+// shapes.
 //
-// Design: a block owns 16 output rows k for ALL nd planes (so the REDC
-// recompose of a coefficient happens in the block that accumulated its
-// planes) and 64 columns; it walks the contraction in chunks of 32 (one
-// mma.sync m16n8k32 step): the matrix chunk is copied to shared memory, the
-// column chunk is digitized straight from the int64 residues into shared
-// memory, and each of the 4 warps issues nd*2 mma.sync.s8 per chunk into
-// int32 accumulators. Exactness: nd*m ≤ 9*256 terms of ≤ 127^2 stay below
-// 2^31 (the host asserts it). The epilogue recomposes (one Montgomery
-// reduction by R = 2^28 without a 128-bit product), then either applies the
-// lazy twiddle (Shoup or Montgomery) or two conditional subtracts, and stores
-// in the layout the entry point asks for. wgmma/TMA and keeping the
-// digitized columns resident are later work.
-#include "common.cuh"
+// Design (the schedule of csrc/butterfly.cuh, shared with kernels 4 and 5):
+// - A block owns one tile, m rows x 16 columns of one (poly, limb), m in
+//   {32, 64, 128, 256} (N = 2^10 ... 2^16), and reads it once with 16-byte
+//   cp.async copies of 128-byte row segments, with its limb's m-vector of
+//   twist or scale factors, Pease row 0 and, in stage 1, its 16-column tile
+//   of the twiddle table. No residue is read twice; there is no digit and no
+//   matrix.
+// - m/16 threads per column hold 16 values each: four stages in registers on
+//   the top four row bits, one exchange through shared memory, the rest in
+//   registers on 16 consecutive rows.
+// - Stage 1 stores transposed. The block's 16 columns are 16 adjacent rows
+//   of y, one run of 16*m int64, so the values go through the shared tile
+//   (transposed, rows padded by 16 bytes) and every warp stores 512
+//   contiguous bytes. Storing each thread's 16 consecutive rows straight
+//   from registers (32 lines a warp instruction) made stage 1 4-37% slower
+//   on an H100 (PERF.md section 6). Stage 2 stores like kernel 4: 16
+//   threads of one row write 16 consecutive int64.
+// - nvcc -Xptxas -v (sm_90a), at m=256: stage 1 forward 92 registers
+//   (kernel 1) and 80 (1b, 8 bytes of spill), inverse 80 and 80; stage 2
+//   72-78; no other spill. Dynamic shared memory: stage 1 102 KB (kernel 1)
+//   and 70 KB (1b), stage 2 38 KB; at m=128 51, 35 and 19 KB. So at m=256
+//   stage 1 of kernel 1 runs 2 blocks an SM (shared memory), 1b and stage 2
+//   3 (registers, held to 85 by __launch_bounds__).
+#include "butterfly.cuh"
 
 namespace {
 
-constexpr int TK = 16;      // output rows per block (one m16 tile per plane)
-constexpr int TN = 64;      // output columns per block
-constexpr int KC = 32;      // contraction chunk (one m16n8k32 step)
-constexpr int MAX_ND = 9;   // 7-bit digits of a value < 2^62
-constexpr int THREADS = 128;
-constexpr int SPLIT_BITS = 28;   // REDC by R = 2^(7*4): the uniform plan
-constexpr int INFO = 6;          // per limb: mat_off, nd, q, qinv_r, tw_off, qinv64
+using namespace ppq;
 
-// the elementwise step between the product and the store
-enum Twiddle { CSUB, SHOUP, MONT };
-
-struct Smem {
-  int8_t As[MAX_ND][TK][KC];
-  int8_t Bs[TN][KC];
-};
-
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// One column stage over limb blockIdx.z: contraction rows j < m of x
-// (B, L, m, c), columns (b, cc) with cc < c.
-//   TW:       SHOUP: lazy Shoup twiddle of row k, column cc by
-//             tw[info[4] + k*c + cc] (its companion m*c
-//             further on), output < 2q; MONT: lazy Montgomery product by the
-//             same entry of a w*2^64 mod q table with info[5] = -q^{-1} mod
-//             2^64, output < 1.25q; CSUB: two csubs, output < q.
-//   STORE_T:  y is (B, L, c, m); else (B, L, m, c).
-template <Twiddle TW, bool STORE_T>
-__device__ __forceinline__ void stage_body(Smem& sm, const uint64_t* __restrict__ x,
+// One column stage over tile blockIdx.x of limb blockIdx.y of poly
+// blockIdx.z: x (B, L, M, c) transformed down its M rows.
+//   FIRST: stage 1, twiddled by the limb's (M, c) table at tabs + info[3]
+//     (MONT: w*2^64 mod q; else Shoup values, companions M*c further on),
+//     stored transposed to y (B, L, c, M), values < 2q;
+//   else stage 2, y (B, L, M, c), canonical.
+template <int LOGM, bool FWD, bool FIRST, bool MONT>
+__device__ __forceinline__ void stage_body(uint64_t* smem, const uint64_t* __restrict__ x,
                                            uint64_t* __restrict__ y,
-                                           const int8_t* __restrict__ mats,
-                                           const int64_t* __restrict__ info,
-                                           const uint64_t* __restrict__ tw, int B, int L,
-                                           int m, int c) {
-  const int limb = blockIdx.z;
-  const int64_t* inf = info + INFO * limb;
-  const int8_t* A = mats + inf[0];
-  const int nd = static_cast<int>(inf[1]);
-  const uint64_t q = static_cast<uint64_t>(inf[2]);
-  const uint64_t qinv_r = static_cast<uint64_t>(inf[3]);
-  const int k0 = blockIdx.y * TK;
-  const int col0 = blockIdx.x * TN;
-  const int ncol = B * c;
-  const int width = nd * m;                      // matrix row length (bytes)
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t = lane & 3;
+                                           const uint64_t* __restrict__ tabs,
+                                           const int64_t* __restrict__ info, int L, int c) {
+  constexpr int M = 1 << LOGM, T = M / R;
+  constexpr int LD = M + 2;                        // a row of the transposed tile, padded
+  constexpr int TW = FIRST ? (MONT ? 1 : 2) : 0;   // twiddle planes
+  uint64_t* tile = smem;               // [M][TC]; stage 1's store: [TC][LD]
+  uint64_t* tw = tile + (FIRST ? TC * LD : M * TC);   // [TW][M][TC]
+  uint64_t* vec = tw + TW * M * TC;    // M values, M companions
+  uint64_t* root = vec + 2 * M;        // M/2 values, M/2 companions
+  const int64_t* inf = info + INFO * blockIdx.y;
+  const uint64_t q = static_cast<uint64_t>(inf[0]), q2 = 2 * q;
+  const int64_t base = (static_cast<int64_t>(blockIdx.z) * L + blockIdx.y) * M * c;
+  const int c0 = blockIdx.x * TC;
+  const int tid = threadIdx.x;
 
-  int acc[MAX_ND][2][4];
+  const uint64_t* twg = tabs + inf[3] + c0;
+  const int64_t tw_size = static_cast<int64_t>(M) * c;
+  for (int i = tid; i < M * TC / 2; i += M) {
+    const int r = i / (TC / 2), ch = 2 * (i % (TC / 2));
+    const int64_t g = static_cast<int64_t>(r) * c + ch;
+    cp_async16(tile + r * TC + ch, x + base + c0 + g);
 #pragma unroll
-  for (int e = 0; e < MAX_ND; ++e)
-#pragma unroll
-    for (int nt = 0; nt < 2; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[e][nt][i] = 0;
-
-  // digitize mapping: this thread fills column bcol, contraction rows
-  // [16*jhalf, 16*jhalf + 16) of the chunk
-  const int bcol = tid & (TN - 1);
-  const int jhalf = tid >> 6;
-  const int gcol = col0 + bcol;
-  const bool col_ok = gcol < ncol;
-  const uint64_t* xcol = x;
-  if (col_ok) {
-    const int b = gcol / c, cc = gcol - b * c;
-    xcol = x + (static_cast<int64_t>(b) * L + limb) * m * c + cc;
+    for (int p = 0; p < TW; ++p) cp_async16(tw + p * M * TC + r * TC + ch, twg + p * tw_size + g);
   }
+  copy_block(vec, tabs + inf[1], 2 * M, tid, M);
+  copy_block(root, tabs + inf[2], M, tid, M);
+  cp_async_wait_all();
+  __syncthreads();
 
-  const int nchunks = width / KC;
-  for (int kc = 0; kc < nchunks; ++kc) {
-    const int d = (kc * KC) / m;                  // input digit of this chunk
-    const int j0 = kc * KC - d * m;               // first input row
-    // matrix chunk: rows (e, k0 + r), bytes [kc*32, kc*32 + 32), 16 B at a time
-    for (int v = tid; v < nd * TK * 2; v += THREADS) {
-      const int e = v / (TK * 2), r = (v >> 1) % TK, half = v & 1;
-      const int8_t* src = A + static_cast<int64_t>(e * m + k0 + r) * width + kc * KC + half * 16;
-      *reinterpret_cast<int4*>(&sm.As[e][r][half * 16]) = *reinterpret_cast<const int4*>(src);
-    }
-    // column chunk: digit d of x[j0 + jj][col], packed 4 per word
-    uint32_t packed[4];
+  const int cc = tid % TC, t = tid / TC;
+  const uint64_t *rw = root, *rs = root + M / 2;
+  uint64_t v[R];
+  if (FWD) {
 #pragma unroll
-    for (int w4 = 0; w4 < 4; ++w4) {
-      uint32_t word = 0;
-#pragma unroll
-      for (int bb = 0; bb < 4; ++bb) {
-        const int jj = jhalf * 16 + w4 * 4 + bb;
-        const uint64_t v = col_ok ? xcol[static_cast<int64_t>(j0 + jj) * c] : 0;
-        word |= (static_cast<uint32_t>(v >> (7 * d)) & 127u) << (8 * bb);
-      }
-      packed[w4] = word;
+    for (int k = 0; k < R; ++k) {
+      const int a = t + T * k;
+      v[k] = shoup_lazy(tile[a * TC + cc], vec[a], vec[M + a], q);
     }
-    *reinterpret_cast<uint4*>(&sm.Bs[bcol][jhalf * 16]) =
-        make_uint4(packed[0], packed[1], packed[2], packed[3]);
+    high_stages<true>(v, t, T, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) tile[(t + T * k) * TC + cc] = v[k];
     __syncthreads();
-
-    uint32_t bf[2][2];
 #pragma unroll
-    for (int nt = 0; nt < 2; ++nt) {
-      const int n = warp * 16 + nt * 8 + g;
-      bf[nt][0] = *reinterpret_cast<const uint32_t*>(&sm.Bs[n][t * 4]);
-      bf[nt][1] = *reinterpret_cast<const uint32_t*>(&sm.Bs[n][16 + t * 4]);
-    }
+    for (int k = 0; k < R; ++k) v[k] = tile[(R * t + k) * TC + cc];
+    low_stages<LOGM, true>(v, rw, rs, q, q2);
+  } else {
 #pragma unroll
-    for (int e = 0; e < MAX_ND; ++e) {
-      if (e < nd) {
-        uint32_t af[4];
-        af[0] = *reinterpret_cast<const uint32_t*>(&sm.As[e][g][t * 4]);
-        af[1] = *reinterpret_cast<const uint32_t*>(&sm.As[e][g + 8][t * 4]);
-        af[2] = *reinterpret_cast<const uint32_t*>(&sm.As[e][g][16 + t * 4]);
-        af[3] = *reinterpret_cast<const uint32_t*>(&sm.As[e][g + 8][16 + t * 4]);
-        mma_s8(acc[e][0], af, bf[0]);
-        mma_s8(acc[e][1], af, bf[1]);
-      }
+    for (int k = 0; k < R; ++k) {
+      const uint64_t u = tile[(R * t + k) * TC + cc];
+      v[k] = FIRST && u >= q2 ? u - q2 : u;
     }
+    low_stages<LOGM, false>(v, rw, rs, q, q2);
+#pragma unroll
+    for (int k = 0; k < R; ++k) tile[(R * t + k) * TC + cc] = v[k];
     __syncthreads();
+#pragma unroll
+    for (int k = 0; k < R; ++k) v[k] = tile[(t + T * k) * TC + cc];
+    high_stages<false>(v, t, T, rw, rs, q, q2);
   }
+  // v[k] holds row a(k) of column cc: the network ends on labels 16*t + k
+  // forward and t + T*k inverse
+  const auto a = [&](int k) { return FWD ? R * t + k : t + T * k; };
 
-  // epilogue: recompose each accumulated coefficient
-  const uint64_t mask = (1ull << SPLIT_BITS) - 1;
-  const uint64_t q_lo = q & mask, q_hi = q >> SPLIT_BITS;
-  const uint64_t* tw_w = tw + inf[4];
-  const uint64_t* tw_s = tw_w + static_cast<int64_t>(m) * c;
+  if (!FIRST) {
+    uint64_t* out = y + base + c0 + cc;
 #pragma unroll
-  for (int nt = 0; nt < 2; ++nt) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + g + 8 * (i >> 1);
-      const int col = col0 + warp * 16 + nt * 8 + t * 2 + (i & 1);
-      if (col >= ncol) continue;
-      const int b = col / c, cc = col - b * c;
-      uint64_t s_lo = 0, hi_grp = 0;
-#pragma unroll
-      for (int e = 0; e < MAX_ND; ++e) {
-        if (e < nd) {
-          const uint64_t p = static_cast<uint32_t>(acc[e][nt][i]);
-          if (e < 4) s_lo += p << (7 * e);
-          else hi_grp += p << (7 * (e - 4));
-        }
-      }
-      // REDC by R = 2^28: (s_lo + mm*q) / R with q = q_hi*R + q_lo
-      const uint64_t mm = ((s_lo & mask) * qinv_r) & mask;
-      uint64_t u = ((s_lo + mm * q_lo) >> SPLIT_BITS) + mm * q_hi + hi_grp;  // < 4q
-      if (TW == SHOUP) {
-        const int64_t ti = static_cast<int64_t>(k) * c + cc;
-        u = ppq::shoup_lazy(u, tw_w[ti], tw_s[ti], q);                        // < 2q
-      } else if (TW == MONT) {
-        const int64_t ti = static_cast<int64_t>(k) * c + cc;
-        u = ppq::mont_lazy(u, tw_w[ti], q, static_cast<uint64_t>(inf[5]));    // < 2q
-      } else {
-        u = u >= 2 * q ? u - 2 * q : u;
-        u = u >= q ? u - q : u;
-      }
-      const int64_t base = static_cast<int64_t>(b) * L + limb;
-      if (STORE_T) y[(base * c + cc) * m + k] = u;
-      else y[(base * m + k) * c + cc] = u;
-    }
+    for (int k = 0; k < R; ++k)
+      out[static_cast<int64_t>(a(k)) * c] =
+          FWD ? (v[k] >= q ? v[k] - q : v[k]) : shoup(v[k], vec[a(k)], vec[M + a(k)], q);
+    return;
   }
+  const uint64_t qinv = MONT ? neg_inv64(q) : 0;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const int i = a(k) * TC + cc;
+    const uint64_t u = FWD ? v[k] : shoup_lazy(v[k], vec[a(k)], vec[M + a(k)], q);
+    v[k] = MONT ? mont_lazy(u, tw[i], q, qinv) : shoup_lazy(u, tw[i], tw[M * TC + i], q);
+  }
+  // The block's 16 columns are 16 adjacent rows of y, one run of 16*M int64:
+  // transpose through the tile, then every warp stores 512 contiguous bytes.
+  __syncthreads();   // every thread has read its values out of the tile
+#pragma unroll
+  for (int k = 0; k < R; ++k) tile[cc * LD + a(k)] = v[k];
+  __syncthreads();
+  uint64_t* out = y + base + static_cast<int64_t>(c0) * M;
+#pragma unroll
+  for (int i = 2 * tid; i < TC * M; i += 2 * M)
+    *reinterpret_cast<ulonglong2*>(out + i) =
+        *reinterpret_cast<const ulonglong2*>(tile + (i / M) * LD + i % M);
 }
 
-// kernel 1: stage 1 (twiddle, transposed store) or stage 2 (csubs, in place)
-__global__ void __launch_bounds__(THREADS)
+// kernel 1: stage 1 (Shoup twiddle, transposed store) or stage 2. At m=256
+// stage 1's shared memory allows 2 blocks an SM; the other kernels are held
+// to 3 (at most 85 registers a thread).
+template <int LOGM, bool FWD, bool FIRST>
+__global__ void __launch_bounds__(1 << LOGM, FIRST ? 2 : 3)
 mxu_ntt_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
-                     const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
-                     const uint64_t* __restrict__ tw, int B, int L, int m, int c,
-                     int twiddle) {
-  __shared__ __align__(16) Smem sm;
-  if (twiddle) stage_body<SHOUP, true>(sm, x, y, mats, info, tw, B, L, m, c);
-  else stage_body<CSUB, false>(sm, x, y, mats, info, tw, B, L, m, c);
+                     const uint64_t* __restrict__ tabs, const int64_t* __restrict__ info, int L,
+                     int c) {
+  extern __shared__ __align__(16) uint64_t smem[];
+  stage_body<LOGM, FWD, FIRST, false>(smem, x, y, tabs, info, L, c);
 }
 
 // kernel 1b: the same two stages with the Montgomery twiddle
-__global__ void __launch_bounds__(THREADS)
+template <int LOGM, bool FWD, bool FIRST>
+__global__ void __launch_bounds__(1 << LOGM, 3)
 mxu_ntt_stage_mont_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
-                          const int8_t* __restrict__ mats, const int64_t* __restrict__ info,
-                          const uint64_t* __restrict__ tw, int B, int L, int m, int c,
-                          int twiddle) {
-  __shared__ __align__(16) Smem sm;
-  if (twiddle) stage_body<MONT, true>(sm, x, y, mats, info, tw, B, L, m, c);
-  else stage_body<CSUB, false>(sm, x, y, mats, info, tw, B, L, m, c);
+                          const uint64_t* __restrict__ tabs, const int64_t* __restrict__ info,
+                          int L, int c) {
+  extern __shared__ __align__(16) uint64_t smem[];
+  stage_body<LOGM, FWD, FIRST, true>(smem, x, y, tabs, info, L, c);
 }
 
-dim3 grid_of(int B, int L, int m, int c) { return dim3((B * c + TN - 1) / TN, m / TK, L); }
+using Kernel = void (*)(const uint64_t*, uint64_t*, const uint64_t*, const int64_t*, int, int);
+
+template <int LOGM, bool FWD, bool FIRST, bool MONT>
+int launch(const void* x, void* y, const void* tabs, const void* info, int B, int L, int c,
+           cudaStream_t stream) {
+  constexpr int M = 1 << LOGM;
+  constexpr int TW = FIRST ? (MONT ? 1 : 2) : 0;
+  const size_t smem = ((1 + TW) * M * TC + 3 * M + (FIRST ? 2 * TC : 0)) * sizeof(uint64_t);
+  const Kernel kernel = MONT ? mxu_ntt_stage_mont_kernel<LOGM, FWD, FIRST>
+                             : mxu_ntt_stage_kernel<LOGM, FWD, FIRST>;
+  static const cudaError_t set = allow_smem(kernel, smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  kernel<<<dim3(c / TC, L, B), M, smem, stream>>>(
+      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
+      static_cast<const uint64_t*>(tabs), static_cast<const int64_t*>(info), L, c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int LOGM, bool MONT>
+int launch_m(const void* x, void* y, const void* tabs, const void* info, int B, int L, int c,
+             int forward, int first, cudaStream_t s) {
+  if (forward)
+    return first ? launch<LOGM, true, true, MONT>(x, y, tabs, info, B, L, c, s)
+                 : launch<LOGM, true, false, MONT>(x, y, tabs, info, B, L, c, s);
+  return first ? launch<LOGM, false, true, MONT>(x, y, tabs, info, B, L, c, s)
+               : launch<LOGM, false, false, MONT>(x, y, tabs, info, B, L, c, s);
+}
+
+template <bool MONT>
+int dispatch(const void* x, void* y, const void* tabs, const void* info, int B, int L, int m,
+             int c, int forward, int first, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (m) {
+    case 32: return launch_m<5, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
+    case 64: return launch_m<6, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
+    case 128: return launch_m<7, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
+    case 256: return launch_m<8, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 }  // namespace
 
-// x: (B, L, m, c) int64, contracted over the m rows.
-// y: (B, L, c, m) when twiddle (stage 1, transposed store), else (B, L, m, c).
-extern "C" int ppq_mxu_ntt_stage(const void* x, void* y, const void* mats, const void* info,
-                                 const void* tw, int B, int L, int m, int c, int twiddle,
+// x: (B, L, m, c) int64 transformed down its m rows (m in {32, 64, 128,
+// 256}, c a multiple of 16). first: stage 1, y (B, L, c, m), values < 2q;
+// else stage 2, y (B, L, m, c), canonical. info (L, 4): q and the offsets in
+// tabs of the stage's m-vector pair, Pease row 0 pair and (stage 1) the
+// (m, c) twiddle pair.
+extern "C" int ppq_mxu_ntt_stage(const void* x, void* y, const void* tabs, const void* info,
+                                 int B, int L, int m, int c, int forward, int first,
                                  void* stream) {
-  mxu_ntt_stage_kernel<<<grid_of(B, L, m, c), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
-      static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info),
-      static_cast<const uint64_t*>(tw), B, L, m, c, twiddle);
-  return static_cast<int>(cudaGetLastError());
+  return dispatch<false>(x, y, tabs, info, B, L, m, c, forward, first, stream);
 }
 
-// kernel 1b: as ppq_mxu_ntt_stage, with tw holding w*2^64 mod q tables.
-extern "C" int ppq_mxu_ntt_stage_mont(const void* x, void* y, const void* mats,
-                                      const void* info, const void* tw, int B, int L, int m,
-                                      int c, int twiddle, void* stream) {
-  mxu_ntt_stage_mont_kernel<<<grid_of(B, L, m, c), THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
-      static_cast<const int8_t*>(mats), static_cast<const int64_t*>(info),
-      static_cast<const uint64_t*>(tw), B, L, m, c, twiddle);
-  return static_cast<int>(cudaGetLastError());
+// kernel 1b: as ppq_mxu_ntt_stage, stage 1's twiddle offset pointing at the
+// limb's (m, c) table of w*2^64 mod q.
+extern "C" int ppq_mxu_ntt_stage_mont(const void* x, void* y, const void* tabs,
+                                      const void* info, int B, int L, int m, int c, int forward,
+                                      int first, void* stream) {
+  return dispatch<true>(x, y, tabs, info, B, L, m, c, forward, first, stream);
 }

@@ -24,15 +24,15 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppqsflhe_tpu_torch"
 SOURCES = ("mxu_ntt.cu", "streamed_ntt.cu", "fourstep_ntt.cu", "base_ext.cu", "ks_ip.cu",
            "overlap_probe.cu")
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "butterfly.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: pointers and the stream as void*, sizes as int
 _SIGNATURES = {
-    "ppq_mxu_ntt_stage": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ppq_mxu_ntt_stage_mont": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "ppq_mxu_ntt_stage": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "ppq_mxu_ntt_stage_mont": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ppq_fourstep_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ppq_streamed_stage_a": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ppq_streamed_stage_b": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

@@ -1,44 +1,47 @@
-"""Kernels 1 and 1b (the digit-matmul NTT) on the card, and the runners.
+"""Kernels 1 and 1b (the fused NTT route) on the card, and the runners.
 
 Twins of ``ppqsflhe_tpu.ops.pallas_mxu_ntt``: :class:`CudaMxuNtt` is
 ``PallasMxuNtt`` (``ntt``/``intt`` over a limb subset ``idx``) folded
 together with the ``FourStepNtt`` dispatch, and :class:`CudaMxuNttBig` is
-``PallasMxuNttBig``, the streamed two-pass variant:
+``PallasMxuNttBig``, the streamed two-pass variant. The TPU ran every stage
+as an int8 digit-matrix product; on this card all four kernels run the
+factors of those matrices as 64-bit Shoup butterflies
+(``csrc/butterfly.cuh``), over the tables of :class:`.streamed_ntt.StreamedChain`:
 
 - kernel 1 (:func:`ntt_stage`, two launches per transform, in
-  ``csrc/mxu_ntt.cu``): the fused route, the first stage storing transposed;
+  ``csrc/mxu_ntt.cu``): the fused route, the first stage storing transposed,
+  the second in place; plain versions :func:`stage1_plain`,
+  :func:`stage2_plain`;
 - kernel 1b (:func:`ntt_stage` with ``mont=True``): the same with the
   Montgomery twiddle, the route of a group whose Shoup tables did not fit
   the TPU kernel's VMEM but whose Montgomery ones did;
 - kernels 4 and 5 (:func:`.streamed_ntt.stage_a`, :func:`.streamed_ntt.stage_b`,
-  in ``csrc/streamed_ntt.cu``): the streamed pair, as Shoup butterflies,
-  stage A storing untransposed and stage B transforming along the last axis.
+  in ``csrc/streamed_ntt.cu``): the streamed pair, stage A storing
+  untransposed and stage B transforming along the last axis.
 
 :func:`route` reproduces the JAX runner's choice per digit-count group, so
 each limb runs through the kernels that its TPU counterpart ran. A CPU
-tensor goes through the plain torch versions (:mod:`.mxu_ntt`), a CUDA
-tensor through the kernels; outputs are canonical residues in the four-step
-kernel order, bit-equal either way.
+tensor goes through the plain torch versions, a CUDA tensor through the
+kernels; outputs are canonical residues in the four-step kernel order,
+bit-equal either way and to the digit-matmul plain transforms
+(:func:`.mxu_ntt.mxu_ntt_limb`).
 """
 
 from __future__ import annotations
 
 from typing import Sequence
 
-import numpy as np
 import torch
 
-from ..core.modarith import u64_to_i64
 from . import cuda_lib
 from .fourstep import kernel_to_std
-from .mxu_ntt import MxuNttTables, mxu_intt_limb, mxu_ntt_limb
-from .streamed_ntt import StreamedChain, stage_a, stage_a_plain, stage_b, stage_b_plain
+from .mxu_ntt import MxuNttTables
+from .streamed_ntt import (INFO, TILE, StreamedChain, first_stage, second_stage, stage_a,
+                           stage_a_plain, stage_b, stage_b_plain)
 
 launches = 0          # kernel 1 launches (two per transform) since the last reset
 launches_mont = 0     # kernel 1b launches (two per transform)
-INFO = 6              # per limb: matrix offset, nd, q, qinv_r, twiddle offset, qinv64
-SPLIT = 4             # the kernel's REDC recompose by 2^28
-MAX_ND = 9            # csrc/mxu_ntt.cu MAX_ND
+SIZES = (32, 64, 128, 256)   # the m kernels 1 and 1b take: N = 2^10 ... 2^16
 # the JAX runner's default scoped-VMEM budget for one fused grid cell
 # (PallasMxuNtt._vmem_budget with PPQSFLHE_FUSED_VMEM_KIB unset)
 FUSED_VMEM_BUDGET = 1024 * 12896
@@ -58,38 +61,48 @@ def route(n: int, nd: int) -> str:
     return "fused" if fits(4) else "fused_mont" if fits(2) else "big"
 
 
-def _check_stage(name, x, y, y_shape, mats, info, tw, m):
-    cuda_lib.require(x, f"{name} x")
-    cuda_lib.require(y, f"{name} y", y_shape)
-    cuda_lib.require(info, f"{name} info", (x.shape[1], INFO))
-    cuda_lib.require(tw, f"{name} twiddles")
-    tensors = [x, y, mats, info, tw]
-    if mats.dtype != torch.int8 or not mats.is_contiguous():
-        raise ValueError(f"{name} matrices must be a contiguous int8 tensor")
-    if len({t.device for t in tensors}) != 1:
-        raise ValueError(f"{name} tensors must share one device")
-    if m % 32:
-        raise ValueError(f"{name} kernel needs m % 32 == 0, got m={m}")
-    if MAX_ND * m * 127 * 127 >= 1 << 31:
-        raise ValueError(f"{name}: {MAX_ND} digits x m={m} overflow the int32 planes")
+def stage1_plain(x: torch.Tensor, tabs, forward: bool, mont: bool = False) -> torch.Tensor:
+    """Kernel 1's first stage (kernel 1b's with ``mont``): x (B, L, m, c)
+    int64, values < 4q, transformed down its m rows → (B, L, c, m), values
+    < 2q, stored transposed. ``tabs``: the L limbs'
+    :class:`.streamed_ntt.StreamedTables`."""
+    return torch.stack([first_stage(x[:, l], t, forward, mont=mont).transpose(-1, -2)
+                        for l, t in enumerate(tabs)], dim=1)
 
 
-def ntt_stage(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor, info: torch.Tensor,
-              tw: torch.Tensor, twiddle: bool, mont: bool = False) -> torch.Tensor:
-    """Kernel 1 (kernel 1b with ``mont``), one column stage. x: (B, L, m, c)
-    int64, contracted over m; y: (B, L, c, m) with ``twiddle`` (stage 1:
-    lazy Shoup twiddle, or Montgomery against w·2^64 mod q tables with
-    ``mont``; store transposed) else (B, L, m, c) (stage 2: canonical
-    residues)."""
+def stage2_plain(y: torch.Tensor, tabs, forward: bool) -> torch.Tensor:
+    """The second stage of kernels 1 and 1b: y (B, L, m, c), values < 2q,
+    transformed down its m rows → (B, L, m, c) canonical residues."""
+    return torch.stack([second_stage(y[:, l], t, forward) for l, t in enumerate(tabs)], dim=1)
+
+
+def ntt_stage(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Tensor,
+              forward: bool, first: bool, mont: bool = False) -> torch.Tensor:
+    """Kernel 1 (kernel 1b with ``mont``), one column stage: x (B, L, m, c)
+    int64 transformed down its m rows. ``first``: stage 1, twiddled (lazy
+    Shoup, or with ``mont`` lazy Montgomery against the w·2^64 mod q table)
+    and stored transposed to y (B, L, c, m), values < 2q; else stage 2, y
+    (B, L, m, c), canonical residues. ``info`` (L, 4): q and the stage's
+    table offsets in ``tabs`` (:meth:`.streamed_ntt.StreamedChain.device`)."""
     global launches, launches_mont
     B, L, m, c = x.shape
-    _check_stage("ntt", x, y, (B, L, c, m) if twiddle else (B, L, m, c), mats, info, tw, m)
+    if m not in SIZES or c % TILE:
+        raise ValueError(f"ntt kernel takes m in {SIZES} and whole {TILE}-column tiles, got "
+                         f"m={m}, c={c}")
+    cuda_lib.require(x, "ntt x")
+    cuda_lib.require(y, "ntt y", (B, L, c, m) if first else (B, L, m, c))
+    cuda_lib.require(tabs, "ntt tables")
+    cuda_lib.require(info, "ntt info", (L, INFO))
+    if len({t.device for t in (x, y, tabs, info)}) != 1:
+        raise ValueError("ntt tensors must share one device")
+    if (x.data_ptr() | y.data_ptr()) % 16:
+        raise ValueError("ntt x and y must be 16-byte aligned")
     lib = cuda_lib.library()
     name = "ppq_mxu_ntt_stage_mont" if mont else "ppq_mxu_ntt_stage"
     with torch.cuda.device(x.device):
         code = getattr(lib, name)(
-            x.data_ptr(), y.data_ptr(), mats.data_ptr(), info.data_ptr(),
-            tw.data_ptr(), B, L, m, c, int(twiddle), cuda_lib.stream_of(x))
+            x.data_ptr(), y.data_ptr(), tabs.data_ptr(), info.data_ptr(), B, L, m, c,
+            int(forward), int(first), cuda_lib.stream_of(x))
     if mont:
         launches_mont += 1
     else:
@@ -99,23 +112,18 @@ def ntt_stage(x: torch.Tensor, y: torch.Tensor, mats: torch.Tensor, info: torch.
 
 
 class MxuChainTables:
-    """A chain's per-limb tables and their upload to each device for the
-    fused route: the four stage matrices of each limb in one int8 buffer,
-    its twiddles in one int64 buffer (per direction the Shoup pair, w then
-    w_shoup, and the Montgomery table w·2^64 mod q, each row-major), and the
-    kernels' info rows per (limb subset, direction, twiddle kind). Only the
-    limbs the fused route has asked for are uploaded: a call naming a new
-    limb builds its matrices and re-uploads the union (so the offsets in the
-    info rows change), and a limb that only runs the streamed pair carries
-    none."""
-
-    _MATS = ("a1", "a2", "a2i", "a1i")
+    """A chain's per-limb tables: each limb's
+    :class:`.mxu_ntt.MxuNttTables` (whose digit matrices are built only when
+    a digit plain version asks for them; no kernel reads one) and the
+    butterfly tables of kernels 1, 1b, 4 and 5
+    (:class:`.streamed_ntt.StreamedChain`), uploaded per device for the
+    limbs asked for."""
 
     def __init__(self, n: int, moduli: Sequence[int], psis: Sequence[int]):
         self.n = n
         self.tabs = [MxuNttTables.build(n, int(q), int(p)) for q, p in zip(moduli, psis)]
         self.n1, self.n2 = self.tabs[0].n1, self.tabs[0].n2
-        self._dev: dict = {}
+        self.streamed = StreamedChain(self.tabs)
         self._pos: dict = {}
 
     def positions(self, ks, device) -> torch.Tensor:
@@ -125,60 +133,6 @@ class MxuChainTables:
         if key not in self._pos:
             self._pos[key] = torch.tensor(ks, device=device)
         return self._pos[key]
-
-    def device(self, device, sel, forward, mont=False):
-        """(matrices, twiddles, first-stage info, second-stage info) on
-        ``device`` for limbs ``sel``; the info rows are cached per limb
-        subset, direction and twiddle kind (``mont``: the first stage's
-        twiddle offset points at the Montgomery table)."""
-        key = str(device)
-        d = self._dev.get(key)
-        if d is None or not set(sel) <= d["limbs"]:
-            limbs = sorted(set(sel) | (d["limbs"] if d else set()))
-            for i in limbs:
-                t = self.tabs[i]
-                if t.plan.split != SPLIT or t.nd > MAX_ND:
-                    raise ValueError(f"CUDA NTT needs the split={SPLIT} REDC plan and at "
-                                     f"most {MAX_ND} digits (q={t.q})")
-            mats, mat_off, off = [], {}, 0
-            for i in limbs:
-                for name in self._MATS:
-                    a = self.tabs[i].stage_matrix(name).reshape(-1)
-                    mat_off[i, name] = off
-                    mats.append(a)
-                    off += a.size
-            tws, tw_off, off = [], {}, 0
-            for i in limbs:
-                t = self.tabs[i]
-                for fwd, (w, ws), wm in ((True, t.t1, t.t1m), (False, t.t1i, t.t1im)):
-                    tw_off[i, fwd, False], tw_off[i, fwd, True] = off, off + 2 * w.size
-                    tws += [w.reshape(-1), ws.reshape(-1), wm.reshape(-1)]
-                    off += 3 * w.size
-            d = self._dev[key] = dict(
-                mats=torch.as_tensor(np.concatenate(mats), device=device),
-                tw=torch.as_tensor(np.concatenate(tws).view(np.int64), device=device),
-                mat_off=mat_off, tw_off=tw_off, limbs=set(limbs), info={})
-        ikey = (tuple(sel), forward, mont)
-        if ikey not in d["info"]:
-            first, second = ("a1", "a2") if forward else ("a2i", "a1i")
-            rows = lambda name, with_tw: [
-                [d["mat_off"][i, name], self.tabs[i].nd, self.tabs[i].q,
-                 self.tabs[i].plan.qinv_r, d["tw_off"][i, forward, mont] if with_tw else 0,
-                 self.tabs[i].qinv64] for i in sel]
-            d["info"][ikey] = tuple(
-                torch.as_tensor(u64_to_i64(rows(name, tw)), device=device)
-                for name, tw in ((first, True), (second, False)))
-        return (d["mats"], d["tw"]) + d["info"][ikey]
-
-    def plain_mats(self, sel, name, device) -> torch.Tensor:
-        """The stage matrices of limbs ``sel`` stacked, int8 (L, nd·m, nd·m)."""
-        return torch.as_tensor(np.stack([self.tabs[i].stage_matrix(name) for i in sel]),
-                               device=device)
-
-    def twiddles(self, sel, forward):
-        """The twiddle (w, w_shoup) of limbs ``sel``, uint64 (L, m, cols)."""
-        pairs = [self.tabs[i].t1 if forward else self.tabs[i].t1i for i in sel]
-        return tuple(np.stack([p[j] for p in pairs]) for j in (0, 1))
 
 
 def _limb_subset(x, nlimbs, idx, n):
@@ -214,7 +168,7 @@ class CudaMxuNttBig:
     def __init__(self, tables: MxuChainTables):
         self.tables = tables
         self.n, self.n1, self.n2 = tables.n, tables.n1, tables.n2
-        self.streamed = StreamedChain(tables.tabs)
+        self.streamed = tables.streamed
 
     def ntt(self, x: torch.Tensor, idx=None) -> torch.Tensor:
         return self._run(x, True, idx)
@@ -274,18 +228,24 @@ class CudaMxuNtt:
     def fused(self, x: torch.Tensor, forward: bool, sel, mont: bool = False) -> torch.Tensor:
         """The fused route over limbs ``sel`` of the chain, whatever
         :func:`route` says: kernel 1 (kernel 1b with ``mont``) on the card,
-        :func:`.mxu_ntt.mxu_ntt_limb` per limb on the CPU."""
+        :meth:`fused_plain` on the CPU."""
         if not x.is_cuda:
-            fn = mxu_ntt_limb if forward else mxu_intt_limb
-            return torch.stack([fn(x[..., k, :], self.tabs[i], mont)
-                                for k, i in enumerate(sel)], dim=-2)
+            return self.fused_plain(x, forward, sel, mont)
         lead, L = x.shape[:-2], len(sel)
-        xb = x.reshape(-1, L, self.n).contiguous()
-        B = xb.shape[0]
-        mats, tw, info1, info2 = self.tables.device(x.device, sel, forward, mont)
         m1, m2 = (self.n1, self.n2) if forward else (self.n2, self.n1)
-        y = torch.empty((B, L, m2, m1), dtype=torch.int64, device=x.device)
-        ntt_stage(xb.view(B, L, m1, m2), y, mats, info1, tw, twiddle=True, mont=mont)
+        xb = x.reshape(-1, L, m1, m2).contiguous()
+        tabs, info1, info2 = self.tables.streamed.device(x.device, sel, forward, mont)
+        y = torch.empty((xb.shape[0], L, m2, m1), dtype=torch.int64, device=x.device)
+        ntt_stage(xb, y, tabs, info1, forward, first=True, mont=mont)
         z = torch.empty_like(y)
-        ntt_stage(y, z, mats, info2, tw, twiddle=False, mont=mont)
+        ntt_stage(y, z, tabs, info2, forward, first=False, mont=mont)
         return z.reshape(lead + (L, self.n))
+
+    def fused_plain(self, x: torch.Tensor, forward: bool, sel, mont: bool = False):
+        """The plain versions of kernel 1's (1b's) two stages over limbs
+        ``sel`` of the chain, on any device."""
+        lead, L = x.shape[:-2], len(sel)
+        m1, m2 = (self.n1, self.n2) if forward else (self.n2, self.n1)
+        tabs = [self.tables.streamed.limb(i) for i in sel]
+        y = stage1_plain(x.reshape(-1, L, m1, m2), tabs, forward, mont)
+        return stage2_plain(y, tabs, forward).reshape(lead + (L, self.n))

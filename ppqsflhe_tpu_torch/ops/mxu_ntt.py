@@ -27,11 +27,12 @@ to every four-step implementation of the JAX package.
 The table builders are the JAX package's host numpy code; the twiddles are
 kept as (w, ⌊w·2^64/q⌋) 64-bit pairs instead of u32 quads. The plain
 transforms (:func:`mxu_ntt_limb`, :func:`mxu_intt_limb`) run the int8
-product through ``torch._int_mm``; kernels 1 and 1b (:mod:`.cuda_mxu_ntt`)
-replace them on the card. :func:`stage_a` and :func:`stage_b` are the same
-transform cut at the transpose into two passes, the digit-matmul twins of
-``PallasMxuNttBig``'s stages; the port runs that pair as Shoup butterflies
-(:mod:`.streamed_ntt`), and these stay as the reference its tests hold it to.
+product through ``torch._int_mm``; :func:`stage_a` and :func:`stage_b` are
+the same transform cut at the transpose into two passes, the digit-matmul
+twins of ``PallasMxuNttBig``'s stages. The port runs both routes as Shoup
+butterflies (kernels 1, 1b: :mod:`.cuda_mxu_ntt`; 4, 5:
+:mod:`.streamed_ntt`), and these stay as the reference its tests hold them
+to: the canonical outputs are the same.
 """
 
 from __future__ import annotations
@@ -135,8 +136,7 @@ class MxuNttTables:
         t1i = _pow_table(psi, -2 * np.outer(j2, rev1), q)
 
         # recompose plan: split=4 is tried first so every limb of a chain
-        # shares one plan (the CUDA kernel assumes it, like the fused
-        # Pallas kernel did)
+        # shares one plan (the fused Pallas kernel assumed it)
         pmax = 127 * 127 * nd * max(n1, n2)
         if pmax >= 1 << 31:     # the int8 product accumulates in int32
             raise ValueError(f"{nd} digits x {max(n1, n2)} rows overflow int32 planes")

@@ -26,10 +26,13 @@ consumer, stage B, ends canonical.
 
 :func:`stage_a_plain` and :func:`stage_b_plain` are the plain versions (int64,
 any device), composed of :func:`.fourstep._col_gs_cg` / ``_col_ct_cg`` and
-the Shoup products of :mod:`..core.modarith`. :func:`stage_a` and
+the Shoup products of :mod:`..core.modarith`, one limb at a time through
+:func:`first_stage` and :func:`second_stage`, which the fused route's plain
+stages (kernels 1 and 1b, :mod:`.cuda_mxu_ntt`) share. :func:`stage_a` and
 :func:`stage_b` launch the kernels of ``csrc/streamed_ntt.cu``, which run the
 plain versions' butterfly graph (the same pairs, twiddles and lazy steps),
-so both stages are bit-equal to their plain versions.
+so both stages are bit-equal to their plain versions. :class:`StreamedChain`
+uploads the tables of all four kernels.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ import numpy as np
 import torch
 
 from ..core import primes
-from ..core.modarith import shoup_mul, shoup_mul_lazy, u64_to_i64
+from ..core.modarith import mont_mul_lazy, shoup_mul, shoup_mul_lazy, u64_to_i64
 from . import cuda_lib
 from .fourstep import _col_ct_cg, _col_gs_cg, _pair, _pease, _powers
 
@@ -68,12 +71,15 @@ class StreamedTables:
     pct1: tuple       # (S1, n1/2) of ω1^{-1}
     t1: tuple         # (n1, n2): ω^{rev1(r)·j2}, stage A forward's twiddle
     t1i: tuple        # (n2, n1): its inverse, stage A inverse's
+    t1m: tuple        # (t1's w·2^64 mod q,): the Montgomery twiddle (no companion)
+    t1im: tuple       # (t1i's w·2^64 mod q,)
+    qinv64: int       # -q^{-1} mod 2^64, the Montgomery twiddle's constant
     _dev: dict = field(default_factory=dict, repr=False)
 
     @staticmethod
     def build(tabs) -> "StreamedTables":
         """From a limb's :class:`.mxu_ntt.MxuNttTables`: its q, ψ (a
-        primitive 2N-th root of unity), shape and twiddle pairs."""
+        primitive 2N-th root of unity), shape and twiddles."""
         n, n1, n2, q, psi = tabs.n, tabs.n1, tabs.n2, tabs.q, tabs.psi
         ipsi = primes.mod_inverse(psi, q)
         psi1, ipsi1 = pow(psi, n2, q), pow(ipsi, n2, q)
@@ -86,10 +92,11 @@ class StreamedTables:
             itwist1=_pair(_powers(primes.mod_inverse(n, q), ipsi1, n1, q), q),
             pgs1=_pair(_pease(n1, om1, q), q), pgs2=_pair(_pease(n2, om2, q), q),
             pct2=_pair(_pease(n2, iom2, q), q), pct1=_pair(_pease(n1, iom1, q), q),
-            t1=tabs.t1, t1i=tabs.t1i)
+            t1=tabs.t1, t1i=tabs.t1i, t1m=(tabs.t1m,), t1im=(tabs.t1im,), qinv64=tabs.qinv64)
 
     def tensor(self, name: str, device) -> tuple:
-        """Table ``name`` as an int64 (value, companion) pair on ``device``."""
+        """Table ``name`` as an int64 (value, companion) pair on ``device``
+        (the Montgomery twiddles: a 1-tuple)."""
         key = (name, str(device))
         if key not in self._dev:
             self._dev[key] = tuple(torch.as_tensor(a.view(np.int64), device=device)
@@ -98,15 +105,18 @@ class StreamedTables:
 
     def blocks(self, forward: bool) -> dict:
         """The kernels' tables of one direction as flat uint64 blocks, each a
-        pair stored values then companions: stage A's and stage B's vector
-        (length m) and Pease row 0 (root^i, i < m/2: every later row repeats
-        its entries, W_s[i] = W_0[(i >> s) << s]), and stage A's twiddle."""
+        pair stored values then companions: the first stage's and the
+        second's vector (length m) and Pease row 0 (root^i, i < m/2: every
+        later row repeats its entries, W_s[i] = W_0[(i >> s) << s]), and the
+        first stage's twiddle, as a Shoup pair (``tw``: kernels 4 and 1) and
+        as the Montgomery table alone (``twm``: kernel 1b)."""
         flat = lambda pair: np.concatenate([a.reshape(-1) for a in pair])
-        vec_a, root_a, vec_b, root_b, tw = (
-            (self.twist1, self.pgs1, self.twist2, self.pgs2, self.t1) if forward else
-            (self.itwist2, self.pct2, self.itwist1, self.pct1, self.t1i))
+        vec_a, root_a, vec_b, root_b, tw, twm = (
+            (self.twist1, self.pgs1, self.twist2, self.pgs2, self.t1, self.t1m) if forward else
+            (self.itwist2, self.pct2, self.itwist1, self.pct1, self.t1i, self.t1im))
         return dict(vec_a=flat(vec_a), root_a=flat(tuple(a[0] for a in root_a)),
-                    vec_b=flat(vec_b), root_b=flat(tuple(a[0] for a in root_b)), tw=flat(tw))
+                    vec_b=flat(vec_b), root_b=flat(tuple(a[0] for a in root_b)), tw=flat(tw),
+                    twm=flat(twm))
 
 
 def _vec(t: StreamedTables, name: str, device):
@@ -114,40 +124,47 @@ def _vec(t: StreamedTables, name: str, device):
     return w[:, None], ws[:, None]
 
 
+def first_stage(y: torch.Tensor, t: StreamedTables, forward: bool, col0: int = 0,
+                mont: bool = False) -> torch.Tensor:
+    """One limb's first column stage down axis -2 of y (B, m, c), values
+    < 4q → (B, m, c), values < 2q: columns [col0, col0 + c) of the limb's
+    twiddle table, Shoup or, with ``mont``, Montgomery."""
+    dev, q, c = y.device, t.q, y.shape[-1]
+    if forward:
+        y = _col_gs_cg(shoup_mul_lazy(y, *_vec(t, "twist1", dev), q), t.tensor("pgs1", dev), q)
+    else:
+        y = _col_ct_cg(torch.where(y >= 2 * q, y - 2 * q, y), t.tensor("pct2", dev), q)
+        y = shoup_mul_lazy(y, *_vec(t, "itwist2", dev), q)
+    if mont:
+        (wm,) = t.tensor("t1m" if forward else "t1im", dev)
+        return mont_mul_lazy(y, wm[:, col0:col0 + c], q, int(u64_to_i64(t.qinv64)))
+    w, ws = t.tensor("t1" if forward else "t1i", dev)
+    return shoup_mul_lazy(y, w[:, col0:col0 + c], ws[:, col0:col0 + c], q)
+
+
+def second_stage(y: torch.Tensor, t: StreamedTables, forward: bool) -> torch.Tensor:
+    """One limb's second column stage down axis -2 of y (B, m, c), values
+    < 2q → (B, m, c) canonical residues."""
+    dev, q = y.device, t.q
+    if forward:
+        y = _col_gs_cg(shoup_mul_lazy(y, *_vec(t, "twist2", dev), q), t.tensor("pgs2", dev), q)
+        return torch.where(y >= q, y - q, y)
+    return shoup_mul(_col_ct_cg(y, t.tensor("pct1", dev), q), *_vec(t, "itwist1", dev), q)
+
+
 def stage_a_plain(x: torch.Tensor, tabs, forward: bool, col0: int = 0) -> torch.Tensor:
     """Stage A: x (B, L, m, c) int64, transformed down its m rows →
     (B, L, m, c), values < 2q, no transpose. x holds columns [col0, col0 + c)
     of each limb's twiddle table; ``tabs``: the L limbs' tables."""
-    dev, c = x.device, x.shape[-1]
-    outs = []
-    for l, t in enumerate(tabs):
-        q, y = t.q, x[:, l]
-        if forward:
-            y = _col_gs_cg(shoup_mul_lazy(y, *_vec(t, "twist1", dev), q), t.tensor("pgs1", dev), q)
-            w, ws = t.tensor("t1", dev)
-        else:
-            y = _col_ct_cg(torch.where(y >= 2 * q, y - 2 * q, y), t.tensor("pct2", dev), q)
-            y = shoup_mul_lazy(y, *_vec(t, "itwist2", dev), q)
-            w, ws = t.tensor("t1i", dev)
-        outs.append(shoup_mul_lazy(y, w[:, col0:col0 + c], ws[:, col0:col0 + c], q))
-    return torch.stack(outs, dim=1)
+    return torch.stack([first_stage(x[:, l], t, forward, col0) for l, t in enumerate(tabs)],
+                       dim=1)
 
 
 def stage_b_plain(t: torch.Tensor, tabs, forward: bool) -> torch.Tensor:
     """Stage B: t (B, L, rows, m) int64, values < 2q, transformed along its
     last axis → (B, L, m, rows) canonical residues."""
-    dev = t.device
-    outs = []
-    for l, tb in enumerate(tabs):
-        q, y = tb.q, t[:, l].transpose(-1, -2)
-        if forward:
-            y = _col_gs_cg(shoup_mul_lazy(y, *_vec(tb, "twist2", dev), q), tb.tensor("pgs2", dev),
-                           q)
-            y = torch.where(y >= q, y - q, y)
-        else:
-            y = shoup_mul(_col_ct_cg(y, tb.tensor("pct1", dev), q), *_vec(tb, "itwist1", dev), q)
-        outs.append(y)
-    return torch.stack(outs, dim=1)
+    return torch.stack([second_stage(t[:, l].transpose(-1, -2), tb, forward)
+                        for l, tb in enumerate(tabs)], dim=1)
 
 
 def _check(name, x, y, y_shape, tabs, info, m):
@@ -207,10 +224,12 @@ def stage_b(t: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Te
 
 
 class StreamedChain:
-    """The streamed pair's tables over a modulus chain: each limb's built on
-    first use from the chain's :class:`.mxu_ntt.MxuNttTables`, and
-    uploaded to a device for the limbs asked for so far (a call naming a new
-    limb re-uploads the union, so the offsets in the info rows change)."""
+    """The butterfly tables over a modulus chain, of the streamed pair and
+    the fused route alike (kernels 4, 5, 1 and 1b take one info-row layout):
+    each limb's built on first use from the chain's
+    :class:`.mxu_ntt.MxuNttTables`, and uploaded to a device for the limbs
+    asked for so far (a call naming a new limb re-uploads the union, so the
+    offsets in the info rows change)."""
 
     def __init__(self, tabs):
         self.mxu_tabs = tabs
@@ -222,9 +241,10 @@ class StreamedChain:
             self._limbs[i] = StreamedTables.build(self.mxu_tabs[i])
         return self._limbs[i]
 
-    def device(self, device, sel, forward: bool):
-        """(tables, stage A info, stage B info) on ``device`` for limbs
-        ``sel`` in one direction."""
+    def device(self, device, sel, forward: bool, mont: bool = False):
+        """(tables, first-stage info, second-stage info) on ``device`` for
+        limbs ``sel`` in one direction; with ``mont`` the first stage's
+        twiddle offset points at the Montgomery table (kernel 1b)."""
         key = str(device)
         d = self._dev.get(key)
         if d is None or not set(sel) <= d["limbs"]:
@@ -239,12 +259,13 @@ class StreamedChain:
             d = self._dev[key] = dict(
                 tabs=torch.as_tensor(np.concatenate(parts).view(np.int64), device=device),
                 offs=offs, limbs=set(limbs), info={})
-        ikey = (tuple(sel), forward)
+        ikey = (tuple(sel), forward, mont)
         if ikey not in d["info"]:
             o = d["offs"]
-            rows = lambda stage, tw: [[self.mxu_tabs[i].q, o[i, forward, "vec_" + stage],
-                                       o[i, forward, "root_" + stage],
-                                       o[i, forward, "tw"] if tw else 0] for i in sel]
+            tw = "twm" if mont else "tw"
+            rows = lambda stage, first: [[self.mxu_tabs[i].q, o[i, forward, "vec_" + stage],
+                                          o[i, forward, "root_" + stage],
+                                          o[i, forward, tw] if first else 0] for i in sel]
             d["info"][ikey] = tuple(torch.as_tensor(u64_to_i64(rows(s, s == "a")), device=device)
                                     for s in ("a", "b"))
         return (d["tabs"],) + d["info"][ikey]

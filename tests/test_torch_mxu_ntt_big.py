@@ -42,6 +42,17 @@ def _split(x):
             jnp.asarray((x >> np.uint64(32)).astype(np.uint32)))
 
 
+def _plain_mats(tables, sel, name):
+    """The digit stage matrices of limbs ``sel`` stacked, int8 (L, nd·m, nd·m)."""
+    return torch.as_tensor(np.stack([tables.tabs[i].stage_matrix(name) for i in sel]))
+
+
+def _twiddles(tables, sel, forward):
+    """The twiddle (w, w_shoup) of limbs ``sel``, uint64 (L, m, cols)."""
+    pairs = [tables.tabs[i].t1 if forward else tables.tabs[i].t1i for i in sel]
+    return tuple(np.stack([p[j] for p in pairs]) for j in (0, 1))
+
+
 @pytest.fixture(scope="module")
 def big512():
     n = 512                                        # n1 = 16, n2 = 32
@@ -68,7 +79,7 @@ def test_plain_stages_match_pallas_big_interpret(big512, idxs, forward, block):
     x = np.stack([rng.integers(0, 4 * moduli[i], size=(3,) + shape_in, dtype=np.uint64)
                   for i in idxs], axis=1)
     tquad = [a[sel] for a in (pm._t1 if forward else pm._t1i)]
-    tw = tables.twiddles(idxs, forward)
+    tw = _twiddles(tables, idxs, forward)
     if block is not None:
         c0, c1 = block * shape_in[1] // 2, (block + 1) * shape_in[1] // 2
         x = np.ascontiguousarray(x[..., c0:c1])
@@ -80,7 +91,7 @@ def test_plain_stages_match_pallas_big_interpret(big512, idxs, forward, block):
                          [jnp.asarray(a) for a in tquad], consts_a, shape_in[0], nd, True)
     want_a = _join(lo, hi)
     tabs = [tables.tabs[i] for i in idxs]
-    got_a = stage_a(_t(x), tables.plain_mats(idxs, m_a[0], "cpu"), tw, tabs)
+    got_a = stage_a(_t(x), _plain_mats(tables, idxs, m_a[0]), tw, tabs)
     np.testing.assert_array_equal(_u(got_a), want_a)
     assert (want_a < 2 * np.array(moduli, np.uint64)[sel][None, :, None, None]).all()
     if block is not None:
@@ -90,7 +101,7 @@ def test_plain_stages_match_pallas_big_interpret(big512, idxs, forward, block):
                 jnp.asarray(pm._qinv[sel]))
     olo, ohi = pm._stage_b(lo, hi, pm._group_mats(m_a[1], idxs), consts_b, shape_in[1], nd,
                            True)
-    got_b = stage_b(_t(want_a), tables.plain_mats(idxs, m_a[1], "cpu"), tabs)
+    got_b = stage_b(_t(want_a), _plain_mats(tables, idxs, m_a[1]), tabs)
     assert got_b.shape == (3, len(idxs), shape_in[1], shape_in[0])
     np.testing.assert_array_equal(_u(got_b), _join(olo, ohi))
 

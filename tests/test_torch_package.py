@@ -113,8 +113,8 @@ def test_kernel_wrappers_reject_cpu_tensors():
 
     x = torch.zeros((1, 1, 32, 32), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
-        cuda_mxu_ntt.ntt_stage(x, x, torch.zeros(1, dtype=torch.int8),
-                               torch.zeros((1, 5), dtype=torch.int64), x, twiddle=False)
+        cuda_mxu_ntt.ntt_stage(x, x, torch.zeros(8, dtype=torch.int64),
+                               torch.zeros((1, 4), dtype=torch.int64), True, first=False)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_ext.base_extend(torch.zeros((1, 1, 8), dtype=torch.int64),
                              torch.zeros(10, dtype=torch.int64), 1)

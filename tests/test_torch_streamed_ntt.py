@@ -14,7 +14,7 @@ from ppqsflhe_tpu.ops.pallas_mxu_ntt import PallasMxuNttBig
 from ppqsflhe_tpu_torch.core import primes
 from ppqsflhe_tpu_torch.core.modarith import shoup_mul, shoup_mul_lazy
 from ppqsflhe_tpu_torch.ops import cuda_lib, streamed_ntt
-from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import CudaMxuNttBig, MxuChainTables
+from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import CudaMxuNtt, CudaMxuNttBig, MxuChainTables
 from ppqsflhe_tpu_torch.ops.cuda_ntt import CudaFourStepNtt
 from ppqsflhe_tpu_torch.ops.streamed_ntt import StreamedChain, stage_a_plain, stage_b_plain
 
@@ -291,22 +291,34 @@ def test_streamed_launchers_reject_cpu_tensors_and_bad_blocks():
 
 
 def test_fused_tables_upload_only_the_limbs_asked_for():
-    """MxuChainTables builds and uploads a limb's digit matrices only when the
-    fused route asks for it; a new limb grows the upload, and the info rows
-    point at each limb's own matrices and twiddles."""
+    """The fused route (kernels 1 and 1b) builds and uploads no digit stage
+    matrix: it takes the streamed pair's butterfly tables, uploaded only for
+    the limbs asked for; a new limb grows the upload, and each limb's info
+    rows point at its own vectors, Pease rows and twiddle (with ``mont``, its
+    own Montgomery table)."""
     n = 512
     moduli = _chain(n)
-    tables = MxuChainTables(n, moduli, [primes.root_of_unity(2 * n, q) for q in moduli])
+    psis = [primes.root_of_unity(2 * n, q) for q in moduli]
+    runner = CudaMxuNtt(n, moduli, psis)
+    tables, chain = runner.tables, runner.tables.streamed
+    x = _t(_inputs(moduli, [1, 3], (n,), seed=5))
+    for fwd, mont in ((True, False), (False, True)):
+        runner.fused(x, fwd, [1, 3], mont)
     assert all(not t._mats for t in tables.tabs)
-    mats, tw, info1, _ = tables.device("cpu", [1], True)
-    assert [bool(t._mats) for t in tables.tabs] == [False, True, False, False]
-    assert mats.numel() == sum(tables.tabs[1].stage_matrix(nm).size for nm in tables._MATS)
-    mats, tw, info1, info2 = tables.device("cpu", [3, 1], False, mont=True)
-    assert [bool(t._mats) for t in tables.tabs] == [False, True, False, True]
+    assert "cpu" not in chain._dev
+    chain.device("cpu", [1], True)
+    assert chain._dev["cpu"]["limbs"] == {1}
+    buf, info1, info2 = chain.device("cpu", [3, 1], False, mont=True)
+    assert chain._dev["cpu"]["limbs"] == {1, 3}
+    assert buf.numel() == sum(a.size for i in (1, 3) for fwd in (True, False)
+                              for a in chain.limb(i).blocks(fwd).values())
     for row1, row2, i in zip(info1.tolist(), info2.tolist(), (3, 1)):
-        t = tables.tabs[i]
-        for row, name in ((row1, "a2i"), (row2, "a1i")):
-            a = t.stage_matrix(name)
-            assert torch.equal(mats[row[0]:row[0] + a.size], torch.from_numpy(a.reshape(-1)))
-        assert torch.equal(tw[row1[4]:row1[4] + t.t1im.size],
-                           torch.from_numpy(t.t1im.reshape(-1).view(np.int64)))
+        t = chain.limb(i)
+        blocks = t.blocks(False)
+        assert row1[0] == row2[0] == t.q and row2[3] == 0
+        for row, names in ((row1, ("vec_a", "root_a", "twm")), (row2, ("vec_b", "root_b"))):
+            for off, name in zip(row[1:], names):
+                a = blocks[name]
+                assert torch.equal(buf[off:off + a.size], torch.from_numpy(a.view(np.int64)))
+        np.testing.assert_array_equal(blocks["twm"], tables.tabs[i].t1im.reshape(-1))
+    assert all(not t._mats for t in tables.tabs)
