@@ -18,7 +18,8 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   4+5 and 1b at 2^16) and the butterfly, kernel 6;
 - **the server round at N=2^16** (``ring_dim: 65536`` with the reference's
   other CC settings, 8192 slots), both schedules: kernel 1b on the 40-bit
-  limbs, kernels 4+5 on the 60-bit ones, 2, and 3 at full level; then the
+  limbs, kernels 4+5 on the 60-bit ones, 2 and 3 (at every digit count, as
+  in every round); then the
   device memory of the context's NTT tables, and the big route's transforms
   on the 60-bit limbs bit-equal to kernel 6's and kernel 1b's;
 - **the butterfly configuration** of the N=2^14 round (``ntt_impl="pallas"``:
@@ -233,6 +234,39 @@ def butterfly_work(L, B, n1, n2):
     return L * (16 * B * n1 * n2 + 32 * n1 * n2 + stages), 0
 
 
+def fourstep_pass_work(L, B, m, c, tables):
+    """One kernel-6 launch over an (m, c) block of B polys per limb: x in and
+    y out once, ``tables`` (m, c) (value, companion) pairs and Pease row 0."""
+    return L * (16 * B * m * c + 16 * tables * m * c + 8 * m), 0
+
+
+def fourstep_pass_checks(cases, bf, x, tag):
+    """Kernel 6 one launch at a time on x (B, L, N) over all L limbs: pass 1
+    then pass 2 of each direction against their plain versions."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ops import cuda_ntt
+
+    B, L = x.shape[:2]
+    sel = list(range(L))
+    for fwd in (True, False):
+        m1, m2 = (bf.n1, bf.n2) if fwd else (bf.n2, bf.n1)
+        xb = x.reshape(B, L, m1, m2)
+        tabs, info1, info2 = bf.device(x.device, sel, fwd)
+        y = torch.empty((B, L, m2, m1), dtype=torch.int64, device=x.device)
+        z = torch.empty_like(y)
+        name = (f"fourstep_ntt pass %d ({'forward' if fwd else 'inverse'}, m=%d, limbs {sel} x "
+                f"{B} polys, {tag})")
+        run1 = lambda: cuda_ntt.fourstep_pass(xb, y, tabs, info1, fwd, True)
+        plain1 = lambda: bf.plain_pass(xb, fwd, True, sel)
+        cases.check(name % (1, m1), "fourstep_ntt", SRC_FS, K6, run1().clone(), plain1(), run1,
+                    plain1, 5, fourstep_pass_work(L, B, m1, m2, 2 if fwd else 1))
+        run2 = lambda: cuda_ntt.fourstep_pass(y, z, tabs, info2, fwd, False)
+        plain2 = lambda: bf.plain_pass(y, fwd, False, sel)
+        cases.check(name % (2, m2), "fourstep_ntt", SRC_FS, K6, run2().clone(), plain2(), run2,
+                    plain2, 5, fourstep_pass_work(L, B, m2, m1, 0 if fwd else 1))
+
+
 def ext_work(B, ls, ld, n):
     return 8 * (B * n * (ls + ld) + 4 * ls + 3 * ld + 2 * ls * ld), 0
 
@@ -445,7 +479,57 @@ def round_kernel_checks(cases, sch, rk_mont, gen, device):
                 ks_inner_product(*args), ks_inner_product_plain(*args),
                 lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 50,
                 ks_work(N_CTS, nd, len(limbs), n))
+    ks_one_digit_checks(cases, sch, rk_mont, gen, device)
+    ext_generic_checks(cases, n, gen, device)
     torch.cuda.synchronize()
+
+
+def ks_one_digit_checks(cases, sch, rk_mont, gen, device):
+    """Kernel 3 at the lazy-4 schedule's one-digit shapes — nd=1 over the 27
+    c1 polys at l=2 (LK=4) and l=1 (LK=3) — against its plain version, and
+    the ``[A/B ks nd=1]`` line: kernel against plain, device and wall (the
+    two cases' own timings)."""
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    ctx, n = sch.ctx, sch.params.n
+    tag = f"N=2^{n.bit_length() - 1}"
+    parts = []
+    for l in (2, 1):
+        limbs = tuple(ctx.q_idx(l)) + ctx.p_idx()
+        q, qinv, _ = ctx.limb_consts(limbs, device)
+        sel = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+        dig = rand_residues([ctx.moduli_qp[i] for i in limbs], (N_CTS, 1), n, gen, device)
+        args = (dig, rk_mont.data, sel, q, qinv)
+        run, plain = lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args)
+        cases.check(f"ks_inner_product (nd=1, LK={len(limbs)}, {N_CTS} polys, l={l}, {tag})",
+                    "ks_inner_product", SRC_KS, K3, run(), plain(), run, plain, 20,
+                    ks_work(N_CTS, 1, len(limbs), n))
+        r = cases.rows[-1]
+        parts.append(f"l={l} (LK={len(limbs)}): kernel 3 {show_us(r['ms'])}, plain "
+                     f"{show_us(r['plain_ms'])} ({r['timing']}); wall "
+                     f"{r['wall_ms'] * 1e3:.1f} / {r['plain_wall_ms'] * 1e3:.1f} us")
+    print(f"[A/B ks nd=1] {tag}, {N_CTS} polys, bit-equal: " + "; ".join(parts)
+          + f" ({cases.card})")
+
+
+def ext_generic_checks(cases, n, gen, device):
+    """Kernel 2's generic instance (shapes without an unrolled one: 4 -> 2
+    limbs, and 3 -> 10 in two launches, 3 -> 8 generic then 3 -> 2) on 50-bit
+    moduli, 27 polys."""
+    from ppqsflhe_tpu_torch.core import primes
+    from ppqsflhe_tpu_torch.core.rns import BaseExtender
+    from ppqsflhe_tpu_torch.ops import cuda_ext
+
+    moduli = primes.prime_chain(50, 13, 2 * n)
+    pre = [primes.mod_inverse(7 + i, q) for i, q in enumerate(moduli[:4])]
+    for ls, ld in ((4, 2), (3, 10)):
+        ext = BaseExtender(moduli[:ls], moduli[ls:ls + ld])
+        xe = rand_residues(moduli[:ls], (N_CTS,), n, gen, device)
+        cases.check(f"base_extend (generic, {ls}->{ld} limbs, pre, {N_CTS} polys, "
+                    f"N=2^{n.bit_length() - 1})", "base_extend", SRC_EXT, K2,
+                    cuda_ext.fused_extend(xe, ext, pre[:ls]), ext.extend(xe, pre[:ls]),
+                    lambda: cuda_ext.fused_extend(xe, ext, pre[:ls]),
+                    lambda: ext.extend(xe, pre[:ls]), 20, ext_work(N_CTS, ls, ld, n))
 
 
 def max_err(sch, sk, cts, want):
@@ -572,8 +656,8 @@ def round_phase(card, device, profile_on):
     w = round_world(N_ROUND, device)
     cases = KernelCases(card)
     round_kernel_checks(cases, w.sch, w.rk12, w.gen, device)
-    outs, launches = drive_round("round", w.sch, w, {
-        4: ("mxu_ntt", "base_extend"), 0: ("mxu_ntt", "base_extend", "ks_inner_product")})
+    need = ("mxu_ntt", "base_extend", "ks_inner_product")
+    outs, launches = drive_round("round", w.sch, w, {4: need, 0: need})
     time_round("round", w.sch, w, card, profile_on)
     return cases.take_launches(launches), w, outs
 
@@ -849,8 +933,9 @@ def ntt_chain(run, x, steps):
 
 def ntt_kernel_checks(cases, n, impls, x, card):
     """Kernel 6 (and 1b at 2^16) against the plain versions on the phase's
-    inputs, with a limb subset; kernels 1 and 1b stage by stage on every
-    limb (m = 128 at 2^14, 256 at 2^16); the A/B lines."""
+    inputs, with a limb subset; kernels 1 and 1b stage by stage and kernel 6
+    pass by pass on every limb (m = 128 at 2^14, 256 at 2^16); the A/B
+    lines."""
     from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import route
 
     mx, bf = impls["digit-matmul"], impls["butterfly"]
@@ -877,6 +962,7 @@ def ntt_kernel_checks(cases, n, impls, x, card):
                     run, lambda: mx.fused(xs, fwd, mont), ("kernel 1b (Montgomery twiddle)",
                                                            "kernel 1 (Shoup twiddle)"), card)
     fused_stage_checks(cases, mx, x, tag)
+    fourstep_pass_checks(cases, bf, x, tag)
     for fwd in (True, False):
         name = "ntt" if fwd else "intt"
         ab_line(f"{name}, limbs 0-{L - 1} x {B} polys, {tag}",
@@ -1038,6 +1124,7 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
                 "ks_inner_product", SRC_KS, K3, ks_inner_product(*args),
                 ks_inner_product_plain(*args), lambda: ks_inner_product(*args),
                 lambda: ks_inner_product_plain(*args), 10, ks_work(N_CTS, nd, len(limbs), n))
+    ks_one_digit_checks(cases, sch, rk_mont, gen, device)
     torch.cuda.synchronize()
 
 
@@ -1094,9 +1181,9 @@ def round16_phase(card, device, profile_on):
     w = round_world(N_BIG, device, slots=SLOTS)
     cases = KernelCases(card)
     round16_kernel_checks(cases, w.sch, w.rk12, w.gen, device)
-    ntt_kernels = ("mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b", "base_extend")
-    _, launches = drive_round("round N=2^16", w.sch, w, {
-        4: ntt_kernels, 0: ntt_kernels + ("ks_inner_product",)})
+    need = ("mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b", "base_extend",
+            "ks_inner_product")
+    _, launches = drive_round("round N=2^16", w.sch, w, {4: need, 0: need})
     time_round("round N=2^16", w.sch, w, card, profile_on)
     mib = lambda v: (v - base) / 2 ** 20
     fntt = w.sch.ctx.fntt
@@ -1150,9 +1237,9 @@ def butterfly_phase(card, device, w, default_outs, profile_on):
     torch.cuda.synchronize()
 
     mxu_route = ("mxu_ntt", "mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b")
-    outs, launches = drive_round("butterfly round", sch, w, {
-        4: ("fourstep_ntt", "base_extend"),
-        0: ("fourstep_ntt", "base_extend", "ks_inner_product")}, absent=mxu_route)
+    need = ("fourstep_ntt", "base_extend", "ks_inner_product")
+    outs, launches = drive_round("butterfly round", sch, w, {4: need, 0: need},
+                                 absent=mxu_route)
     for lazy in (4, 0):
         same = all(torch.equal(a.data, b.data) for a, b in zip(outs[lazy], default_outs[lazy]))
         print(f"[butterfly round lazy={lazy}] bit-equal to the default round: {same}")

@@ -16,9 +16,11 @@ Kernel routing follows the tensor's device: the NTTs go through
 ``ctx.ntt``/``ctx.intt`` (kernel 1, or kernels 4 and 5 for the limbs that
 the JAX runner streams: the 60-bit limbs at N ≥ 2^15), the base extensions
 through :func:`..ops.cuda_ext.fused_extend` (kernel 2), and the KSK inner product
-through :func:`..ops.cuda_ks.ks_inner_product` (kernel 3) when there are two
-or more digits — the JAX package's gate (``ppqsflhe_tpu/ckks/eval.py:274``);
-one digit runs its plain torch version on every device.
+through :func:`..ops.cuda_ks.ks_inner_product` (kernel 3) at every digit
+count. The JAX package sends one digit to XLA instead
+(``ppqsflhe_tpu/ckks/eval.py:274``), which fused it into its neighbours on
+the TPU; here the plain version of one digit is a string of int64 torch
+launches, so the kernel takes it too (same residues).
 """
 
 from __future__ import annotations
@@ -34,7 +36,7 @@ from ..core.modarith import (modadd, modmul, modneg, modsub, mont_mul, shoup_mul
                              shoup_mul_wide)
 from ..core.ntt import bit_reverse_indices
 from ..ops.cuda_ext import fused_extend
-from ..ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+from ..ops.cuda_ks import ks_inner_product
 from .params import CkksContext
 from .types import Ciphertext, KeySwitchKey, PublicKey, SecretKey
 
@@ -181,8 +183,7 @@ def keyswitch_ip(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int):
     dev = digits[0].device
     q, qinv, _ = ctx.limb_consts(sel_ext, dev)
     sel = ctx.consts(("limb_map", sel_ext), lambda: sel_ext, dev)
-    fn = ks_inner_product if len(digits) >= 2 else ks_inner_product_plain
-    acc = fn(torch.stack(digits, dim=-3), ksk.data, sel, q, qinv)
+    acc = ks_inner_product(torch.stack(digits, dim=-3), ksk.data, sel, q, qinv)
     return acc[..., 0, :, :], acc[..., 1, :, :]
 
 

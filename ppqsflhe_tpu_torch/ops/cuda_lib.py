@@ -29,14 +29,15 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: pointers and the stream as void*, sizes as int
+# C signatures: pointers and the stream as void*, sizes as int; kernel 2 takes its
+# constants as one ExtParams struct (ops/cuda_ext.py), by value
 _SIGNATURES = {
     "ppq_mxu_ntt_stage": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ppq_mxu_ntt_stage_mont": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ppq_fourstep_pass": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "ppq_streamed_stage_a": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     "ppq_streamed_stage_b": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "ppq_base_extend": [_P, _P, _P, _I, _I, _I, _I, _P],
+    "ppq_base_extend": [_P, _P, "ExtParams", _I, _I, _I, _I, _P],
     "ppq_ks_inner_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ppq_overlap_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
@@ -91,10 +92,12 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
+        from .cuda_ext import ExtParams
+
         lib = ctypes.CDLL(str(build()))
         for name, args in _SIGNATURES.items():
             fn = getattr(lib, name)
-            fn.argtypes = args
+            fn.argtypes = [ExtParams if a == "ExtParams" else a for a in args]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -27,7 +27,8 @@ import torch
 from ..core.modarith import u64_to_i64
 from . import cuda_lib
 from .cuda_mxu_ntt import CudaMxuNtt, _limb_subset
-from .fourstep import FourStepTables, intt_body_cg, kernel_to_std, ntt_body_cg
+from .fourstep import (FourStepTables, intt_body_cg, intt_pass1, intt_pass2, kernel_to_std,
+                       ntt_body_cg, ntt_pass1, ntt_pass2)
 
 MXU, BUTTERFLY = "pallas_mxu", "pallas"     # named by their JAX counterparts
 # every four-step ntt_impl of the JAX package → the runner that gives its
@@ -35,8 +36,8 @@ MXU, BUTTERFLY = "pallas_mxu", "pallas"     # named by their JAX counterparts
 RUNNER = {"xla": MXU, "mxu": MXU, MXU: MXU, BUTTERFLY: BUTTERFLY}
 launches = 0          # kernel 6 launches (two per transform) since the last reset
 INFO = 4              # per limb and pass: q, pre-, post- and stage-table offsets
-TILE = 16             # csrc/fourstep_ntt.cu TC: columns per block
-MAX_M = 256           # the two tile buffers of m = 256 rows take 68 KB of shared memory
+TILE = 16             # csrc/butterfly.cuh TC: columns per block
+SIZES = (32, 64, 128, 256)   # m the kernel takes: 16 rows a thread, ≤ 98 KB of shared memory
 
 
 def fourstep_pass(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Tensor,
@@ -46,18 +47,21 @@ def fourstep_pass(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: to
     twiddle, stored transposed into y (B, L, c, m); else the second
     transform's stages and the csub (forward) or strict itwist (inverse),
     y (B, L, m, c). ``info`` (L, 4): q and the pass's table offsets in
-    ``tabs``."""
+    ``tabs``. Raises, before any build or launch, on m outside
+    :data:`SIZES`, on a partial 16-column tile and on a CPU tensor."""
     global launches
     B, L, m, c = x.shape
+    if m not in SIZES or c % TILE:
+        raise ValueError(f"fourstep kernel takes m in {SIZES} and whole {TILE}-column tiles, "
+                         f"got m={m}, c={c}")
     cuda_lib.require(x, "fourstep x")
     cuda_lib.require(y, "fourstep y", (B, L, c, m) if first else (B, L, m, c))
     cuda_lib.require(tabs, "fourstep tables")
     cuda_lib.require(info, "fourstep info", (L, INFO))
     if len({t.device for t in (x, y, tabs, info)}) != 1:
         raise ValueError("fourstep tensors must share one device")
-    if m & (m - 1) or not 2 <= m <= MAX_M or c % TILE:
-        raise ValueError(f"fourstep kernel needs m a power of two in [2, {MAX_M}] and "
-                         f"c % {TILE} == 0, got m={m}, c={c}")
+    if (x.data_ptr() | y.data_ptr()) % 16:
+        raise ValueError("fourstep x and y must be 16-byte aligned")
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):
         code = lib.ppq_fourstep_pass(x.data_ptr(), y.data_ptr(), tabs.data_ptr(),
@@ -94,6 +98,14 @@ class CudaFourStepNtt:
         fn = ntt_body_cg if forward else intt_body_cg
         return torch.stack([fn(x[..., k, :].reshape(lead + shape), self.tabs[i])
                             .reshape(lead + (self.n,)) for k, i in enumerate(sel)], dim=-2)
+
+    def plain_pass(self, x: torch.Tensor, forward: bool, first: bool, sel) -> torch.Tensor:
+        """The plain version of one kernel-6 launch over limbs ``sel``: x
+        (B, L, m, c) → (B, L, c, m) for the first pass, (B, L, m, c) for the
+        second."""
+        fn = {(True, True): ntt_pass1, (True, False): ntt_pass2,
+              (False, True): intt_pass1, (False, False): intt_pass2}[forward, first]
+        return torch.stack([fn(x[:, k], self.tabs[i]) for k, i in enumerate(sel)], dim=1)
 
     def _run(self, x, forward, idx):
         sel = _limb_subset(x, len(self.tabs), idx, self.n)

@@ -22,7 +22,8 @@ are the ``u64`` twins of the JAX ``FourStepTables.build``, (value,
 :func:`ntt_body_cg` and
 :func:`intt_body_cg` are the plain torch transforms (int64, any device);
 kernel 6 (``ops/cuda_ntt.py``, ``csrc/fourstep_ntt.cu``) gives the same bits
-on the card.
+on the card, in two launches whose plain versions are :func:`ntt_pass1` /
+:func:`ntt_pass2` and :func:`intt_pass1` / :func:`intt_pass2`.
 """
 
 from __future__ import annotations
@@ -158,23 +159,47 @@ def _col_ct_cg(x: torch.Tensor, tab, q: int) -> torch.Tensor:
     return x
 
 
+def ntt_pass1(x: torch.Tensor, tabs: FourStepTables) -> torch.Tensor:
+    """Forward, kernel 6's first launch: int64 (..., n1, n2) natural-order
+    coefficients (values < 4q) → twist, n1-point stages, lazy twiddle,
+    transposed: (..., n2, n1), values < 2q."""
+    q, dev = tabs.q, x.device
+    x = shoup_mul_lazy(x, *tabs.tensor("twist", dev), q)
+    x = _col_gs_cg(x, tabs.tensor("pgs1", dev), q)
+    return shoup_mul_lazy(x, *tabs.tensor("twiddle", dev), q).transpose(-1, -2)
+
+
+def ntt_pass2(x: torch.Tensor, tabs: FourStepTables) -> torch.Tensor:
+    """Forward, the second launch: n2-point stages and a csub, (..., n2, n1)
+    canonical evaluations in kernel order."""
+    x = _col_gs_cg(x, tabs.tensor("pgs2", x.device), tabs.q)
+    return torch.where(x >= tabs.q, x - tabs.q, x)
+
+
+def intt_pass1(x: torch.Tensor, tabs: FourStepTables) -> torch.Tensor:
+    """Inverse, the first launch: (..., n2, n1) kernel-order evaluations
+    (values < 2q) → inverse n2-point stages, transposed, lazy inverse
+    twiddle: (..., n1, n2), values < 2q."""
+    q, dev = tabs.q, x.device
+    x = _col_ct_cg(x, tabs.tensor("pct2", dev), q).transpose(-1, -2)
+    return shoup_mul_lazy(x, *tabs.tensor("itwiddle", dev), q)
+
+
+def intt_pass2(x: torch.Tensor, tabs: FourStepTables) -> torch.Tensor:
+    """Inverse, the second launch: inverse n1-point stages and the strict
+    itwist (N^{-1} folded in), (..., n1, n2) coefficients in [0, q)."""
+    x = _col_ct_cg(x, tabs.tensor("pct1", x.device), tabs.q)
+    return shoup_mul(x, *tabs.tensor("itwist", x.device), tabs.q)
+
+
 def ntt_body_cg(x: torch.Tensor, tabs: FourStepTables) -> torch.Tensor:
     """Forward negacyclic NTT: int64 (..., n1, n2) natural-order
     coefficients (values < 4q) → (..., n2, n1) canonical evaluations in
     kernel order."""
-    q, dev = tabs.q, x.device
-    x = shoup_mul_lazy(x, *tabs.tensor("twist", dev), q)
-    x = _col_gs_cg(x, tabs.tensor("pgs1", dev), q)
-    x = shoup_mul_lazy(x, *tabs.tensor("twiddle", dev), q).transpose(-1, -2)
-    x = _col_gs_cg(x, tabs.tensor("pgs2", dev), q)
-    return torch.where(x >= q, x - q, x)
+    return ntt_pass2(ntt_pass1(x, tabs), tabs)
 
 
 def intt_body_cg(x: torch.Tensor, tabs: FourStepTables) -> torch.Tensor:
     """Inverse: (..., n2, n1) kernel-order evaluations (values < 2q) →
     (..., n1, n2) natural-order coefficients in [0, q)."""
-    q, dev = tabs.q, x.device
-    x = _col_ct_cg(x, tabs.tensor("pct2", dev), q).transpose(-1, -2)
-    x = shoup_mul_lazy(x, *tabs.tensor("itwiddle", dev), q)
-    x = _col_ct_cg(x, tabs.tensor("pct1", dev), q)
-    return shoup_mul(x, *tabs.tensor("itwist", dev), q)
+    return intt_pass2(intt_pass1(x, tabs), tabs)

@@ -119,6 +119,32 @@ def test_keyswitch_matches_reference(contexts, nlimbs):
     np.testing.assert_array_equal(convert.residues_np(d1), want[1])
 
 
+@pytest.mark.parametrize("nlimbs", [3, 2, 1], ids=["two_digits", "one_digit_l2", "one_digit_l1"])
+def test_keyswitch_ip_goes_through_kernel_3_wrapper(contexts, monkeypatch, nlimbs):
+    """keyswitch_ip calls the kernel-3 wrapper ``ks_inner_product`` once at
+    every digit count, one digit included (the lazy-4 schedule's switches),
+    and gives the plain version's residues (the wrapper's CPU route)."""
+    _, ctx = contexts
+    mq = ctx.moduli_qp
+    calls = []
+
+    def counted(*args):
+        calls.append(args[0].shape[-3])
+        return ks_inner_product(*args)
+
+    monkeypatch.setattr(ev, "ks_inner_product", counted)
+    c = convert.residues(_residues(mq[:nlimbs], (2,), seed=50 + nlimbs), "cpu")
+    key = ev.ksk_to_mont(ctx, convert.keyswitch_key(_residues(mq, (2, 2), seed=51), device="cpu"))
+    digits = ev.keyswitch_core(ctx, c, nlimbs)
+    acc0, acc1 = ev.keyswitch_ip(ctx, digits, key, nlimbs)
+    assert calls == [len(digits)] and len(digits) == (2 if nlimbs == 3 else 1)
+    sel_ext = tuple(ctx.q_idx(nlimbs)) + ctx.p_idx()
+    q, qinv, _ = ctx.limb_consts(sel_ext, "cpu")
+    want = ks_inner_product_plain(torch.stack(digits, dim=-3), key.data, torch.as_tensor(sel_ext),
+                                  q, qinv)
+    assert torch.equal(acc0, want[..., 0, :, :]) and torch.equal(acc1, want[..., 1, :, :])
+
+
 def test_mult_scalar_rescale_matches_reference(contexts):
     """mult_scalar(0.5) with its rescale (the full-level FedAvg ÷2) over a
     batch of 2 ciphertexts, against the JAX package's per ciphertext."""

@@ -36,6 +36,7 @@ MODULES = [
     "ppqsflhe_tpu_torch.fl.cli",
     "ppqsflhe_tpu_torch.probes",
     "ppqsflhe_tpu_torch.probes.mxu_vpu_overlap",
+    "ppqsflhe_tpu_torch.probes.kernel_report",
     "ppqsflhe_tpu_torch.convert",
 ]
 
@@ -109,12 +110,15 @@ def test_cuda_wrappers_route_cpu_tensors_to_plain():
 def test_kernel_wrappers_reject_cpu_tensors():
     """The launch functions take CUDA tensors only: a CPU tensor raises before
     any build or launch — no silent fallback."""
+    from ppqsflhe_tpu_torch.core import primes
+    from ppqsflhe_tpu_torch.core.rns import BaseExtender
     from ppqsflhe_tpu_torch.ops import cuda_ext, cuda_mxu_ntt
 
     x = torch.zeros((1, 1, 32, 32), dtype=torch.int64)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_mxu_ntt.ntt_stage(x, x, torch.zeros(8, dtype=torch.int64),
                                torch.zeros((1, 4), dtype=torch.int64), True, first=False)
+    src, dst = primes.prime_chain(40, 2, 16)
     with pytest.raises(ValueError, match="CUDA"):
         cuda_ext.base_extend(torch.zeros((1, 1, 8), dtype=torch.int64),
-                             torch.zeros(10, dtype=torch.int64), 1)
+                             cuda_ext.ext_params(BaseExtender([src], [dst])), 1)
