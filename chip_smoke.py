@@ -32,6 +32,20 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   ways, pk (dense v2) and sk (seeded v3) encryption, changeCipherDomain,
   aggregation, changeCipherDomain back, both decrypts; then one INDCCA hop
   under ``configs/config_cc_indcca.json``;
+- **the multikey round** of ``bench_multikey.py`` (``BASELINE.json`` config
+  5) through ``ppqsflhe_tpu_torch.bench.multikey``: 16 clients × 154
+  ciphertexts (the stacked LSTM's 1,091,101 values) at N=2^14, 15 PREs into
+  the hub, FedAvg ÷16, 15 PREs out, in both schedules; the whole average
+  decrypted under the hub's key and the outbound ciphertexts of clients 0
+  and 14 under theirs (error < 1e-3); ms per round, rounds/s, device ms
+  by kernel, host enqueue and idle share;
+- **threshold CKKS** at 16 parties on the same chain: the CRS (its SHA-256
+  equal to the JAX package's), 16 key shares and the joint key, each
+  party's 154 ciphertexts encrypted under it, ``multikey.aggregate_local``,
+  16 batched partial decryptions and the fusion (the error's RMS within
+  0.9–1.1 σ = √(16·N/6)·2^30/Δ and its max below 6 σ; below 1e-3 with no
+  flood), then Shamir 9-of-16: the sets {1..9} and {8..16} decrypt by the
+  same gate at 9 parties, {1..8} does not (max error > 1);
 - **kernel 7**, the tensor-core / integer-chain overlap probe of
   ``probes/mxu_vpu_overlap.py`` at its shapes (K=64 cells, m=256, nd=6,
   c=256): µs/cell for its four orders, scan-marginal over chained launches.
@@ -112,6 +126,13 @@ SUM_GATE = 1e-2      # bench_rotations.py's gate for the rotation sum
 SEED = 7             # keys, noise and payloads
 ROUNDS = 20          # timed repetitions
 ROTS = [1, 2, 4, 8, 16, 32, 64, 128]
+MK_CLIENTS = 16      # bench_multikey.py's clients (BASELINE.json config 5)
+TH_PARTIES, TH_T = 16, 9     # threshold: N-of-N at 16 parties, t-of-N at 9 of 16
+# the threshold CRS seed (its high word non-zero) and the SHA-256 of the
+# JAX package's CRS residues for it on the N=2^14 chain, four-step order
+# (tests/test_torch_jax_prng.py takes it from the JAX package on the CPU)
+CRS_SEED = (7 << 32) | 2026
+CRS_SHA256 = "6f902f668151684407918f6106dc26d26b1438e95d8cb2880f3e4cebb6c71b62"
 K1, K2, K3 = ("ppqsflhe_tpu/ops/pallas_mxu_ntt.py:390", "ppqsflhe_tpu/ops/pallas_ext.py:167",
               "ppqsflhe_tpu/ops/pallas_ks.py:127")
 K4, K5 = "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:512", "ppqsflhe_tpu/ops/pallas_mxu_ntt.py:566"
@@ -1482,7 +1503,255 @@ def files_phase(card, device, profile_on):
 
 
 # ---------------------------------------------------------------------------
-# Path 7: kernel 7, the tensor-core / integer-chain overlap probe
+# Path 7: the 16-client multikey round of bench_multikey.py at N=2^14
+# ---------------------------------------------------------------------------
+
+def multikey_kernel_checks(cases, sch, w, gen, device):
+    """Kernels 1, 2 and 3 against their plain versions at the multikey
+    round's shapes: the 154 c1 polys of one PRE and the 308 polys (both
+    components) of its ModDown."""
+    import numpy as np
+
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.ops import cuda_ext
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    ctx, n = sch.ctx, sch.params.n
+    mq = ctx.moduli_qp
+    B = w.stacks.data.shape[1]
+    # kernel 1: the iNTT of c1 over Q_2 (154 polys), the NTT back over Q_2
+    # after the ModDown's extension (308 polys)
+    for fwd, B_k in ((False, B), (True, 2 * B)):
+        idx = (0, 1)
+        x = rand_residues([mq[i] for i in idx], (B_k,), n, gen, device)
+        run = (lambda: ctx.ntt(x, idx)) if fwd else (lambda: ctx.intt(x, idx))
+        fused_case(cases, ctx.fntt, x, idx, fwd, False, run, 10,
+                   f"2 limbs x {B_k} polys, N=2^14, multikey")
+    # kernel 2 at the inbound (l=2) and lazy-4 outbound (l=1) levels: the
+    # digit's extension to P (its constant folded in) over the 154 c1 polys,
+    # and the ModDown P -> Q_l over both components (308 polys)
+    for l in (2, 1):
+        groups, consts = _ks_decomp_consts(ctx, l)
+        for src, dst, pre, lead in ((groups[0], ctx.p_idx(), consts[0], (B,)),
+                                    (ctx.p_idx(), ctx.q_idx(l), None, (2, B))):
+            ext = ctx.extender(src, dst)
+            xe = rand_residues([mq[i] for i in src], lead, n, gen, device)
+            cases.check(f"base_extend (l={l}, {len(src)}->{len(dst)} limbs, "
+                        f"{'pre' if pre is not None else 'ModDown'}, "
+                        f"{'x'.join(map(str, lead))} polys, N=2^14, multikey)", "base_extend",
+                        SRC_EXT, K2, cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
+                        lambda: cuda_ext.fused_extend(xe, ext, pre), lambda: ext.extend(xe, pre),
+                        20, ext_work(int(np.prod(lead)), len(src), len(dst), n))
+    # kernel 3: one digit over LK = 4 (l=2) and 3 (l=1) limbs, 154 polys
+    for l in (2, 1):
+        limbs = tuple(ctx.q_idx(l)) + ctx.p_idx()
+        q, qinv, _ = ctx.limb_consts(limbs, device)
+        sel = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+        dig = rand_residues([mq[i] for i in limbs], (B, 1), n, gen, device)
+        args = (dig, w.rk_to[0].data, sel, q, qinv)
+        run, plain = lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args)
+        cases.check(f"ks_inner_product (nd=1, LK={len(limbs)}, {B} polys, l={l}, N=2^14, "
+                    f"multikey)", "ks_inner_product", SRC_KS, K3, run(), plain(), run, plain, 20,
+                    ks_work(B, 1, len(limbs), n))
+
+
+def multikey_phase(card, device):
+    """16 clients × 154 ciphertexts (the LSTM export, 1,091,101 values) at
+    N=2^14: prep on the card, kernel checks, the round in both schedules
+    with fresh launch counters (decrypt gates: the whole average under the
+    hub's key, the outbound ciphertexts of clients 0 and 14 under theirs),
+    then ms per round, rounds/s and the device's busy share. Returns the
+    kernels' rows."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.bench import multikey as mk
+    from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
+
+    sch = CkksScheme(mk.params(), device=device)
+    vecs, n_params = mk.payloads(SEED, MK_CLIENTS, sch.encoder.slots)
+    t0 = time.perf_counter()
+    w = mk.prep(sch, vecs, torch.Generator(device=device).manual_seed(SEED))
+    B = w.stacks.data.shape[1]
+    print(f"[setup multikey] {MK_CLIENTS} clients x {B} ciphertexts ({n_params} values each), "
+          f"N={sch.params.n}: prep {time.perf_counter() - t0:.1f} s on the card (keygen "
+          f"{w.seconds['keygen']:.1f}, {2 * (MK_CLIENTS - 1)} rekeys {w.seconds['rekeys']:.1f}, "
+          f"{MK_CLIENTS * B} encryptions {w.seconds['encrypt']:.1f}); stacks "
+          f"{w.stacks.data.numel() * 8 / 1e9:.2f} GB ({card})")
+    if B != 154 or n_params != 1_091_101:
+        raise AssertionError(f"multikey payload: {B} ciphertexts, {n_params} values")
+    cases = KernelCases(card)
+    multikey_kernel_checks(cases, sch, w, torch.Generator().manual_seed(SEED), device)
+    staged = {lazy: mk.stage(w.stacks, mk.inbound_level(sch, lazy)) for lazy in (4, 0)}
+    torch.cuda.synchronize()
+
+    need = ("mxu_ntt", "base_extend", "ks_inner_product")
+    reset_counts()
+    per_sched = {}
+    for lazy in (4, 0):
+        before = read_counts()
+        avg, outs = mk.server_round(sch, staged[lazy], w.rk_to, w.rk_from, lazy)
+        torch.cuda.synchronize()
+        per_sched[lazy] = {k: v - before[k] for k, v in read_counts().items()}
+        errs = mk.check(sch, w, vecs, avg, outs)
+        print(f"[multikey lazy={lazy}] kernel launches "
+              f"{ {k: v for k, v in per_sched[lazy].items() if v} }; decrypt max err over all "
+              f"{B} ciphertexts and slots: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (gate {ERR_GATE}); average {tuple(avg.data.shape)} at {avg.nlimbs} limb(s), "
+              f"outbound {tuple(outs.data.shape)} ({card})")
+        missing = [k for k in need if per_sched[lazy][k] == 0]
+        if missing:
+            raise AssertionError(f"multikey lazy={lazy}: never launched {missing}")
+        if not all(np.isfinite(e) and e < ERR_GATE for e in errs.values()):
+            raise AssertionError(f"multikey lazy={lazy}: decrypt error {errs} over the gate")
+        del avg, outs
+    launches = read_counts()
+
+    for lazy in (4, 0):
+        m = mk.measure(sch, staged[lazy], w.rk_to, w.rk_from, lazy)
+        print(f"[timing multikey lazy={lazy}] {m['ms']:.3f} ms/round, {m['rounds_per_sec']:.3f} "
+              f"rounds/s ((t3 - t1)/2 over chained rounds: t1 {m['t1_ms']:.3f}, t3 "
+              f"{m['t3_ms']:.3f} ms); {MK_CLIENTS} clients x {B} ciphertexts, N=2^14 ({card})")
+        parts = ", ".join(f"{k} {v:.3f}" for k, v in m["by_kernel"].items())
+        dev = "not measured" if m["device_ms"] is None else f"{m['device_ms']:.3f} ms"
+        idle = "not measured" if m["idle_share"] is None else f"{m['idle_share']:.1%}"
+        print(f"[busy multikey lazy={lazy}] device {dev} per round ({parts}); host enqueue "
+              f"{m['enqueue_ms']:.3f} ms; idle share {idle} of {m['ms']:.3f} ms ({card})")
+    return cases.take_launches(launches)
+
+
+# ---------------------------------------------------------------------------
+# Path 8: threshold CKKS at 16 parties, N=2^14
+# ---------------------------------------------------------------------------
+
+def smudge_sigma(parties, n, bits, scale):
+    """The slot error's std-dev from ``parties`` floods uniform in
+    ±2^bits per coefficient: √(P·N/6)·2^bits / scale."""
+    return (parties * n / 6) ** 0.5 * 2.0 ** bits / scale
+
+
+def slot_errors(sch, coeffs, ct, want):
+    """(RMS, max) of decoded − want over every ciphertext of the batch and
+    every slot."""
+    import numpy as np
+
+    from ppqsflhe_tpu_torch.bench.multikey import slot_diffs
+
+    d = slot_diffs(sch, coeffs, ct, want)
+    return float(np.sqrt(np.mean(d ** 2))), float(np.abs(d).max())
+
+
+def threshold_phase(card, device):
+    """16 parties on the N=2^14 chain: the CRS (bit-equal to the JAX
+    package's, by hash), 16 key shares and the joint key, each party's
+    154-ciphertext payload encrypted under it, ``multikey.aggregate_local``,
+    16 batched partial decryptions and the fusion (smudging 2^30, then
+    none), then Shamir 9-of-16: the sets {1..9} and {8..16} decrypt, {1..8}
+    does not. Returns the kernels' rows."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.bench import multikey as mk
+    from ppqsflhe_tpu_torch.ckks import multikey, threshold as th
+    from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
+    from ppqsflhe_tpu_torch.convert import residues_np
+    from ppqsflhe_tpu_torch.core import jax_prng
+
+    sch = CkksScheme(mk.params(), device=device)
+    ctx, n = sch.ctx, sch.params.n
+    cases = KernelCases(card)
+    # kernel 1 at the CRS's shape: one poly over the 5 QP limbs, and the
+    # Shamir coefficients' 8 polys
+    all_idx = tuple(range(len(ctx.moduli_qp)))
+    crs_coeff = torch.from_numpy(jax_prng.uniform_rns(CRS_SEED, ctx.moduli_qp, n).view(
+        np.int64)).to(device)
+    gen_k = torch.Generator().manual_seed(SEED)
+    for tag, x in (("CRS", crs_coeff[None]),
+                   ("Shamir", rand_residues(ctx.moduli_qp, (TH_T - 1,), n, gen_k, device))):
+        fused_case(cases, ctx.fntt, x, all_idx, True, False, lambda: ctx.ntt(x, all_idx), 10,
+                   f"5 QP limbs x {x.shape[0]} polys, N=2^14, threshold {tag}")
+    vecs, _ = mk.payloads(SEED + 1, TH_PARTIES, sch.encoder.slots)
+    mean = [np.mean([v[k] for v in vecs], axis=0) for k in range(len(vecs[0]))]
+    gen = torch.Generator(device=device).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+
+    reset_counts()
+    times = {}
+
+    def step(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[name] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    a = step("CRS", lambda: th.common_random_poly(ctx, CRS_SEED, device))
+    digest = hashlib.sha256(residues_np(a).astype("<u8").tobytes()).hexdigest()
+    print(f"[threshold] CRS seed {CRS_SEED:#x}: SHA-256 of its {tuple(a.shape)} residues "
+          f"{digest} (the JAX package's: {CRS_SHA256}) ({card})")
+    if digest != CRS_SHA256:
+        raise AssertionError("the CRS differs from the JAX package's")
+    parts = step(f"{TH_PARTIES} partial_keygen", lambda: [th.partial_keygen(ctx, a, gen)
+                                               for _ in range(TH_PARTIES)])
+    shares = [s for s, _ in parts]
+    pk = step("joint_public_key", lambda: th.joint_public_key(ctx, a, [b for _, b in parts]))
+    cts = step(f"encrypt {TH_PARTIES} x {len(vecs[0])}",
+               lambda: [sch.encrypt_values(pk, v, gen) for v in vecs])
+    agg = step("aggregate_local", lambda: multikey.aggregate_local(ctx, cts))
+    del cts
+    results = {}
+    for bits in (th.DEFAULT_SMUDGING_BITS, 0):
+        coeffs = step(f"{TH_PARTIES} partial_decrypt + fuse (bits={bits})",
+                      lambda: th.fuse_partial_decryptions(
+                          ctx, agg, [th.partial_decrypt(ctx, s, agg, gen, bits) for s in shares]))
+        results[f"N-of-N bits={bits}"] = (slot_errors(sch, coeffs, agg, mean), TH_PARTIES, bits)
+    outgoing = step(f"{TH_PARTIES} shamir_share_secret (t={TH_T})", lambda: [
+        th.shamir_share_secret(ctx, s, TH_PARTIES, TH_T, gen) for s in shares])
+    sigmas = step(f"{TH_PARTIES} aggregate_received_shares", lambda: {
+        j: th.aggregate_received_shares(ctx, torch.stack([o[j - 1] for o in outgoing]))
+        for j in range(1, TH_PARTIES + 1)})
+    del outgoing
+    for pset in (tuple(range(1, TH_T + 1)), tuple(range(TH_PARTIES - TH_T + 1, TH_PARTIES + 1)),
+                 tuple(range(1, TH_T))):
+        coeffs = step(f"t-of-N {pset[0]}..{pset[-1]}", lambda: th.fuse_partial_decryptions(
+            ctx, agg, [th.partial_decrypt_t(ctx, sigmas[j], agg, pset, j, gen) for j in pset]))
+        results[f"set {pset[0]}..{pset[-1]}"] = (slot_errors(sch, coeffs, agg, mean), len(pset),
+                                                 th.DEFAULT_SMUDGING_BITS)
+    launches = read_counts()
+    print(f"[threshold] kernel launches { {k: v for k, v in launches.items() if v} }; ms per "
+          f"step (synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+          + f" ({card})")
+    if launches["mxu_ntt"] == 0 or launches["base_extend"] or launches["ks_inner_product"]:
+        raise AssertionError("threshold: kernel 1 must launch, kernels 2 and 3 must not")
+    failures = []
+    for name, ((rms, mx), parties, bits) in results.items():
+        sig = smudge_sigma(parties, n, bits, agg.scale)
+        strict = name.endswith(f"1..{TH_T - 1}")
+        if strict:
+            ok, gate = mx > 1.0, "must fail: max > 1.0"
+        elif bits == 0:
+            ok, gate = mx < ERR_GATE, f"max < {ERR_GATE}"
+        else:
+            ok = 0.9 * sig <= rms <= 1.1 * sig and mx < 6 * sig
+            gate = (f"RMS in 0.9-1.1 sigma, max < 6 sigma; sigma = "
+                    f"sqrt({parties}*N/6)*2^{bits}/scale")
+        print(f"[threshold {name}] {len(mean)} ciphertexts x {sch.encoder.slots} slots: error RMS "
+              f"{rms:.4e}, max {mx:.4e}"
+              + ("" if strict or bits == 0 else f", sigma {sig:.4f} (RMS/sigma {rms / sig:.3f}, "
+                 f"max/sigma {mx / sig:.2f})")
+              + f"; gate: {gate}: {'held' if ok else 'FAILED'} ({card})")
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"threshold: gates failed for {failures}")
+    return cases.take_launches(launches)
+
+
+# ---------------------------------------------------------------------------
+# Path 9: kernel 7, the tensor-core / integer-chain overlap probe
 # ---------------------------------------------------------------------------
 
 def probe_work(kind, x8, m):
@@ -1577,6 +1846,8 @@ def main() -> None:
     kernels += round16_phase(card, device, args.profile)
     kernels += butterfly_phase(card, device, world, outs, args.profile)
     kernels += files_phase(card, device, args.profile)
+    kernels += multikey_phase(card, device)
+    kernels += threshold_phase(card, device)
     kernels += probe_phase(card, device)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,9 +1,9 @@
 """Homomorphic evaluation.
 
-Twin of :mod:`ppqsflhe_tpu.ckks.eval`: add, mult_scalar, rescale,
-level_reduce, HYBRID key switching, key-switch key generation (PRE rekeys
-from a public key, relinearization and Galois keys from a secret key, with
-a fresh or a seed-expanded mask),
+Twin of :mod:`ppqsflhe_tpu.ckks.eval`: add, sub, negate, add_plain,
+mult_plain, mult_scalar, rescale, level_reduce, HYBRID key switching,
+key-switch key generation (PRE rekeys from a public key, relinearization
+and Galois keys from a secret key, with a fresh or a seed-expanded mask),
 ct×ct mult with relinearization, and Galois rotations (plain, hoisted,
 double-hoisted rotation sums) and conjugation. The KSK for digit j
 encrypts P·t·Q̂_j with Q̂_j = Q_full/D_j the full-basis CRT cofactor; the
@@ -38,7 +38,7 @@ from ..core.ntt import bit_reverse_indices
 from ..ops.cuda_ext import fused_extend
 from ..ops.cuda_ks import ks_inner_product
 from .params import CkksContext
-from .types import Ciphertext, KeySwitchKey, PublicKey, SecretKey
+from .types import Ciphertext, KeySwitchKey, Plaintext, PublicKey, SecretKey
 
 
 # ---------------------------------------------------------------------------
@@ -58,21 +58,54 @@ def add(ctx: CkksContext, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
     return Ciphertext(data=modadd(d1, d2, q), scale=ct1.scale)
 
 
-def mult_scalar(ctx: CkksContext, ct: Ciphertext, c: float) -> Ciphertext:
-    """EvalMult(ct, double) then rescale: the constant encodes exactly at
-    scale q_last, so the ciphertext scale comes out unchanged (FLEXIBLEAUTO,
-    the JAX package's default ``rescale_after=True``)."""
+def sub(ctx: CkksContext, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+    d1, d2, l = _match(ct1, ct2)
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), d1.device)
+    return Ciphertext(data=modsub(d1, d2, q), scale=ct1.scale)
+
+
+def negate(ctx: CkksContext, ct: Ciphertext) -> Ciphertext:
+    q, _, _ = ctx.limb_consts(ctx.q_idx(ct.nlimbs), ct.data.device)
+    return Ciphertext(data=modneg(ct.data, q), scale=ct.scale)
+
+
+def add_plain(ctx: CkksContext, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+    """ct + pt: the plaintext's residues added to c0 over the common limbs."""
+    l = min(ct.nlimbs, pt.nlimbs)
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
+    data = ct.data[..., :l, :].clone()
+    data[..., 0, :, :] = modadd(data[..., 0, :, :], pt.data[..., :l, :], q)
+    return Ciphertext(data=data, scale=ct.scale)
+
+
+def mult_plain(ctx: CkksContext, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+    """Pointwise eval-domain product; the scales multiply (rescale
+    separately)."""
+    l = min(ct.nlimbs, pt.nlimbs)
+    q, qinv, r2 = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
+    return Ciphertext(data=modmul(ct.data[..., :l, :], pt.data[..., :l, :].unsqueeze(-3),
+                                  q, qinv, r2),
+                      scale=ct.scale * pt.scale)
+
+
+def mult_scalar(ctx: CkksContext, ct: Ciphertext, c: float,
+                rescale_after: bool = True) -> Ciphertext:
+    """EvalMult(ct, double). The constant encodes exactly (no FFT): at scale
+    q_last then a rescale, so the ciphertext scale comes out unchanged
+    (FLEXIBLEAUTO, the default); with ``rescale_after=False`` at Δ, and the
+    scale picks up a Δ factor."""
     l = ct.nlimbs
     idx = ctx.q_idx(l)
     dev = ct.data.device
     q, _, _ = ctx.limb_consts(idx, dev)
-    enc_scale = float(ctx.moduli_qp[l - 1])
+    enc_scale = float(ctx.moduli_qp[l - 1]) if rescale_after else ctx.params.scale
     m = int(round(c * enc_scale))
     res = [m % ctx.moduli_qp[i] for i in idx]
     w = ctx.consts(("scalar", m, idx), lambda: res, dev)
     ws = ctx.consts(("scalar_sh", m, idx), lambda: (
         primes.shoup_precompute(r, ctx.moduli_qp[i]) for r, i in zip(res, idx)), dev)
-    return rescale(ctx, Ciphertext(shoup_mul(ct.data, w, ws, q), scale=ct.scale * enc_scale))
+    out = Ciphertext(shoup_mul(ct.data, w, ws, q), scale=ct.scale * enc_scale)
+    return rescale(ctx, out) if rescale_after else out
 
 
 # ---------------------------------------------------------------------------

@@ -1,12 +1,13 @@
 """High-level CKKS facade: the subset of ``ppqsflhe_tpu.ckks.scheme``
-that the server's aggregation round and the rotation path need: keygen,
+without the FLEXIBLEAUTOEXT extension limb: encoding and decoding, keygen,
 rekey_gen, relinearization, rotation and conjugation keys, encrypt_values,
-decrypt, add, mult_scalar, ct×ct mult, rescale, rotations (plain, hoisted,
-rotation sums), conjugation, the packed inner product, and re_encrypt in
-both PRE modes. Operations run eagerly on the device their tensors live on;
-the scheme's ``device`` is where it creates new ones: the card unless the
-caller asks for another (``device="cpu"`` runs the plain versions). Randomness comes from
-explicit ``torch.Generator``s.
+decrypt, add, sub, add_plain, mult_plain, mult_scalar, ct×ct mult,
+rescale, rotations (plain, hoisted, rotation sums), conjugation, the packed
+inner product, and re_encrypt in both PRE modes. Operations run eagerly on
+the device their tensors live on; the scheme's ``device`` is where it
+creates new ones: the card unless the caller asks for another
+(``device="cpu"`` runs the plain versions). Randomness comes from explicit
+``torch.Generator``s.
 """
 
 from __future__ import annotations
@@ -43,6 +44,10 @@ class CkksScheme:
         data = torch.as_tensor(rns.view(np.int64), device=self.device)
         data = self.ctx.ntt(data if batched else data[0], self.ctx.q_idx(l))
         return Plaintext(data=data, scale=scale)
+
+    def decode(self, coeffs_centered, scale: float, num: int | None = None) -> np.ndarray:
+        """Centered integer coefficients (host) → real slot values."""
+        return self.encoder.decode(coeffs_centered, scale, num).real
 
     # -- keys ---------------------------------------------------------------
 
@@ -93,8 +98,18 @@ class CkksScheme:
     def add(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
         return ev.add(self.ctx, ct1, ct2)
 
-    def mult_scalar(self, ct: Ciphertext, c: float) -> Ciphertext:
-        return ev.mult_scalar(self.ctx, ct, c)
+    def sub(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
+        return ev.sub(self.ctx, ct1, ct2)
+
+    def add_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
+        return ev.add_plain(self.ctx, ct, pt)
+
+    def mult_plain(self, ct: Ciphertext, pt: Plaintext, rescale_after: bool = True) -> Ciphertext:
+        out = ev.mult_plain(self.ctx, ct, pt)
+        return ev.rescale(self.ctx, out) if rescale_after else out
+
+    def mult_scalar(self, ct: Ciphertext, c: float, rescale_after: bool = True) -> Ciphertext:
+        return ev.mult_scalar(self.ctx, ct, c, rescale_after)
 
     def mult(self, ct1: Ciphertext, ct2: Ciphertext, relin_key: KeySwitchKey,
              rescale_after: bool = True) -> Ciphertext:

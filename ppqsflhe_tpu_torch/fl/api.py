@@ -13,6 +13,15 @@ Twin of ``ppqsflhe_tpu.fl.api`` (``:72-885``), with the same file contracts:
 | changeCipherDomain                | :func:`change_cipher_domain`  |
 | aggregateEncryptedWeights         | :func:`aggregate_encrypted_weights` |
 
+and the seven threshold tools of the MULTIPARTY protocol
+(``ppqsflhe_tpu.fl.api:565-800``, :mod:`..ckks.threshold`):
+:func:`threshold_keygen`, :func:`threshold_combine_pubkey`,
+:func:`threshold_partial_decrypt`, :func:`threshold_shamir_share`,
+:func:`threshold_aggregate_shares`, :func:`threshold_partial_decrypt_t` and
+:func:`threshold_fuse_decrypt`, with the JAX tools' documents
+(``ckks_public_share``, ``ckks_partial_decryptions``, ``ckks_shamir_share``,
+``ckks_sigma_share`` and the standard key documents).
+
 Weights JSON: ``{"weights_summary": [{layer, shape, mean, std_dev,
 values[]}…]}``; optimizer layers are skipped, values are chunked at the slot
 count and the padding is trimmed on decrypt. The encrypted document holds
@@ -47,6 +56,7 @@ from .. import convert
 from ..ckks import eval as ev
 from ..ckks import rlwe
 from ..ckks import serialize as ser
+from ..ckks import threshold as th
 from ..ckks.params import CkksParams
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext, KeySwitchKey
@@ -488,4 +498,170 @@ def aggregate_encrypted_weights(cc_path: str, enc_paths: Sequence[str], agg_out:
         rec["values"] = [_field(next(blobs), binary) for _ in range(nv)]
         out["weights_summary"].append(rec)
     ser.save_enc_doc(out, agg_out, binary=binary)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Threshold multiparty protocol (ckks/threshold.py)
+# ---------------------------------------------------------------------------
+
+def _array_doc(t: torch.Tensor, **fields) -> Dict:
+    a = convert.residues_np(t)
+    return dict(fields, shape=list(a.shape), data=ser._arr_to_b64(a))
+
+
+def _doc_array(d: Dict, device) -> torch.Tensor:
+    return convert.residues(ser._b64_to_arr(d["data"], d["shape"]), device)
+
+
+def threshold_keygen(cc_path: str, crs_seed: int, priv_share_out: str, pub_share_out: str,
+                     seed: int | None = None, device="cuda") -> None:
+    """A party's round 1 of the joint key: derive the CRS from ``crs_seed``,
+    sample a secret share and write it (standard secret-key document) and
+    its public b-share."""
+    sch = load_scheme(cc_path, device)
+    a = th.common_random_poly(sch.ctx, crs_seed, sch.device)
+    sk_i, b_i = th.partial_keygen(sch.ctx, a, _rng(seed))
+    ser.save_json(ser.serialize_secret_key(sk_i), priv_share_out)
+    ser.save_json(_array_doc(b_i, type="ckks_public_share", crs_seed=int(crs_seed)),
+                  pub_share_out)
+
+
+def threshold_combine_pubkey(cc_path: str, crs_seed: int, pub_share_paths: Sequence[str],
+                             joint_pub_out: str, device="cuda") -> None:
+    """The joint public key (Σ b_i, a), written as a standard public-key
+    document that :func:`encrypt_weights` takes unchanged."""
+    sch = load_scheme(cc_path, device)
+    a = th.common_random_poly(sch.ctx, crs_seed, sch.device)
+    shares = []
+    for p in pub_share_paths:
+        d = ser.load_json(p)
+        if int(d.get("crs_seed", crs_seed)) != int(crs_seed):
+            raise ValueError(f"{p}: public share was generated for a different CRS seed")
+        shares.append(_doc_array(d, sch.device))
+    ser.save_json(ser.serialize_public_key(th.joint_public_key(sch.ctx, a, shares)),
+                  joint_pub_out)
+
+
+def _partials_doc(enc: Dict, parts: torch.Tensor, **extra) -> Dict:
+    """A ``ckks_partial_decryptions`` document: one Base64 array per
+    ciphertext field of ``enc``, in its order."""
+    host = convert.residues_np(parts)
+    out = dict({"type": "ckks_partial_decryptions", "limbs": int(host.shape[1]),
+                "n": int(host.shape[2])}, **extra)
+    out["weights_summary"] = []
+    i = 0
+    for entry in enc["weights_summary"]:
+        nv = len(entry["values"])
+        out["weights_summary"].append({
+            "layer": entry["layer"], "shape": entry["shape"],
+            "mean": ser._arr_to_b64(host[i]), "std_dev": ser._arr_to_b64(host[i + 1]),
+            "values": [ser._arr_to_b64(host[i + 2 + c]) for c in range(nv)]})
+        i += 2 + nv
+    return out
+
+
+def _doc_batch(sch: CkksScheme, enc_in: str) -> tuple[Dict, Ciphertext]:
+    enc = ser.load_enc_doc(enc_in)
+    return enc, _stack(_load_cts([f[3] for f in _doc_fields(enc)], sch))
+
+
+def threshold_partial_decrypt(cc_path: str, priv_share_path: str, enc_in: str,
+                              partial_out: str, seed: int | None = None,
+                              smudging_bits: int | None = None, device="cuda") -> Dict:
+    """A party's decryption shares p_i = c1·s_i + e_flood of every
+    ciphertext of an encrypted-weights document, as one batch."""
+    sch = load_scheme(cc_path, device)
+    sk = ser.deserialize_secret_key(ser.load_json(priv_share_path), sch.ctx, device)
+    bits = th.DEFAULT_SMUDGING_BITS if smudging_bits is None else smudging_bits
+    enc, cts = _doc_batch(sch, enc_in)
+    out = _partials_doc(enc, th.partial_decrypt(sch.ctx, sk, cts, _rng(seed), bits))
+    ser.save_json(out, partial_out)
+    return out
+
+
+def threshold_shamir_share(cc_path: str, priv_share_path: str, n_parties: int, t: int,
+                           out_paths: Sequence[str], seed: int | None = None,
+                           device="cuda") -> None:
+    """Shamir-share this party's additive secret share among all N
+    parties, t-of-N: one share document per recipient (out_paths[j−1] for
+    party j)."""
+    if len(out_paths) != n_parties:
+        raise ValueError(f"need {n_parties} output paths, got {len(out_paths)}")
+    sch = load_scheme(cc_path, device)
+    sk = ser.deserialize_secret_key(ser.load_json(priv_share_path), sch.ctx, device)
+    rows = th.shamir_share_secret(sch.ctx, sk, n_parties, t, _rng(seed))
+    for j, path in enumerate(out_paths, start=1):
+        ser.save_json(_array_doc(rows[j - 1], type="ckks_shamir_share", recipient=j,
+                                 n_parties=n_parties, threshold=t), path)
+
+
+def threshold_aggregate_shares(cc_path: str, incoming_paths: Sequence[str], sigma_out: str,
+                               device="cuda") -> None:
+    """Party j's σ_j = Σ_i f_i(j) from the shares every party sent it (all
+    for the same recipient)."""
+    sch = load_scheme(cc_path, device)
+    docs = [ser.load_json(p) for p in incoming_paths]
+    recips = {int(d["recipient"]) for d in docs}
+    if len(recips) != 1:
+        raise ValueError(f"shares target different recipients: {sorted(recips)}")
+    sigma = th.aggregate_received_shares(
+        sch.ctx, torch.stack([_doc_array(d, sch.device) for d in docs]))
+    d0 = docs[0]
+    ser.save_json(_array_doc(sigma, type="ckks_sigma_share", recipient=d0["recipient"],
+                             n_parties=d0["n_parties"], threshold=d0["threshold"]), sigma_out)
+
+
+def threshold_partial_decrypt_t(cc_path: str, sigma_path: str, enc_in: str, partial_out: str,
+                                party_set: Sequence[int], party_id: int,
+                                seed: int | None = None, smudging_bits: int | None = None,
+                                device="cuda") -> Dict:
+    """Party j's t-of-N decryption shares (λ_j·σ_j folded in) of every
+    ciphertext of a document; fuse the t documents with
+    :func:`threshold_fuse_decrypt`."""
+    sch = load_scheme(cc_path, device)
+    d = ser.load_json(sigma_path)
+    if int(d["recipient"]) != int(party_id):
+        raise ValueError(f"sigma share belongs to party {d['recipient']}, not {party_id}")
+    if len(party_set) != int(d["threshold"]):
+        raise ValueError(f"participating set size {len(party_set)} != threshold "
+                         f"t={d['threshold']}")
+    bits = th.DEFAULT_SMUDGING_BITS if smudging_bits is None else smudging_bits
+    pset = tuple(int(x) for x in party_set)
+    enc, cts = _doc_batch(sch, enc_in)
+    parts = th.partial_decrypt_t(sch.ctx, _doc_array(d, sch.device), cts, pset, int(party_id),
+                                 _rng(seed), bits)
+    out = _partials_doc(enc, parts, party_set=list(pset))
+    ser.save_json(out, partial_out)
+    return out
+
+
+def threshold_fuse_decrypt(cc_path: str, enc_in: str, partial_paths: Sequence[str],
+                           plain_out: str, device="cuda") -> Dict:
+    """The fusion over a document: per ciphertext iNTT(c0 + Σ_i p_i), then
+    decode and trim each layer to prod(shape) (the output contract of
+    :func:`decrypt_weights`)."""
+    sch = load_scheme(cc_path, device)
+    enc, cts = _doc_batch(sch, enc_in)
+    l, n = cts.nlimbs, sch.params.n
+    partials = []
+    for p in partial_paths:
+        doc = ser.load_json(p)
+        flat = [ser._b64_to_arr(s, (l, n)) for _, _, _, s in _doc_fields(doc)]
+        partials.append(convert.residues(np.stack(flat), sch.device))
+    coeffs = th.fuse_partial_decryptions(sch.ctx, cts, partials).cpu()
+    vals = [rlwe.decode_coeffs(sch.ctx, c, cts, sch.encoder) for c in coeffs]
+    out = {"weights_summary": []}
+    i = 0
+    for entry in enc["weights_summary"]:
+        nv = len(entry["values"])
+        size = int(np.prod(entry["shape"]))
+        flat = np.concatenate(vals[i + 2 : i + 2 + nv])[:size]
+        out["weights_summary"].append({
+            "layer": entry["layer"], "shape": entry["shape"],
+            "mean": float(vals[i][0]), "std_dev": float(vals[i + 1][0]),
+            "values": [float(x) for x in flat]})
+        i += 2 + nv
+    with open(plain_out, "w") as f:
+        json.dump(out, f)
     return out

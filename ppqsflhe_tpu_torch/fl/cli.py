@@ -1,5 +1,6 @@
-"""CLI for the seven FL tools of the port, with the reference binaries'
-positional contracts (twin of ``ppqsflhe_tpu.fl.cli``):
+"""CLI for the FL tools of the port, with the JAX CLI's positional
+contracts and flags (twin of ``ppqsflhe_tpu.fl.cli``). The seven reference
+binaries:
 
   python -m ppqsflhe_tpu_torch.fl.cli genCC <config_cc.json> <cc_out>
   python -m ppqsflhe_tpu_torch.fl.cli keyGen <cc> <pubkey_out> <privkey_out>
@@ -8,6 +9,16 @@ positional contracts (twin of ``ppqsflhe_tpu.fl.cli``):
   python -m ppqsflhe_tpu_torch.fl.cli decryptModelWeights <cc> <privkey> <enc_in> <plain_out>
   python -m ppqsflhe_tpu_torch.fl.cli changeCipherDomain <cc> <rekey> <enc_in> <enc_out> [target_pk]
   python -m ppqsflhe_tpu_torch.fl.cli aggregateEncryptedWeights <cc> <agg_out> <enc_in1> <enc_in2> [...]
+
+The threshold multiparty tools (ckks/threshold.py):
+
+  python -m ppqsflhe_tpu_torch.fl.cli thresholdKeyGen <cc> <crs_seed> <share_out> <bshare_out>
+  python -m ppqsflhe_tpu_torch.fl.cli thresholdCombine <cc> <crs_seed> <joint_pub_out> <bshare1> [...]
+  python -m ppqsflhe_tpu_torch.fl.cli thresholdPartialDecrypt <cc> <share> <enc_in> <partial_out>
+  python -m ppqsflhe_tpu_torch.fl.cli thresholdShamirShare <cc> <share> <n_parties> <t> <out1> ... <outN>
+  python -m ppqsflhe_tpu_torch.fl.cli thresholdAggregateShares <cc> <sigma_out> <in1> [...]
+  python -m ppqsflhe_tpu_torch.fl.cli thresholdPartialDecryptT <cc> <sigma> <enc_in> <partial_out> <party_id> <j1> ... <jt>
+  python -m ppqsflhe_tpu_torch.fl.cli thresholdFuseDecrypt <cc> <enc_in> <plain_out> <partial1> [...]
 
 ``--device`` (before the subcommand) picks where the tools compute: the card
 (``cuda``, the default) or ``cpu``.
@@ -81,6 +92,52 @@ def main(argv=None) -> int:
                    help="free ÷N (power-of-two client counts) + LevelReduce")
     s.add_argument("--wire", choices=("native", "openfhe"), default="native")
 
+    s = sub.add_parser("thresholdKeyGen")
+    s.add_argument("cc")
+    s.add_argument("crs_seed", type=int)
+    s.add_argument("share_out")
+    s.add_argument("bshare_out")
+
+    s = sub.add_parser("thresholdCombine")
+    s.add_argument("cc")
+    s.add_argument("crs_seed", type=int)
+    s.add_argument("joint_pub_out")
+    s.add_argument("bshares", nargs="+")
+
+    s = sub.add_parser("thresholdPartialDecrypt")
+    s.add_argument("cc")
+    s.add_argument("share")
+    s.add_argument("enc_in")
+    s.add_argument("partial_out")
+    s.add_argument("--smudging-bits", type=int, default=None)
+
+    s = sub.add_parser("thresholdShamirShare")
+    s.add_argument("cc")
+    s.add_argument("priv_share")
+    s.add_argument("n_parties", type=int)
+    s.add_argument("threshold", type=int)
+    s.add_argument("share_outs", nargs="+", help="one output path per recipient party (1..N)")
+
+    s = sub.add_parser("thresholdAggregateShares")
+    s.add_argument("cc")
+    s.add_argument("sigma_out")
+    s.add_argument("incoming", nargs="+")
+
+    s = sub.add_parser("thresholdPartialDecryptT")
+    s.add_argument("cc")
+    s.add_argument("sigma")
+    s.add_argument("enc_in")
+    s.add_argument("partial_out")
+    s.add_argument("party_id", type=int)
+    s.add_argument("party_set", nargs="+", type=int, help="the t participating party ids")
+    s.add_argument("--smudging-bits", type=int, default=None)
+
+    s = sub.add_parser("thresholdFuseDecrypt")
+    s.add_argument("cc")
+    s.add_argument("enc_in")
+    s.add_argument("plain_out")
+    s.add_argument("partials", nargs="+")
+
     args = p.parse_args(argv)
     dev = args.device
     t0 = time.time()
@@ -105,6 +162,28 @@ def main(argv=None) -> int:
     elif args.cmd == "aggregateEncryptedWeights":
         api.aggregate_encrypted_weights(args.cc, args.enc_in, args.agg_out, lazy=args.lazy,
                                         wire=args.wire, device=dev)
+    elif args.cmd == "thresholdKeyGen":
+        api.threshold_keygen(args.cc, args.crs_seed, args.share_out, args.bshare_out,
+                             seed=args.seed, device=dev)
+    elif args.cmd == "thresholdCombine":
+        api.threshold_combine_pubkey(args.cc, args.crs_seed, args.bshares, args.joint_pub_out,
+                                     device=dev)
+    elif args.cmd == "thresholdPartialDecrypt":
+        api.threshold_partial_decrypt(args.cc, args.share, args.enc_in, args.partial_out,
+                                      seed=args.seed, smudging_bits=args.smudging_bits,
+                                      device=dev)
+    elif args.cmd == "thresholdShamirShare":
+        api.threshold_shamir_share(args.cc, args.priv_share, args.n_parties, args.threshold,
+                                   args.share_outs, seed=args.seed, device=dev)
+    elif args.cmd == "thresholdAggregateShares":
+        api.threshold_aggregate_shares(args.cc, args.incoming, args.sigma_out, device=dev)
+    elif args.cmd == "thresholdPartialDecryptT":
+        api.threshold_partial_decrypt_t(args.cc, args.sigma, args.enc_in, args.partial_out,
+                                        args.party_set, args.party_id, seed=args.seed,
+                                        smudging_bits=args.smudging_bits, device=dev)
+    elif args.cmd == "thresholdFuseDecrypt":
+        api.threshold_fuse_decrypt(args.cc, args.enc_in, args.partials, args.plain_out,
+                                   device=dev)
     print(f"[{args.cmd}] done in {time.time() - t0:.2f}s", file=sys.stderr)
     return 0
 

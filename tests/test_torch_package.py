@@ -17,6 +17,7 @@ MODULES = [
     "ppqsflhe_tpu_torch.core.ntt",
     "ppqsflhe_tpu_torch.core.rns",
     "ppqsflhe_tpu_torch.core.sampling",
+    "ppqsflhe_tpu_torch.core.jax_prng",
     "ppqsflhe_tpu_torch.ops.mxu_ntt",
     "ppqsflhe_tpu_torch.ops.fourstep",
     "ppqsflhe_tpu_torch.ops.cuda_lib",
@@ -32,11 +33,16 @@ MODULES = [
     "ppqsflhe_tpu_torch.ckks.rlwe",
     "ppqsflhe_tpu_torch.ckks.scheme",
     "ppqsflhe_tpu_torch.ckks.serialize",
+    "ppqsflhe_tpu_torch.ckks.noise",
+    "ppqsflhe_tpu_torch.ckks.multikey",
+    "ppqsflhe_tpu_torch.ckks.threshold",
     "ppqsflhe_tpu_torch.fl.api",
     "ppqsflhe_tpu_torch.fl.cli",
     "ppqsflhe_tpu_torch.probes",
     "ppqsflhe_tpu_torch.probes.mxu_vpu_overlap",
     "ppqsflhe_tpu_torch.probes.kernel_report",
+    "ppqsflhe_tpu_torch.bench",
+    "ppqsflhe_tpu_torch.bench.multikey",
     "ppqsflhe_tpu_torch.convert",
 ]
 
