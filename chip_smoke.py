@@ -48,7 +48,12 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   same gate at 9 parties, {1..8} does not (max error > 1);
 - **kernel 7**, the tensor-core / integer-chain overlap probe of
   ``probes/mxu_vpu_overlap.py`` at its shapes (K=64 cells, m=256, nd=6,
-  c=256): µs/cell for its four orders, scan-marginal over chained launches.
+  c=256): µs/cell for its four orders, scan-marginal over chained launches
+  (each chain one CUDA graph, every launch's output held to the plain
+  version after every replay), the ``wgmma`` design's split (CTAs a cell,
+  warpgroups a CTA), the mxu order's int8 rate and the share of the
+  possible overlap. Its JSON rows carry the scan's µs per launch as
+  ``ms`` (``"timing": "scan"``) and the profiler's per call beside it.
 
 For each path:
 
@@ -88,7 +93,9 @@ T/s); kernels 1 and 1b are checked per transform (and once against the digit
 transform) and, on the NTT loop's inputs, per stage. No PyTorch
 call computes an NTT, base extension or key inner product mod q, so
 ``library_ms`` is null in those rows; the probe's mxu row carries the time
-of ``torch._int_mm`` over the same cells (one call per cell).
+of one ``torch._int_mm`` over the same cells (their x permuted into one
+operand before the timed window), the faster of that operand stored
+row-major and stored K-major.
 
 Then it prints a JSON line of per-kernel results, the card line, and finally
 ``{"ok": true, "device": {...}}``. Any failure raises (exit code ≠ 0). Needs
@@ -1763,33 +1770,75 @@ def probe_work(kind, x8, m):
     return K * W * c + m * W + out, 2 * K * m * W * c
 
 
+def probe_library(x8, a, m, card):
+    """The mxu order's library yardstick: one ``torch._int_mm(A[:m], B)``
+    over all K cells, with B = the (W, K·c) operand Xp stored row-major and
+    stored K-major (Xp transposed), each made before the timed window and
+    timed on a line of its own; then K per-cell calls. → (device ms of the
+    faster one-call layout, its output as (K, m, c) uint32 values)."""
+    import torch
+
+    K, W, c = x8.shape
+    am = a[:m].contiguous()
+    permute = lambda: x8.permute(1, 0, 2).reshape(W, K * c).contiguous()
+    xp = permute()
+    transpose = lambda: xp.t().contiguous()
+    xk = transpose().t()                    # (W, K·c), strides (1, W): K-major
+    outs = {}
+    for tag, b in (("row-major", xp), ("K-major", xk)):
+        one = lambda b=b: torch._int_mm(am, b)
+        outs[tag] = (device_ms(one, 20), cuda_ms(one, 20), one())
+    cells = [x8[k] for k in range(K)]
+    per_cell = device_ms(lambda: [torch._int_mm(am, xc) for xc in cells], 3)
+    if not torch.equal(outs["row-major"][2], outs["K-major"][2]):
+        raise AssertionError("torch._int_mm differs between B row-major and B K-major")
+    for tag, (dev, wall, _) in outs.items():
+        print(f"[probe] library: one torch._int_mm(A[:m], B) over all {K} cells, B {tag}: "
+              f"device {show_us(dev)}, wall {wall * 1e3:.1f} us ({card})")
+    print(f"[probe] library operands (outside those windows): the permute that makes Xp "
+          f"{show_us(device_ms(permute, 20))}, its transpose to K-major "
+          f"{show_us(device_ms(transpose, 20))}; {K} calls, one per cell: device "
+          f"{show_us(per_cell)} per set ({card})")
+    timed = [(dev, tag) for tag, (dev, _, _) in outs.items() if dev is not None]
+    best = min(timed) if timed else (None, "none")
+    print(f"[probe] library_ms: the faster layout, {best[1]}: {show_us(best[0])}")
+    want = outs["row-major"][2].reshape(m, K, c).permute(1, 0, 2).to(torch.int64) & 0xFFFFFFFF
+    return best[0], want
+
+
 def probe_phase(card, device):
     """Kernel 7 at the TPU probe's shapes: bit-equal to its plain version
-    for the four kinds with carry 0 and non-zero, torch._int_mm as the mxu
-    kind's library call, then µs/cell scan-marginally (the main path)."""
+    for the four kinds with carry 0, a chained carry and -91, in every call
+    that is timed or profiled too; torch._int_mm (one call over all cells)
+    as the mxu kind's library call; then µs/cell scan-marginally (the main
+    path), which the JSON rows carry as ``ms``."""
     import torch
 
     from ppqsflhe_tpu_torch.probes import mxu_vpu_overlap as pr
 
     x8, a = pr.inputs(device, seed=0)
+    K, W, c = x8.shape
     m = pr.M
-    cells = [x8[k] for k in range(x8.shape[0])]
-    am = a[:m].contiguous()
-    lib = lambda: [torch._int_mm(am, xk) for xk in cells]
-    lib_dev = device_ms(lib, 3)
-    lib_wall = cuda_ms(lib, 3)
-    print(f"[probe] library: {len(cells)} torch._int_mm calls (one per cell): device "
-          f"{show_us(lib_dev)}, wall {lib_wall * 1e3:.1f} us per set ({card})")
-    want_mxu = torch.stack([c.to(torch.int64) & 0xFFFFFFFF for c in lib()])
+    lib_ms, want_mxu = probe_library(x8, a, m, card)
     cases = KernelCases(card)
     crafted = torch.tensor([[[0x1A5]]], dtype=torch.int32, device=device)   # carry -91
     for kind in pr.KINDS:
+        want = pr.probe_plain(kind, x8, a, None, m)
         got = pr.probe(kind, x8, a, None, m)
-        cases.check(f"overlap_probe ({kind}, K={x8.shape[0]}, m={m}, nd={pr.ND}, c={pr.C})",
-                    "overlap_probe", SRC_PROBE, K7, got, pr.probe_plain(kind, x8, a, None, m),
-                    lambda: pr.probe(kind, x8, a, None, m),
-                    lambda: pr.probe_plain(kind, x8, a, None, m), 20, probe_work(kind, x8, m),
-                    library_ms=(lib_dev or lib_wall) if kind == "mxu" else None)
+        # every output of the timed and profiled calls is kept (its own
+        # buffer) and compared; none of them can reuse a freed buffer that
+        # holds this answer, since every such buffer is kept or poisoned
+        kept, kept_plain = [], []
+        cases.check(f"overlap_probe ({kind}, K={K}, m={m}, nd={pr.ND}, c={pr.C})",
+                    "overlap_probe", SRC_PROBE, K7, got, want,
+                    lambda: kept.append(pr.probe(kind, x8, a, None, m)),
+                    lambda: kept_plain.append(pr.probe_plain(kind, x8, a, None, m)), 20,
+                    probe_work(kind, x8, m), library_ms=lib_ms if kind == "mxu" else None)
+        bad = sum(not torch.equal(o, want) for o in kept)
+        if bad:
+            raise AssertionError(f"overlap_probe {kind}: {bad} of the {len(kept)} timed and "
+                                 "profiled calls differ from plain")
+        print(f"[probe] {kind}: all {len(kept)} timed and profiled calls bit-equal to plain")
         for prev in (got, crafted):       # a chained carry and a non-zero one
             if not torch.equal(pr.probe(kind, x8, a, prev, m),
                                pr.probe_plain(kind, x8, a, prev, m)):
@@ -1797,8 +1846,11 @@ def probe_phase(card, device):
                                      f"{pr.carry_byte(prev)}")
         if kind == "mxu" and not torch.equal(got.to(torch.int64) & 0xFFFFFFFF, want_mxu):
             raise AssertionError("overlap_probe mxu differs from torch._int_mm")
+        for o in kept + kept_plain + [got, want]:
+            o.fill_(pr.POISON)
+        del kept, kept_plain, got, want
     print(f"[probe] kernel 7 bit-equal to its plain version for {list(pr.KINDS)} with carry 0 "
-          f"and {pr.carry_byte(crafted)}; mxu = torch._int_mm per cell")
+          f"and {pr.carry_byte(crafted)}; mxu = one torch._int_mm over all cells")
     torch.cuda.synchronize()
 
     reset_counts()
@@ -1806,13 +1858,37 @@ def probe_phase(card, device):
     launches = read_counts()
     if launches["overlap_probe"] == 0:
         raise AssertionError("the probe never launched kernel 7")
+    print(f"[probe] the main path's {launches['overlap_probe']} launches (each replay of a "
+          f"chain counted) all bit-equal to plain")
+    ctas = len(pr.cta_grid(K, m))
+    print(f"[probe] design: wgmma, {ctas // K} CTAs a cell ({ctas} CTAs), "
+          f"{pr.WARPGROUPS['consumer']} consumer + {pr.WARPGROUPS['producer']} producer "
+          f"warpgroups a CTA")
     print(f"[probe] us/cell (scan-marginal over R={pr.R_LO} and R={pr.R_HI} chained launches, "
-          f"K={x8.shape[0]} cells, one CTA each): "
-          + ", ".join(f"{k} {v:.3f}" for k, v in us.items()) + f" ({card})")
+          f"each chain one CUDA graph, K={K} cells): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in us.items()) + "; us per launch: "
+          + ", ".join(f"{k} {v * K:.2f}" for k, v in us.items()) + f" ({card})")
+    for row, kind in zip(cases.rows, pr.KINDS):
+        row.update(ms=us[kind] * K * 1e-3, timing="scan", profiler_ms=row["ms"])
+        print(f"[probe] {kind}: row ms = the scan, {us[kind] * K:.2f} us per launch; the "
+              f"profiler's per call {show_us(row['profiler_ms'])}")
+    bound_ms, _ = bound(probe_work("mxu", x8, m))
+    ops = probe_work("mxu", x8, m)[1]
+    mxu_s = us["mxu"] * K * 1e-6
+    ratio = "not measured" if lib_ms is None else f"{lib_ms * 1e-3 / mxu_s:.2f}x"
+    print(f"[probe] mxu: {bound_ms * 1e-3 / mxu_s:.1%} of its {bound_ms * 1e3:.2f} us bound; "
+          f"int8 rate {ops / mxu_s / 1e12:.1f} T/s = {ops / mxu_s / INT8_OPS:.1%} of "
+          f"{INT8_OPS / 1e12:,.0f} T/s; one torch._int_mm {show_us(lib_ms)} ({ratio} the "
+          f"kernel's time)")
     lo, hi = max(us["mxu"], us["vpu"]), us["mxu"] + us["vpu"]
-    print(f"[probe] inter {us['inter']:.3f} vs max(mxu, vpu) {lo:.3f} and mxu+vpu {hi:.3f}: "
-          f"{(hi - us['inter']) / max(hi - lo, 1e-9):.0%} of the possible overlap; serial "
-          f"{us['serial']:.3f}")
+    print(f"[probe] inter {us['inter']:.4f} vs max(mxu, vpu) {lo:.4f} and mxu+vpu {hi:.4f}: "
+          f"{(hi - us['inter']) / max(hi - lo, 1e-9):.0%} of the possible overlap (the TPU "
+          f"script's reading); serial {us['serial']:.4f}")
+    # serial runs both chains exposed, inter only chain(dot1): chain(dot0)
+    # is (serial - mxu) / 2 and inter hides serial - inter of it
+    hideable = (us["serial"] - us["mxu"]) / 2
+    print(f"[probe] inter hides {(us['serial'] - us['inter']) / max(hideable, 1e-9):.0%} of "
+          f"chain(dot0) ({hideable:.4f} us/cell) behind dot1's products ({card})")
     return cases.take_launches(launches)
 
 

@@ -5,8 +5,15 @@ Prints, for every kernel instance under ``ppqsflhe_tpu_torch/csrc``:
 - ``[ptxas]``: the registers, spill bytes and static shared memory that
   ``nvcc -Xptxas -v`` reports for sm_90a (the build flags of
   ``ops/cuda_lib.py``, one nvcc per source, all started together);
-- ``[sass]``: the SASS instruction count of each kernel-2 instance
-  (``cuobjdump -sass`` of the built library);
+- ``[ptxas-note]``: every line ptxas prints about ``wgmma`` or
+  ``setmaxnreg`` (a serialization of the wgmmas, an ignored register
+  count);
+- ``[sass]``: the SASS instruction count of each kernel-2 instance, and for
+  each kernel-7 instance (``overlap_probe_kernel``) its count of ``IGMMA``
+  (the int8 ``wgmma``, which must be > 0) and ``IMMA`` (``mma.sync``, which
+  must be 0) (``cuobjdump -sass`` of the built library);
+- ``[sass-wgmma]``: kernel 7's ``IGMMA`` and ``WARPGROUP`` instructions in
+  program order, its ``wgmma`` group discipline as compiled;
 
 then kernel 2's device time at the N=2^16 server round's two shapes (the
 full-level first digit, 2 → 3 limbs with its constant folded, over 27
@@ -51,12 +58,13 @@ def _demangle(names):
     return dict(zip(names, out))
 
 
-def ptxas_report() -> list:
-    """(source, kernel, registers, spill stores, spill loads, smem bytes) per
-    kernel instance."""
+def ptxas_report() -> tuple:
+    """(rows, notes): rows of (source, kernel, registers, spill stores, spill
+    loads, smem bytes) per kernel instance; notes, ptxas's lines about
+    ``wgmma`` or ``setmaxnreg`` as (source, line)."""
     from ..ops import cuda_lib
 
-    rows = []
+    rows, notes = [], []
     with tempfile.TemporaryDirectory() as tmp:
         procs = [(s, subprocess.Popen(
             [cuda_lib.nvcc(), *cuda_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c",
@@ -69,6 +77,8 @@ def ptxas_report() -> list:
                 raise RuntimeError(f"nvcc -Xptxas -v {src} failed:\n{err[-4000:]}")
             entry, spill = None, (0, 0)
             for line in err.splitlines():
+                if re.search(r"wgmma|setmaxnreg", line, re.IGNORECASE):
+                    notes.append((src, line.strip()))
                 m = re.search(r"Compiling entry function '(\S+)'", line)
                 if m:
                     entry = m.group(1)
@@ -82,21 +92,60 @@ def ptxas_report() -> list:
                                  int(smem.group(1)) if smem else 0))
                     entry, spill = None, (0, 0)
     names = _demangle([r[1] for r in rows])
-    return [(r[0], names.get(r[1], r[1])) + r[2:] for r in rows]
+    return [(r[0], names.get(r[1], r[1])) + r[2:] for r in rows], notes
 
 
-def sass_counts(lib: Path, symbol: str) -> dict:
-    """SASS instructions per kernel whose demangled name holds ``symbol``."""
-    text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True).stdout
+def sass_opcodes(text: str) -> dict:
+    """Per kernel (mangled name) of a ``cuobjdump -sass`` listing, the count
+    of each opcode (its first dotted field, predicate dropped)."""
     counts, cur = {}, None
     for line in text.splitlines():
         m = re.match(r"\s*Function : (\S+)", line)
         if m:
             cur = m.group(1)
-            counts[cur] = 0
-        elif cur and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+\S", line):
-            counts[cur] += 1
+            counts[cur] = {}
+            continue
+        m = re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if cur and m:
+            counts[cur][m.group(1)] = counts[cur].get(m.group(1), 0) + 1
+    return counts
+
+
+def sass_wgmma_sequence(text: str, symbol: str) -> dict:
+    """Per kernel (demangled) holding ``symbol``, its ``IGMMA`` and
+    ``WARPGROUP`` instructions in program order, runs of IGMMA collapsed:
+    the wgmma group discipline as compiled (``WARPGROUP.ARRIVE`` is
+    wgmma.fence, ``WARPGROUP.DEPBAR.LE gsb0, n`` a wait_group n)."""
+    seqs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = m.group(1)
+            seqs[cur] = []
+            continue
+        m = re.match(r"\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?((?:IGMMA|WARPGROUP)\S*)"
+                     r"([^;]*);", line)
+        if cur and m:
+            op = m.group(2)
+            if op.startswith("IGMMA"):
+                if seqs[cur] and seqs[cur][-1][0] == "IGMMA":
+                    seqs[cur][-1][1] += 1
+                else:
+                    seqs[cur].append(["IGMMA", 1, m.group(1)])
+            else:
+                arg = m.group(3).strip().split(",")[-1].strip() if "DEPBAR" in op else ""
+                seqs[cur].append([op + (f" {arg}" if arg else ""), 0, m.group(1)])
+    names = _demangle(list(seqs))
+    return {names[k]: " ".join(f"{op}x{n}@{pc}" if n else f"{op}@{pc}" for op, n, pc in v)
+            for k, v in seqs.items() if symbol in names[k]}
+
+
+def sass_counts(lib: Path, symbol: str) -> dict:
+    """Opcode counts (:func:`sass_opcodes`) per kernel whose demangled name
+    holds ``symbol``."""
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts = sass_opcodes(text)
     names = _demangle(list(counts))
     return {names[k]: v for k, v in counts.items() if symbol in names[k]}
 
@@ -171,13 +220,28 @@ def main() -> None:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.splitlines()[0]
     print(f"[card] {card}")
-    for src, name, regs, st, ld, smem in ptxas_report():
+    rows, notes = ptxas_report()
+    for src, name, regs, st, ld, smem in rows:
         print(f"[ptxas] {src} {name}: {regs} registers, spill {st}/{ld} bytes (stores/loads), "
               f"{smem} bytes static smem")
+    for src, line in notes:
+        print(f"[ptxas-note] {src}: {line}")
+    if not any(src == "overlap_probe.cu" for src, _ in notes):
+        print("[ptxas-note] overlap_probe.cu: no line about wgmma or setmaxnreg")
     lib = cuda_lib.build()
     cuda_lib.library()
-    for name, count in sass_counts(lib, "base_extend").items():
-        print(f"[sass] {name}: {count} instructions")
+    for name, ops in sass_counts(lib, "base_extend").items():
+        print(f"[sass] {name}: {sum(ops.values())} instructions")
+    for name, ops in sass_counts(lib, "overlap_probe_kernel").items():
+        igmma, imma = ops.get("IGMMA", 0), ops.get("IMMA", 0)
+        vpu = int(re.search(r"<\(int\)(\d+)>", name).group(1)) & 3 == 1   # no products
+        ok = imma == 0 and (igmma == 0 if vpu else igmma > 0)
+        print(f"[sass] {name}: {sum(ops.values())} instructions, IGMMA {igmma}, IMMA {imma}"
+              + ("" if ok else " -- expected IMMA == 0 and IGMMA > 0 (0 in the vpu order)"))
+    text = subprocess.run([_tool("cuobjdump"), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    for name, seq in sass_wgmma_sequence(text, "overlap_probe_kernel").items():
+        print(f"[sass-wgmma] {name.split('>(')[0]}>: {seq or 'none'}")
     split_report(card)
 
 

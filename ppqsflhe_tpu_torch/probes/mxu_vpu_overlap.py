@@ -9,7 +9,8 @@ int32 tensor) of one of four orders:
 - ``mxu``:    [A[:m] @ x0, A[:m] @ x1] (int8 products, int32 sums);
 - ``vpu``:    :func:`vpu_chain` of x[:m] sign-extended, per half;
 - ``serial``: dot0; chain(dot0); dot1; chain(dot1);
-- ``inter``:  dot0; dot1; chain(dot0); chain(dot1).
+- ``inter``:  dot0; dot1; chain(dot0); chain(dot1) (the kernel runs
+  chain(dot0) in slices between dot1's product issues).
 
 ``serial`` and ``inter`` give the same output; the order is what is timed.
 ``carry`` is the previous call's output: the low byte of its element
@@ -19,12 +20,17 @@ all nd·m rows of A and sliced the m rows it stored (``:38-40``,
 ``:47-53``); the port computes only the m rows that reach the output, 2·m·
 (nd·m)·c int8 operations per cell.
 
-:func:`probe` launches ``csrc/overlap_probe.cu`` (one CTA per cell: at
-K=64 the call fills 64 of the H100's 132 SMs, each SM working on its cell
-for the whole launch) on CUDA tensors and runs :func:`probe_plain` on CPU
-tensors. :func:`measure` times the four kinds scan-marginally, with the TPU
-script's metric: (t(R_HI) − t(R_LO)) / (R_HI − R_LO) / K µs per cell over
-chained launches. Run on the card::
+:func:`probe` launches ``csrc/overlap_probe.cu`` on CUDA tensors and runs
+:func:`probe_plain` on CPU tensors. The kernel issues the products as
+``wgmma`` from shared memory: each cell's m rows are split over m/128 CTAs
+(:func:`cta_grid`: two a cell at m=256, so K=64 cells fill 128 of the
+H100's 132 SMs), each CTA holding two consumer warpgroups (64 rows each)
+and one producer warpgroup (:data:`WARPGROUPS`); :func:`check_kernel_shapes`
+states which shapes it takes. :func:`measure` times the four kinds
+scan-marginally, with the TPU script's metric: (t(R_HI) − t(R_LO)) /
+(R_HI − R_LO) / K µs per cell over chained launches, each chain one CUDA
+graph whose every output is held to :func:`probe_plain` after every
+replay. Run on the card::
 
     python -m ppqsflhe_tpu_torch.probes.mxu_vpu_overlap
 """
@@ -36,10 +42,13 @@ import torch
 from ..ops import cuda_lib
 
 M, ND, C, K_CELLS = 256, 6, 256, 64      # the TPU probe's shapes
+BM, KC = 128, 128                        # kernel 7: rows per CTA, contraction bytes per step
+WARPGROUPS = {"consumer": 2, "producer": 1}   # per CTA
 R_LO, R_HI = 50, 250
 KINDS = ("mxu", "vpu", "serial", "inter")
 ROUNDS = 20
 _MASK = 0xFFFFFFFF
+POISON = 0x5A5A5A5A                      # written over a checked output
 launches = 0
 
 
@@ -82,23 +91,48 @@ def probe_plain(kind: str, x8: torch.Tensor, a: torch.Tensor,
     return _bits32(p if kind == "mxu" else vpu_chain(p))
 
 
+def check_kernel_shapes(K: int, W: int, m: int, c: int) -> None:
+    """Raise ValueError unless kernel 7 takes x8 (K, W, c) at m output rows:
+    c == 256 (two halves of 128 columns), m a positive multiple of 128 (the
+    rows of one CTA), W a multiple of 128 (one contraction step), m <= W."""
+    if K < 1 or c != 2 * 128 or m < BM or m % BM or W % KC or m > W:
+        raise ValueError(f"probe kernel needs K >= 1, c == 256, m a positive multiple of {BM}, "
+                         f"W a multiple of {KC} and m <= W; got K={K}, W={W}, m={m}, c={c}")
+
+
+def cta_grid(K: int, m: int) -> list:
+    """(cell, first output row) of each CTA, in blockIdx order: the m // 128
+    CTAs of a cell are adjacent."""
+    nb = m // BM
+    return [(b // nb, (b % nb) * BM) for b in range(K * nb)]
+
+
 def probe(kind: str, x8: torch.Tensor, a: torch.Tensor, carry: torch.Tensor | None = None,
           m: int = M) -> torch.Tensor:
     """Kernel 7 on CUDA tensors (the plain version on CPU tensors): x8
     (K, W, c) int8 with W = nd·m, a (W, W) int8, carry the previous output
-    (K', m, c) int32 or None. → (K, m, c) int32 holding uint32 bits."""
+    (K', m, c) int32 or None. → (K, m, c) int32 holding uint32 bits. A
+    launch captured in a CUDA graph is counted by :func:`chained_ms` at each
+    replay, not here."""
     global launches
     if not x8.is_cuda:
         return probe_plain(kind, x8, a, carry, m)
     if kind not in KINDS:
         raise ValueError(f"kind={kind!r}: one of {KINDS}")
+    out = _launch(KINDS.index(kind), x8, a, carry, m)
+    if not torch.cuda.is_current_stream_capturing():
+        launches += 1
+    return out
+
+
+def _launch(kind_code: int, x8, a, carry, m):
     K, W, c = x8.shape
     for name, t, dt in (("x8", x8, torch.int8), ("a", a, torch.int8)):
         if t.device != x8.device or t.dtype != dt or not t.is_contiguous():
             raise ValueError(f"probe {name}: expected a contiguous {dt} tensor on {x8.device}")
-    if a.shape != (W, W) or c != 256 or m % 64 or W % 64 or not m <= W:
-        raise ValueError(f"probe kernel needs a ({W}, {W}), c == 256, m and W multiples of "
-                         f"64, m <= W; got a {tuple(a.shape)}, c={c}, m={m}, W={W}")
+    if a.shape != (W, W):
+        raise ValueError(f"probe kernel needs a ({W}, {W}); got a {tuple(a.shape)}")
+    check_kernel_shapes(K, W, m, c)
     if carry is None:
         carry = torch.zeros(1, dtype=torch.int32, device=x8.device)
     if carry.device != x8.device or carry.dtype != torch.int32 or not carry.is_contiguous():
@@ -107,9 +141,8 @@ def probe(kind: str, x8: torch.Tensor, a: torch.Tensor, carry: torch.Tensor | No
     lib = cuda_lib.library()
     with torch.cuda.device(x8.device):
         code = lib.ppq_overlap_probe(x8.data_ptr(), a.data_ptr(), carry.data_ptr(),
-                                     out.data_ptr(), KINDS.index(kind), K, W, m, c,
+                                     out.data_ptr(), kind_code, K, W, m, c,
                                      cuda_lib.stream_of(x8))
-    launches += 1
     cuda_lib.check(code, "ppq_overlap_probe")
     return out
 
@@ -125,31 +158,65 @@ def inputs(device, seed: int = 0):
     return torch.from_numpy(x8).to(device), torch.from_numpy(a).to(device)
 
 
+def check_chain(kind: str, x8, a, outs, m: int = M, plain=None) -> None:
+    """Hold each of ``outs``, the outputs of chained launches from carry 0
+    (each carrying the one before), to :func:`probe_plain` at its carry
+    (bit-equal); ``plain`` caches the plain output per carry byte."""
+    plain = {} if plain is None else plain
+    prev = None
+    for i, out in enumerate(outs):
+        cb = carry_byte(prev)
+        if cb not in plain:
+            plain[cb] = probe_plain(kind, x8, a, prev, m)
+        if not torch.equal(out, plain[cb]):
+            raise AssertionError(f"kernel 7 ({kind}): chained launch {i + 1} of {len(outs)} "
+                                 f"(carry {cb}) differs from probe_plain")
+        prev = out
+
+
 def chained_ms(kind: str, x8, a, r: int, m: int = M, reps: int = 3) -> float:
-    """Best of ``reps`` CUDA-event times (ms) of ``r`` launches, each
-    carrying the previous one's output."""
-    best = None
-    for _ in range(reps):
+    """Best of ``reps`` CUDA-event times (ms) of ``r`` chained launches of
+    the ``kind`` order, each carrying the previous one's output, captured
+    once in a CUDA graph and replayed after one untimed replay: the chain
+    the TPU script scans, without the host's cost per launch (the wrapper's
+    Python takes longer than one launch of the ``wgmma`` kernel, so an eager
+    chain would time the host). Each launch writes an output of its own;
+    after every replay all ``r`` are held to the plain version
+    (:func:`check_chain`) and then overwritten with :data:`POISON`, so
+    every launch of the next replay must write its output anew. Each replay
+    adds its ``r`` launches to ``launches``."""
+    global launches
+    probe(kind, x8, a, None, m)                 # outside the capture: build, attributes
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = []
+        for _ in range(r):
+            outs.append(probe(kind, x8, a, outs[-1] if outs else None, m))
+    best, plain = None, {}
+    for rep in range(reps + 1):
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
-        prev = None
-        for _ in range(r):
-            prev = probe(kind, x8, a, prev, m)
+        graph.replay()
         stop.record()
         torch.cuda.synchronize()
-        ms = start.elapsed_time(stop)
-        best = ms if best is None else min(best, ms)
+        launches += r
+        check_chain(kind, x8, a, outs, m, plain)
+        for out in outs:
+            out.fill_(POISON)
+        if rep:
+            ms = start.elapsed_time(stop)
+            best = ms if best is None else min(best, ms)
+    del graph, outs
     return best
 
 
-def measure(x8, a, m: int = M) -> dict:
+def measure(x8, a, m: int = M, kinds=KINDS) -> dict:
     """µs per cell of each kind, scan-marginal over R_LO and R_HI chained
-    launches (after one warm-up chain of each length)."""
+    launches (each chain a replayed CUDA graph, :func:`chained_ms`)."""
     us = {}
-    for kind in KINDS:
-        chained_ms(kind, x8, a, R_LO, m, reps=1)
-        chained_ms(kind, x8, a, R_HI, m, reps=1)
+    for kind in kinds:
         t_lo, t_hi = chained_ms(kind, x8, a, R_LO, m), chained_ms(kind, x8, a, R_HI, m)
         us[kind] = (t_hi - t_lo) / (R_HI - R_LO) / x8.shape[0] * 1e3
     return us
@@ -159,8 +226,12 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("mxu_vpu_overlap: needs a CUDA GPU")
     x8, a = inputs(torch.device("cuda"))
+    card = torch.cuda.get_device_name(0)
+    for kind in KINDS:
+        if not torch.equal(probe(kind, x8, a), probe_plain(kind, x8, a)):
+            raise SystemExit(f"mxu_vpu_overlap: kernel 7 ({kind}) differs from probe_plain")
     for kind, v in measure(x8, a).items():
-        print(f"{kind:7s}: {v:8.2f} us/cell ({torch.cuda.get_device_name(0)})")
+        print(f"{kind:7s}: {v:8.3f} us/cell, {v * x8.shape[0]:8.1f} us per launch ({card})")
 
 
 if __name__ == "__main__":
