@@ -53,7 +53,26 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   version after every replay), the ``wgmma`` design's split (CTAs a cell,
   warpgroups a CTA), the mxu order's int8 rate and the share of the
   possible overlap. Its JSON rows carry the scan's µs per launch as
-  ``ms`` (``"timing": "scan"``) and the profiler's per call beside it.
+  ``ms`` (``"timing": "scan"``) and the profiler's per call beside it;
+- **the orchestrated FL loop** (``ppqsflhe_tpu_torch.orchestration``,
+  local GRU training at full width, the artifact server, the rounds) in
+  three runs, each fail-fast in a temporary directory on numpy-seeded
+  synthetic CSVs (hourly over July 2024; the reference's are not in the
+  repository): A, ``configs/oConfig.example.json`` (PRE, 2 clients over
+  http, lazy levels, radix-2) cut to 2 rounds (the second through
+  ``resume``) and 3 epochs; B, the twin of ``bench_orchestrated.py``
+  (``bench/orchestrated.py``: reference chain, PQWD wire, no training); C,
+  ``configs/oConfig.threshold.example.json`` (4 clients) for 1 round of 3
+  epochs with ``"ntt_backend": "fourstep"`` added. Gates: no client dropped
+  (a kernel failure must not pass as a dropout); each client's decrypt
+  equals the mean of the exported weights within 1e-3 (C: within the
+  flood's σ, phase 8's gate) and the clients agree; round 2 of A starts
+  from round 1's decrypt; round 1 lowers every client's validation MSE;
+  the GRU forward on the card is within 1e-4 of the CPU's; kernels 2 and 3
+  (A, B) and 1 (C) launched and are bit-equal at the run's shapes. Then
+  each round's per-step table (the step log), ms per training step and
+  epoch, and the device's idle share over one epoch and one warm round
+  of B.
 
 For each path:
 
@@ -707,9 +726,25 @@ def median_ms(fn, warmup: int):
     return times
 
 
-def busy_line(tag, fn, wall_ms):
-    """Device time by kernel for one call of ``fn`` against its wall time."""
-    evs = device_events(fn)
+def device_events_once(fn):
+    """The device activities of one call of ``fn`` from one CUDA-only
+    profile, read from the raw kineto events: a training epoch launches
+    ~100,000 kernels, and building the profiler's event tree for them took
+    25 s (70 times the raw read)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name(), e.duration_ns() / 1e3) for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def busy_line(tag, fn, wall_ms, once=False):
+    """Device time by kernel for one call of ``fn`` against its wall time
+    (``once``: from :func:`device_events_once`)."""
+    evs = device_events_once(fn) if once else device_events(fn)
     if not evs:
         print(f"[busy {tag}] not measured: the profiler saw no device activity")
         return
@@ -722,10 +757,10 @@ def busy_line(tag, fn, wall_ms):
         else:
             by[key] += us
     busy = sum(by.values()) + other
-    parts = ", ".join(f"{k} {v / 1e3:.3f}" for k, v in by.items() if v)
+    parts = [f"{k} {v / 1e3:.3f}" for k, v in by.items() if v] + [f"other ops {other / 1e3:.3f} ms"]
     print(f"[busy {tag}] device {busy / 1e3:.3f} ms of {wall_ms:.3f} ms wall "
-          f"(idle {max(0.0, 1 - busy / 1e3 / wall_ms):.1%}): {parts}, other ops "
-          f"{other / 1e3:.3f} ms, {len(evs)} device activities")
+          f"(idle {max(0.0, 1 - busy / 1e3 / wall_ms):.1%}): {', '.join(parts)}, {len(evs)} "
+          f"device activities")
 
 
 def profile_table(tag, fn):
@@ -1892,6 +1927,364 @@ def probe_phase(card, device):
     return cases.take_launches(launches)
 
 
+# ---------------------------------------------------------------------------
+# Path 10: the orchestrated FL loop (training, artifact server, rounds)
+# ---------------------------------------------------------------------------
+
+ORCH_HOURS = 31 * 24     # the synthetic CSVs: hourly, 2024-07-01 to 2024-07-31
+ORCH_EPOCHS = 3          # depth cut: the example configs say 100 (patience 4)
+ORCH_BATCH = 32
+
+
+def write_series(path, seed):
+    """One client's training CSV in the reference layout (Timestamp as
+    DD-MM-YYYY HH:MM, Data): hourly over July 2024, a daily sine plus
+    normal(0, 2) noise from ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    ts = np.datetime64("2024-07-01T00:00") + np.arange(ORCH_HOURS).astype("timedelta64[h]")
+    vals = (100 + 20 * np.sin(2 * np.pi * (np.arange(ORCH_HOURS) % 24) / 24)
+            + rng.normal(0, 2, ORCH_HOURS))
+    with open(path, "w") as f:
+        f.write("Timestamp,Data\n")
+        for t, v in zip(ts.astype(object), vals):
+            f.write(f"{t.strftime('%d-%m-%Y %H:%M')},{float(v)!r}\n")
+
+
+def oconfig(name, tmp, tag, rounds, cc_extra=None):
+    """An example oConfig as written, cut to ``rounds`` and ORCH_EPOCHS,
+    with fail-fast on, its work dir under ``tmp`` and synthetic CSVs in
+    place of the reference's (not in the repository)."""
+    with open(os.path.join(REPO, "configs", name)) as f:
+        doc = json.load(f)
+    doc.update(ROUNDS=rounds, WORK_DIR=os.path.join(tmp, tag), FAIL_FAST=True)
+    doc["CC_CONFIG"] = dict(doc["CC_CONFIG"], **(cc_extra or {}))
+    clients = []
+    for i, c in enumerate(doc["CLIENT_CONFIGS"], start=1):
+        path = os.path.join(tmp, f"{tag}_client{i}.csv")
+        write_series(path, SEED + 10 * ord(tag[0]) + i)
+        clients.append(dict(c, data_file=path, epochs=ORCH_EPOCHS))
+    doc["CLIENT_CONFIGS"] = clients
+    return doc
+
+
+def layers(path):
+    import numpy as np
+
+    with open(path) as f:
+        return [np.asarray(e["values"]) for e in json.load(f)["weights_summary"]]
+
+
+def decrypted_params(cfg, i, device):
+    """Client ``i``'s decrypted weights as the GRU's parameter list."""
+    from ppqsflhe_tpu_torch.train import gru
+
+    with open(os.path.join(cfg.work_dir, f"client_{i}", "decrypted_weights.json")) as f:
+        return gru.summary_to_params(json.load(f)["weights_summary"], device)
+
+
+def aggregate_checks(tag, cfg, results, exported, sigma=None):
+    """No client dropped in any round (a kernel failure must not turn into a
+    dropout); every client's decrypt equals the mean of the exported
+    weights — within ERR_GATE, or for threshold within the flood's σ (RMS
+    0.9–1.1 σ, max < 6 σ, phase 8's gate) — and the clients agree."""
+    import numpy as np
+
+    dropped = [r["dropped"] for r in results]
+    if any(dropped):
+        raise AssertionError(f"orchestrated {tag}: clients dropped {dropped}")
+    want = np.concatenate([np.mean(v, axis=0) for v in zip(*[layers(p) for p in exported])])
+    decs = [np.concatenate(layers(os.path.join(cfg.work_dir, f"client_{i}",
+                                               "decrypted_weights.json")))
+            for i in range(1, cfg.n_clients + 1)]
+    diff = np.stack(decs) - want          # every client's decrypt
+    mx, rms = float(np.abs(diff).max()), float(np.sqrt(np.mean(diff ** 2)))
+    agree = max(float(np.abs(d - decs[0]).max()) for d in decs)
+    if sigma is None:
+        ok, gate = mx < ERR_GATE, f"max < {ERR_GATE}"
+    else:
+        ok = 0.9 * sigma < rms < 1.1 * sigma and mx < 6 * sigma
+        gate = f"RMS in 0.9-1.1 sigma, max < 6 sigma; sigma = sqrt(P*N/6)*2^30/scale = {sigma:.4f}"
+    print(f"[orchestrated {tag}] rounds {[r['round'] for r in results]}, dropped {dropped}; "
+          f"{want.size} values: each decrypt vs mean of the exports max {mx:.3e}, RMS {rms:.3e} "
+          f"({gate}); clients agree within {agree:.3e}")
+    if not (ok and np.isfinite(mx) and agree < ERR_GATE):
+        raise AssertionError(f"orchestrated {tag}: aggregate gate failed (max {mx}, RMS {rms}, "
+                             f"agreement {agree})")
+
+
+def validation(ccfg, device):
+    """A client's validation windows, as its trainer makes them, on ``device``."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.train import data as D
+    from ppqsflhe_tpu_torch.train import trainer as T
+
+    train_df, _, fs, ts = T._frames(ccfg)
+    X, y = D.prepare_sequences(train_df, int(ccfg.get("lookback", 72)), fs, ts)
+    X_tr, y_tr, X_val, y_val = D.train_val_split(X, y)
+    dev = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(device)
+    return dev(X_tr), dev(y_tr), dev(X_val), dev(y_val)
+
+
+def training_checks(tag, cfg, results, device, warm=None):
+    """Round 1 from a fresh init lowers every client's validation MSE; with
+    ``warm`` (client → round 1's decrypted weights), round 2 started from
+    exactly those weights (its validation MSE before the first step is
+    theirs); the forward on the card matches the CPU's at the final
+    decrypt (atol 1e-4)."""
+    from ppqsflhe_tpu_torch.train import gru
+    from ppqsflhe_tpu_torch.train import trainer as T
+
+    for r in results:
+        for i, t in sorted(r["training"].items()):
+            print(f"[orchestrated {tag} round {r['round']}] client_{i}: {t['epochs']} epochs, "
+                  f"val MSE {t['val_mse_init']:.5f} -> {t['val_mse']:.5f} (best epoch "
+                  f"{t['best_epoch']}), warm start {'yes' if t['warm_start'] else 'no'}")
+    first = next(r for r in results if r["round"] == 1)
+    if len(first["training"]) != cfg.n_clients or any(
+            t["warm_start"] or not t["val_mse"] < t["val_mse_init"]
+            for t in first["training"].values()):
+        raise AssertionError(f"orchestrated {tag}: round 1 did not lower every client's "
+                             f"validation MSE from a fresh init")
+    for i, params in (warm or {}).items():
+        t = next(r for r in results if r["round"] == 2)["training"][i]
+        *_, Xv, yv = validation(cfg.client_configs[i - 1], device)
+        want = T.eval_mse(gru.Model(params).to(device), Xv, yv)
+        print(f"[orchestrated {tag} round 2] client_{i} started from round 1's decrypt: val MSE "
+              f"there {want:.6f}, the trainer's before its first step {t['val_mse_init']:.6f}")
+        if t["warm_start"] is None or abs(want - t["val_mse_init"]) > 1e-6 * abs(want):
+            raise AssertionError(f"orchestrated {tag}: client_{i} did not warm-start from "
+                                 f"round 1's decrypt")
+    *_, Xv, _ = validation(cfg.client_configs[0], device)
+    params = decrypted_params(cfg, 1, "cpu")
+    got = T.predict(gru, [p.to(device) for p in params], Xv.cpu().numpy(), device)
+    want = T.predict(gru, params, Xv.cpu().numpy(), "cpu")
+    err = float(abs(got - want).max())
+    print(f"[orchestrated {tag}] GRU forward on the card vs the CPU at client_1's final decrypt, "
+          f"{tuple(Xv.shape)} windows: max |diff| {err:.3e} (gate 1e-4)")
+    if not err < 1e-4:
+        raise AssertionError(f"orchestrated {tag}: card forward differs from the CPU's by {err}")
+
+
+def print_rounds(tag, log, card):
+    from ppqsflhe_tpu_torch.bench.orchestrated import step_tables
+
+    for t in step_tables(log):
+        print(f"[timing orchestrated {tag} round {t['round']}] {t['total_s']} s (host clock, "
+              f"step log): " + ", ".join(f"{s['step']} {s['ms']}" for s in t["steps"])
+              + f" ms ({card})")
+
+
+def orchestrated_kernel_checks(cases, cfg, device, tag):
+    """Kernels 2 and 3 (PRE) or 1 (threshold, four-step) against their plain
+    versions at the run's shapes: one client's ciphertext batch at each level
+    the run's key switches use (lazy: l = L - 1 in, l = 1 out), or over Q
+    forward and back."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks import serialize as ser
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.fl import api
+    from ppqsflhe_tpu_torch.ops import cuda_ext
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    store = os.path.join(cfg.work_dir, "server_storage")
+    sch = api.load_scheme(os.path.join(store, "CC.json"), device)
+    ctx, n, L = sch.ctx, sch.params.n, sch.params.num_q
+    mq = ctx.moduli_qp
+    doc = ser.load_enc_doc(os.path.join(store, "client_1", "encrypted_weights_c1.json"))
+    B = len(list(api._doc_fields(doc)))
+    gen = torch.Generator().manual_seed(SEED)
+    where = f"N=2^{n.bit_length() - 1}, orchestrated {tag}"
+    if cfg.protocol == "threshold":
+        idx = ctx.q_idx(L)
+        x = rand_residues([mq[i] for i in idx], (B,), n, gen, device)
+        for fwd in (True, False):
+            run = (lambda: ctx.ntt(x, idx)) if fwd else (lambda: ctx.intt(x, idx))
+            fused_case(cases, ctx.fntt, x, idx, fwd, False, run, 20,
+                       f"{L} limbs x {B} polys, {where}")
+        return
+    rk = api._load_rekey_mont(sch, os.path.join(store, "client_1", "client_1-to-2-ReKey.key"))
+    for l in (L - 1, 1) if cfg.lazy_levels else (L,):
+        groups, consts = _ks_decomp_consts(ctx, l)
+        idx_ext = ctx.q_idx(l) + ctx.p_idx()
+        steps = [(g, tuple(i for i in idx_ext if i not in g), c, (B,))
+                 for g, c in zip(groups, consts)] + [(ctx.p_idx(), ctx.q_idx(l), None, (2, B))]
+        for src, dst, pre, lead in steps:
+            ext = ctx.extender(src, dst)
+            xe = rand_residues([mq[i] for i in src], lead, n, gen, device)
+            cases.check(f"base_extend (l={l}, {len(src)}->{len(dst)} limbs, "
+                        f"{'pre' if pre is not None else 'ModDown'}, "
+                        f"{'x'.join(map(str, lead))} polys, {where})", "base_extend", SRC_EXT, K2,
+                        cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
+                        lambda: cuda_ext.fused_extend(xe, ext, pre), lambda: ext.extend(xe, pre),
+                        20, ext_work(int(np.prod(lead)), len(src), len(dst), n))
+        limbs = ctx.q_idx(l) + ctx.p_idx()
+        q, qinv, _ = ctx.limb_consts(limbs, device)
+        sel = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+        dig = rand_residues([mq[i] for i in limbs], (B, len(groups)), n, gen, device)
+        args = (dig, rk.data, sel, q, qinv)
+        run, plain = lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args)
+        cases.check(f"ks_inner_product (nd={len(groups)}, LK={len(limbs)}, l={l}, {B} polys, "
+                    f"{where})",
+                    "ks_inner_product", SRC_KS, K3, run(), plain(), run, plain, 20,
+                    ks_work(B, len(groups), len(limbs), n))
+    torch.cuda.synchronize()
+
+
+def host_ms_once(fn):
+    """Host milliseconds of one call of ``fn``, the device drained before and
+    after."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def drive(tag, cfg, need, resume=False):
+    """One drive of ``cfg`` through ``Orchestrator.run`` (its step log on
+    stderr), the launch counts set to 0 just before and read just after;
+    fails unless every kernel of ``need`` launched. Returns (results, log,
+    counts)."""
+    import torch
+
+    from ppqsflhe_tpu_torch.bench.orchestrated import run
+
+    reset_counts()
+    t0 = time.perf_counter()
+    results, log, _ = run(cfg, resume)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    missing = [k for k in need if counts[k] == 0]
+    print(f"[orchestrated {tag}] {time.perf_counter() - t0:.1f} s; kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} }")
+    if missing:
+        raise AssertionError(f"orchestrated {tag}: never launched {missing}")
+    return results, log, counts
+
+
+def orchestrated_phase(card, device):
+    """Runs A (PRE with training, 2 rounds), B (the bench twin) and C
+    (threshold at 4 clients with training, four-step NTT), each with
+    fail-fast in a temporary directory; their gates, kernel checks, warm
+    rounds, ms per training step and epoch, and the device's idle share
+    over one epoch and one warm round. Returns the kernels' rows."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from ppqsflhe_tpu_torch.bench import orchestrated
+    from ppqsflhe_tpu_torch.ckks import serialize as ser
+    from ppqsflhe_tpu_torch.ckks.threshold import DEFAULT_SMUDGING_BITS
+    from ppqsflhe_tpu_torch.fl import api
+    from ppqsflhe_tpu_torch.orchestration import cli
+    from ppqsflhe_tpu_torch.train import gru
+    from ppqsflhe_tpu_torch.train import trainer as T
+
+    dev = str(device)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the trainer's matmuls must stay float32")
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        # run A: PRE with training, round 1 then round 2 through resume
+        doc = oconfig("oConfig.example.json", tmp, "A", rounds=1)
+        cfg1 = cli.config(doc, dev)
+        res1, log1, c1 = drive("A round 1", cfg1, ("base_extend", "ks_inner_product"))
+        clients = range(1, cfg1.n_clients + 1)
+        warm = {i: decrypted_params(cfg1, i, dev) for i in clients}
+        cfg = dataclasses.replace(cfg1, rounds=2)
+        res2, log2, c2 = drive("A round 2 (resume)", cfg, ("base_extend", "ks_inner_product"),
+                               resume=True)
+        results = res1 + res2
+        aggregate_checks("A", cfg, results,
+                         [os.path.join(cfg.work_dir, f"client_{i}", "weights.json")
+                          for i in clients])
+        training_checks("A", cfg, results, device, warm)
+        print_rounds("A", log1, card)
+        print_rounds("A", log2, card)
+        cases = KernelCases(card)
+        orchestrated_kernel_checks(cases, cfg, device, "A")
+        rows += cases.take_launches({k: c1[k] + c2[k] for k in c1})
+
+        # ms per training step and epoch at full width, and the epoch's idle share
+        Xt, yt, _, _ = validation(cfg.client_configs[0], device)
+        model = gru.Model(warm[1]).to(device)
+        opt = T.make_optimizer(model)
+        shuffle, drop = torch.Generator().manual_seed(SEED), torch.Generator(
+            device=device).manual_seed(SEED)
+
+        def epoch():
+            n_steps = len(T.run_epoch(model, opt, Xt, yt, ORCH_BATCH, shuffle, drop))
+            torch.cuda.synchronize()
+            return n_steps
+
+        steps = epoch()
+        epoch_ms = host_ms_once(epoch)
+        xb, yb = Xt[:ORCH_BATCH], yt[:ORCH_BATCH]
+        step_ms = statistics.median(host_ms_once(
+            lambda: (T.train_step(model, opt, xb, yb, drop), torch.cuda.synchronize()))
+            for _ in range(5))
+        print(f"[timing orchestrated train] GRU 7 -> 64 -> 64 -> 1 (39,041 params), lookback "
+              f"{tuple(Xt.shape)[1]}, batch {ORCH_BATCH}: {step_ms:.2f} ms per step (median of "
+              f"5), {epoch_ms:.1f} ms per epoch of {steps} steps ("
+              f"{epoch_ms / steps:.2f} ms per step), synchronized host clock ({card})")
+        t0 = time.perf_counter()
+        busy_line("orchestrated epoch", epoch, epoch_ms, once=True)
+        print(f"[orchestrated] the epoch's profile took {time.perf_counter() - t0:.1f} s")
+
+        # run B: the bench twin (train=False, reference chain, PQWD wire)
+        work = os.path.join(tmp, "B")
+        os.makedirs(work)
+        cfgb = dataclasses.replace(orchestrated.config(work, dev), fail_fast=True)
+        resb, logb, cb = drive("B", cfgb, ("base_extend", "ks_inner_product"))
+        aggregate_checks("B", cfgb, resb, [os.path.join(work, f"w{i}.json") for i in (1, 2)])
+        print_rounds("B", logb, card)
+        bench = orchestrated.summary(logb, 0.0)
+        print(f"[timing orchestrated B] warm round {bench['value']} s "
+              f"(orchestrated_round_s_warm) ({card})")
+        cases = KernelCases(card)
+        orchestrated_kernel_checks(cases, cfgb, device, "B")
+        rows += cases.take_launches(cb)
+        state = os.path.join(cfgb.work_dir, "orchestrator_state.json")
+
+        def warm_round():
+            with open(state) as f:
+                done = json.load(f)["completed_rounds"]
+            orchestrated.run(dataclasses.replace(cfgb, rounds=done + 1), resume=True)
+
+        round_ms = statistics.median(host_ms_once(warm_round) for _ in range(2))
+        busy_line("orchestrated B warm round", warm_round, round_ms, once=True)
+
+        # run C: threshold at 4 clients with training, the four-step NTT
+        doc = oconfig("oConfig.threshold.example.json", tmp, "C", rounds=1,
+                      cc_extra={"ntt_backend": "fourstep"})
+        cfgc = cli.config(doc, dev)
+        resc, logc, cc = drive("C", cfgc, ("mxu_ntt",))
+        agg = ser.load_enc_doc(os.path.join(cfgc.work_dir, "server_storage",
+                                            "aggregated_weights.json"))
+        sch = api.load_scheme(os.path.join(cfgc.work_dir, "server_storage", "CC.json"), dev)
+        scale = api._load_cts([next(api._doc_fields(agg))[3]], sch)[0].scale
+        aggregate_checks("C", cfgc, resc,
+                         [os.path.join(cfgc.work_dir, f"client_{i}", "weights.json")
+                          for i in range(1, cfgc.n_clients + 1)],
+                         sigma=smudge_sigma(cfgc.n_clients, sch.params.n, DEFAULT_SMUDGING_BITS,
+                                            scale))
+        training_checks("C", cfgc, resc, device)
+        print_rounds("C", logc, card)
+        cases = KernelCases(card)
+        orchestrated_kernel_checks(cases, cfgc, device, "C")
+        rows += cases.take_launches(cc)
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -1925,6 +2318,7 @@ def main() -> None:
     kernels += multikey_phase(card, device)
     kernels += threshold_phase(card, device)
     kernels += probe_phase(card, device)
+    kernels += orchestrated_phase(card, device)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -11,6 +11,9 @@ ciphertexts stay in the order their context was made for. Every four-step
 ``ntt_impl`` gives the same evaluations: ``"pallas"`` runs the port's
 butterfly transform, the others (``"xla"``, ``"mxu"``, ``"pallas_mxu"``)
 its digit-matmul route. ``flexible_ext=True`` is refused (not ported).
+
+A model family's parameter list (``train/``, Keras layout, float32) crosses
+as a list of numpy arrays: :func:`train_params` and :func:`train_params_np`.
 """
 
 from __future__ import annotations
@@ -94,3 +97,17 @@ def to_numpy(obj) -> dict:
     if isinstance(obj, Ciphertext):
         return {"data": residues_np(obj.data), "scale": obj.scale}
     raise TypeError(f"cannot convert {type(obj).__name__}")
+
+
+def train_params(arrays, device="cuda") -> list:
+    """A JAX model's parameter list (numpy, Keras layout) → float32 tensors
+    on ``device``, in the same order; ``Model(params)`` of the matching
+    family in ``train/`` computes from them."""
+    return [torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
+            for a in arrays]
+
+
+def train_params_np(params) -> list:
+    """The port's parameter list (tensors, or a model's ``param_list()``) →
+    float32 numpy arrays, for the JAX model of the same family."""
+    return [p.detach().cpu().numpy().astype(np.float32) for p in params]

@@ -43,7 +43,28 @@ MODULES = [
     "ppqsflhe_tpu_torch.probes.kernel_report",
     "ppqsflhe_tpu_torch.bench",
     "ppqsflhe_tpu_torch.bench.multikey",
+    "ppqsflhe_tpu_torch.bench.orchestrated",
     "ppqsflhe_tpu_torch.convert",
+    "ppqsflhe_tpu_torch.comm",
+    "ppqsflhe_tpu_torch.comm.metrics",
+    "ppqsflhe_tpu_torch.comm.client",
+    "ppqsflhe_tpu_torch.comm.server",
+    "ppqsflhe_tpu_torch.comm.analyze",
+    "ppqsflhe_tpu_torch.ingest",
+    "ppqsflhe_tpu_torch.ingest.broker",
+    "ppqsflhe_tpu_torch.ingest.service",
+    "ppqsflhe_tpu_torch.ingest.telemetry",
+    "ppqsflhe_tpu_torch.train",
+    "ppqsflhe_tpu_torch.train.data",
+    "ppqsflhe_tpu_torch.train.gru",
+    "ppqsflhe_tpu_torch.train.lstm",
+    "ppqsflhe_tpu_torch.train.mlp",
+    "ppqsflhe_tpu_torch.train.transformer",
+    "ppqsflhe_tpu_torch.train.trainer",
+    "ppqsflhe_tpu_torch.train.evaluate",
+    "ppqsflhe_tpu_torch.orchestration",
+    "ppqsflhe_tpu_torch.orchestration.orchestrator",
+    "ppqsflhe_tpu_torch.orchestration.cli",
 ]
 
 
@@ -58,6 +79,24 @@ def test_port_imports_without_jax():
         "             if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'ppqsflhe_tpu.')))\n"
         "print('LOADED', bad)\n"
         "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr[-2000:]
+    assert "LOADED []" in r.stdout
+
+
+def test_port_imports_without_pandas_or_matplotlib():
+    """The card's machine has neither pandas nor matplotlib: importing every
+    port module loads neither (the plot helpers import matplotlib inside
+    the function, guarded)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('pandas', 'matplotlib'))\n"
+        "print('LOADED', bad)\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=120)
