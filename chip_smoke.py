@@ -72,7 +72,18 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   (A, B) and 1 (C) launched and are bit-equal at the run's shapes. Then
   each round's per-step table (the step log), ms per training step and
   epoch, and the device's idle share over one epoch and one warm round
-  of B.
+  of B;
+- **the bench twins** (``ppqsflhe_tpu_torch.bench``): ``server_round`` (the
+  twin of ``bench.py``) in all five schedules, ``rotations``
+  (``bench_rotations.py``), ``kernels`` (``bench_kernels.py``: the NTT north
+  star and the key switch on the 60/40/40 chain and on the FLEXIBLEAUTOEXT
+  chain, ``extra_mod_bits=20``) and ``sizes`` (``bench_sizes.py``), each
+  printing its JSON line (``[twin json]``) behind its gates, then one
+  changeCipherDomain and aggregation on the OpenFHE cereal wire
+  (``wire="openfhe"``), parsed back and decrypted (< 1e-3); kernels 1, 2
+  and 3 at the FLEXIBLEAUTOEXT chain's shapes (the 20-bit limb, the digit
+  {q2, q3}, nd=2 over LK=6) are held to their plain versions first. The
+  phase prints its seconds.
 
 For each path:
 
@@ -2285,6 +2296,184 @@ def orchestrated_phase(card, device):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# Path 11: the bench twins, and the FLEXIBLEAUTOEXT chain and OpenFHE wire
+# ---------------------------------------------------------------------------
+
+TWIN_REPS = 2        # repetitions of each timed chain (the twins' own default: 3)
+
+
+def flexext_kernel_checks(cases, gen, device):
+    """Kernels 1, 2 and 3 at the FLEXIBLEAUTOEXT chain's new shapes
+    (``CkksParams.generate(n=2^14, mult_depth=2, dnum=2, extra_mod_bits=20)``:
+    Q = 60/40/40 + 20 bits, P = 2 x 60, digits {q0, q1} and {q2, q3}):
+    kernel 1 on the 20-bit limb, kernel 2 from the digit {q2, q3} and the
+    ModDown onto the four Q limbs, kernel 3 at nd=2, LK=6 over 27 polys."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.ckks.params import CkksParams
+    from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
+    from ppqsflhe_tpu_torch.ops import cuda_ext
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+    from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import route
+
+    params = CkksParams.generate(n=N_ROUND, mult_depth=2, scale_bits=40, dnum=2,
+                                 extra_mod_bits=20)
+    sch = CkksScheme(params, device=device)
+    ctx, n = sch.ctx, params.n
+    mq, L = ctx.moduli_qp, params.num_q
+    ext = (L - 1,)
+    nd = ctx.fntt.tabs[ext[0]].nd
+    routes = [route(n, t.nd) for t in ctx.fntt.tabs]
+    print(f"[flexext] N={n}, Q={[q.bit_length() for q in params.q_moduli]} bits, "
+          f"P={[p.bit_length() for p in params.p_moduli]} bits, digits {ctx.digit_groups}; "
+          f"digit counts {[t.nd for t in ctx.fntt.tabs]}, routes {routes}")
+    if routes[ext[0]] != "fused":
+        raise AssertionError(f"the 20-bit limb routes to {routes[ext[0]]}, not kernel 1")
+    x = rand_residues([mq[ext[0]]], (2 * N_CTS,), n, gen, device)
+    for fwd in (True, False):
+        run = lambda: (ctx.ntt if fwd else ctx.intt)(x, ext)
+        fused_case(cases, ctx.fntt, x, ext, fwd, False, run, 20,
+                   f"the 20-bit limb q3 (nd={nd}) x {2 * N_CTS} polys, N=2^14")
+    idx_ext = ctx.q_idx(L) + ctx.p_idx()
+    groups, consts = _ks_decomp_consts(ctx, L)
+    if tuple(groups[1]) != (2, 3):
+        raise AssertionError(f"digit groups {groups}: the second is not {{q2, q3}}")
+    todo = ((groups[1], tuple(i for i in idx_ext if i not in groups[1]), consts[1], (N_CTS,)),
+            (ctx.p_idx(), ctx.q_idx(L), None, (2, N_CTS)))
+    for src, dst, pre, lead in todo:
+        e = ctx.extender(src, dst)
+        xe = rand_residues([mq[i] for i in src], lead, n, gen, device)
+        tag = "digit {q2, q3}, pre" if pre is not None else "ModDown"
+        cases.check(f"base_extend (FLEXIBLEAUTOEXT, {len(src)}->{len(dst)} limbs, {tag}, "
+                    f"{'x'.join(map(str, lead))} polys, N=2^14)", "base_extend", SRC_EXT, K2,
+                    cuda_ext.fused_extend(xe, e, pre), e.extend(xe, pre),
+                    lambda: cuda_ext.fused_extend(xe, e, pre), lambda: e.extend(xe, pre), 50,
+                    ext_work(int(np.prod(lead)), len(src), len(dst), n))
+    limbs = tuple(range(len(mq)))
+    q, qinv, _ = ctx.limb_consts(limbs, device)
+    sel = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+    ndg = len(ctx.digit_groups)
+    dig = rand_residues(mq, (N_CTS, ndg), n, gen, device)
+    key = rand_residues(mq, (ndg, 2), n, gen, device)
+    args = (dig, key, sel, q, qinv)
+    cases.check(f"ks_inner_product (FLEXIBLEAUTOEXT, nd={ndg}, LK={len(limbs)}, {N_CTS} polys, "
+                f"N=2^14)", "ks_inner_product", SRC_KS, K3, ks_inner_product(*args),
+                ks_inner_product_plain(*args), lambda: ks_inner_product(*args),
+                lambda: ks_inner_product_plain(*args), 50,
+                ks_work(N_CTS, ndg, len(limbs), n))
+    torch.cuda.synchronize()
+
+
+def openfhe_wire_round(device, card):
+    """One changeCipherDomain and one aggregation on the OpenFHE cereal wire
+    (``wire="openfhe"``) through the port's tools on the card, from two
+    clients' GRU weights encrypted on that wire (client 2 with its secret
+    key, shipped dense); every field parsed back as cereal-BINARY, the
+    aggregate decrypted against the plaintext mean (< 1e-3)."""
+    import base64
+    import tempfile
+
+    import numpy as np
+
+    from ppqsflhe_tpu_torch.ckks import openfhe_emit
+    from ppqsflhe_tpu_torch.ckks import serialize as ser
+    from ppqsflhe_tpu_torch.fl import api
+
+    dev = str(device)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        P = lambda name: os.path.join(tmp, name)
+        rng = np.random.default_rng(SEED)
+        want1, want2 = write_weights(P("w1.json"), rng), write_weights(P("w2.json"), rng)
+        with open(os.path.join(REPO, "configs", "config_cc.json")) as f:
+            api.gen_cc(json.load(f), P("cc.json"))
+        cc = P("cc.json")
+        for i in (1, 2):
+            api.key_gen(cc, P(f"pk{i}"), P(f"sk{i}"), seed=SEED + 10 + i, device=dev)
+        api.rekey_gen(cc, P("sk1"), P("pk2"), P("rk12"), seed=SEED + 13, device=dev)
+        api.encrypt_weights(cc, P("pk1"), P("w1.json"), P("e1.json"), seed=SEED + 14,
+                            wire="openfhe", device=dev)
+        api.encrypt_weights(cc, P("sk2"), P("w2.json"), P("e2.json"), seed=SEED + 15,
+                            wire="openfhe", device=dev)
+        t1 = time.perf_counter()
+        api.change_cipher_domain(cc, P("rk12"), P("e1.json"), P("e12.json"), wire="openfhe",
+                                 device=dev)
+        api.aggregate_encrypted_weights(cc, [P("e12.json"), P("e2.json")], P("agg.json"),
+                                        wire="openfhe", device=dev)
+        t2 = time.perf_counter()
+        doc = ser.load_enc_doc(P("agg.json"))
+        n_fields = 0
+        for entry in doc["weights_summary"]:
+            for field in [entry["mean"], entry["std_dev"]] + entry["values"]:
+                rec = openfhe_emit.parse_ciphertext_binary(base64.b64decode(field))
+                if rec["towers"].shape[0] != 2:
+                    raise AssertionError("an aggregate field is not a 2-component ciphertext")
+                n_fields += 1
+        dec = api.decrypt_weights(cc, P("sk2"), P("agg.json"), P("dec.json"), device=dev)
+        mx, rms = decrypt_err(dec, {k: (want1[k] + want2[k]) / 2 for k in want1})
+        size = os.path.getsize(P("agg.json"))
+    print(f"[openfhe wire] changeCipherDomain + aggregate of 2 x {n_fields} cereal-BINARY "
+          f"ciphertexts in {(t2 - t1) * 1e3:.1f} ms (set-up {t1 - t0:.1f} s); the aggregate "
+          f"({size:,} B) parsed back field by field; decrypt max err {mx:.3e}, RMS {rms:.3e} "
+          f"(gate {ERR_GATE}) ({card})")
+    if not (np.isfinite(mx) and mx < ERR_GATE):
+        raise AssertionError(f"OpenFHE-wire aggregate: decrypt error {mx} over the gate")
+
+
+def twins_phase(card, device):
+    """The four bench twins on the card — the server round in all five
+    schedules, the rotations, the NTT and key-switch benches (the second
+    key switch on the FLEXIBLEAUTOEXT chain), the artifact sizes — and one
+    OpenFHE-wire PRE round, after the kernel checks at the new shapes.
+    Prints each twin's JSON line and the phase's seconds; returns the
+    kernels' rows."""
+    import torch
+
+    from ppqsflhe_tpu_torch.bench import kernels, rotations, server_round, sizes
+
+    t0 = time.perf_counter()
+    cases = KernelCases(card)
+    flexext_kernel_checks(cases, torch.Generator().manual_seed(SEED), device)
+    t_checks = time.perf_counter() - t0
+    lines = []
+
+    def out(line):
+        print(f"[twin json] {line}")
+        lines.append(json.loads(line))
+
+    reset_counts()
+    secs = {}
+    for name, run in (
+            ("server_round", lambda: [server_round.bench(device, lazy=lazy, reps=TWIN_REPS,
+                                                         out=out) for lazy in (4, 0, 1, 2, 3)]),
+            ("rotations", lambda: rotations.bench(device, reps=TWIN_REPS, out=out)),
+            ("kernels", lambda: kernels.bench(device, reps=TWIN_REPS, out=out)),
+            ("sizes", lambda: sizes.bench(device, out=out)),
+            ("openfhe wire", lambda: openfhe_wire_round(device, card))):
+        t1 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t1
+    launches = read_counts()
+    print(f"[twins] kernel launches: { {k: v for k, v in launches.items() if v} }")
+    missing = [k for k in ("mxu_ntt", "mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b",
+                           "base_extend", "ks_inner_product", "fourstep_ntt") if not launches[k]]
+    if missing:
+        raise AssertionError(f"the bench twins never launched {missing}")
+    for r in lines:
+        if r["metric"] == server_round.METRIC:
+            print(f"[timing twins] server round lazy={r['lazy']}: {r['value']:.3f} ms/round "
+                  f"marginal (vs_baseline {r['vs_baseline']:.1f}), device "
+                  f"{show_us(r['device_ms'])} a round, host enqueue {r['enqueue_ms']:.3f} ms, "
+                  f"decrypt err {r['err']:.2e} at {r['out_limbs']} limb(s) ({card})")
+    print(f"[twins] phase 11: {time.perf_counter() - t0:.1f} s (kernel checks {t_checks:.1f} "
+          f"s; " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()) + f") ({card})")
+    return cases.take_launches(launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -2319,6 +2508,7 @@ def main() -> None:
     kernels += threshold_phase(card, device)
     kernels += probe_phase(card, device)
     kernels += orchestrated_phase(card, device)
+    kernels += twins_phase(card, device)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,8 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import statistics
-import subprocess
 import time
 import types
 
@@ -47,6 +45,8 @@ from ..ckks import rlwe
 from ..ckks.params import CkksParams
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext
+from . import timing
+from .timing import card_line
 
 N_CLIENTS = 16
 # the stacked LSTM's Keras weight layout (ppqsflhe_tpu/train/lstm.py:27-36)
@@ -167,25 +167,6 @@ def check(sch: CkksScheme, w, vecs, avg: Ciphertext, outs: Ciphertext) -> dict:
                                           Ciphertext(outs.data[last], outs.scale), mean)}
 
 
-def _chained_ms(run, work: torch.Tensor, rounds: int) -> float:
-    """CUDA-event ms of ``rounds`` chained rounds: each round rewrites one
-    residue of the stack from the previous round's checksum, so no round
-    can start before the one before it has finished."""
-    base = work[0, 0, 0, 0, 0].clone()
-    carry = torch.zeros((), dtype=torch.int64, device=work.device)
-    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(rounds):
-        work[0, 0, 0, 0, 0] = (base >> 1) + (carry & 1)
-        avg, outs = run(work)
-        carry = avg.data.sum() + outs.data.sum()
-    b.record()
-    torch.cuda.synchronize()
-    work[0, 0, 0, 0, 0] = base
-    return a.elapsed_time(b)
-
-
 def device_breakdown(fn) -> tuple:
     """(device ms, {kernel: ms}) of one call of ``fn`` under torch.profiler;
     (None, {}) when the profile holds no device activity."""
@@ -211,34 +192,19 @@ def device_breakdown(fn) -> tuple:
 def measure(sch: CkksScheme, stacks: Ciphertext, rk_to, rk_from, lazy: int,
             reps: int = 2) -> dict:
     """ms per round as the marginal cost between 1 and 3 chained rounds
-    ((t3 − t1)/2, the best of ``reps`` after a warm-up each), rounds/s, the
-    profiler's device ms of one round by kernel, the host's enqueue ms
-    (median of 5, the device drained before each) and the idle share."""
+    ((t3 − t1)/2, the best of ``reps`` after a warm-up each; each round
+    rewrites one residue of the stack from the previous round's checksum),
+    rounds/s, the profiler's device ms of one round by kernel, the host's
+    enqueue ms (median of 5, the device drained before each) and the idle
+    share."""
     work = stacks.data.clone()
-    run = lambda d: server_round(sch, Ciphertext(d, stacks.scale), rk_to, rk_from, lazy)
-    t = {}
-    for R in (1, 3):
-        _chained_ms(run, work, R)
-        t[R] = min(_chained_ms(run, work, R) for _ in range(reps))
-    ms = (t[3] - t[1]) / 2
-    enqueue = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run(work)
-        enqueue.append((time.perf_counter() - t0) * 1e3)
-    torch.cuda.synchronize()
-    dev, by = device_breakdown(lambda: run(work))
-    return {"ms": ms, "rounds_per_sec": 1e3 / ms, "t1_ms": t[1], "t3_ms": t[3],
-            "device_ms": dev, "by_kernel": by, "enqueue_ms": statistics.median(enqueue),
+    run = lambda: server_round(sch, Ciphertext(work, stacks.scale), rk_to, rk_from, lazy)
+    m = timing.marginal_carried_ms(lambda: [c.data for c in run()], work, 1, 3, reps)
+    ms = m["ms"]
+    dev, by = device_breakdown(run)
+    return {"ms": ms, "rounds_per_sec": 1e3 / ms, "t1_ms": m["t_lo_ms"], "t3_ms": m["t_hi_ms"],
+            "device_ms": dev, "by_kernel": by, "enqueue_ms": timing.enqueue_ms(run),
             "idle_share": None if dev is None else max(0.0, 1 - dev / ms)}
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi gives them."""
-    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          check=True).stdout.strip().splitlines()[0]
 
 
 def main(argv=None) -> None:

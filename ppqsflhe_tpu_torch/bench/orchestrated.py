@@ -33,7 +33,7 @@ import numpy as np
 import torch
 
 from ..orchestration import Orchestrator, OrchestratorConfig
-from .multikey import card_line
+from .timing import card_line
 
 N_VALUES = 39041     # the GRU export's parameter count
 _LINE = re.compile(r"^\[(\d{4}-\d\d-\d\dT[\d:.]+)\] \[([^\]]+)\] \[([^\]]+)\] ?(.*)$")

@@ -21,6 +21,7 @@ every device.
 from __future__ import annotations
 
 import functools
+import warnings
 from dataclasses import dataclass
 from typing import Dict, Sequence, Tuple
 
@@ -60,6 +61,10 @@ class CkksParams:
     # document without the key reads as radix-2, ckks/serialize.py); the
     # port's in-memory default stays the four-step order its kernels run in.
     ntt_backend: str = "fourstep"
+    # FLEXIBLEAUTOEXT: the chain ends with a small extra prime; fresh
+    # full-level plaintexts encode at Δ·q_ext and the extension limb is
+    # dropped (rescaled away) before the first multiplication
+    flexible_ext: bool = False
     # PRE mode: "INDCPA" (one key switch) or "INDCCA" (plus Enc_pk(0) and
     # uniform flooding of 2^pre_flood_bits on every re-encryption)
     pre_mode: str = "INDCPA"
@@ -77,14 +82,18 @@ class CkksParams:
     @staticmethod
     def generate(n: int = 1 << 14, mult_depth: int = 2, scale_bits: int = 40,
                  first_mod_bits: int = 60, dnum: int = 2, slots: int = 0,
-                 ntt_impl: str = cuda_ntt.MXU, ntt_backend: str = "fourstep") -> "CkksParams":
+                 extra_mod_bits: int = 0, ntt_impl: str = cuda_ntt.MXU,
+                 ntt_backend: str = "fourstep") -> "CkksParams":
         """A fresh NTT-friendly chain, OpenFHE-style: one first modulus of
         ``first_mod_bits``, ``mult_depth`` scaling primes of ``scale_bits``,
-        and enough 60-bit special primes to cover the largest KS digit —
-        the same primes as ``ppqsflhe_tpu``'s ``CkksParams.generate``."""
+        with ``extra_mod_bits`` a FLEXIBLEAUTOEXT extension prime of that
+        many bits, and enough 60-bit special primes to cover the largest KS
+        digit — the same primes as ``ppqsflhe_tpu``'s ``CkksParams.generate``."""
         m = 2 * n
         q = [primes.first_prime_down(first_mod_bits, m)]
         q += primes.prime_chain(scale_bits, mult_depth, m, avoid=set(q))
+        if extra_mod_bits:
+            q += [primes.next_prime_up(1 << (extra_mod_bits - 1), m)]
         alpha = -(-len(q) // dnum)
         digit_bits = max(
             sum(int(x).bit_length() for x in q[i * alpha : (i + 1) * alpha])
@@ -94,7 +103,8 @@ class CkksParams:
         p = primes.prime_chain(60, n_special, m, avoid=set(q))
         return CkksParams(n=n, q_moduli=tuple(q), p_moduli=tuple(p),
                           scale_bits=scale_bits, dnum=dnum, slots=slots or n // 2,
-                          ntt_impl=ntt_impl, ntt_backend=ntt_backend)
+                          ntt_impl=ntt_impl, ntt_backend=ntt_backend,
+                          flexible_ext=bool(extra_mod_bits))
 
     @staticmethod
     def reference(slots: int = 8192) -> "CkksParams":
@@ -118,12 +128,51 @@ class CkksParams:
     def scale(self) -> float:
         return float(2 ** self.scale_bits)
 
+    def security_bits(self) -> int:
+        """Conservative classical security estimate from the HE-standard
+        tables (homomorphicencryption.org v1.1, ternary secret): the largest
+        standard level (128/192/256) whose log2(QP) bound admits this
+        parameter set, or 0 below 128-bit. A diagnostic, not a gate."""
+        logqp = sum(int(q).bit_length() for q in self.q_moduli + self.p_moduli)
+        # HE-standard max log2(Q) for ternary secrets (classical)
+        table = {
+            1024: (27, 19, 14), 2048: (54, 37, 29), 4096: (109, 75, 58),
+            8192: (218, 152, 118), 16384: (438, 305, 237),
+            32768: (881, 611, 476), 65536: (1772, 1228, 956),
+        }
+        key = min((k for k in table if k >= self.n), default=None)
+        if key is None:
+            return 256  # beyond table: deeply conservative rings
+        b128, b192, b256 = table[key]
+        if logqp <= b256:
+            return 256
+        if logqp <= b192:
+            return 192
+        if logqp <= b128:
+            return 128
+        return 0
+
+
+class SecurityWarning(UserWarning):
+    """Raised (as a warning) when a context is built below 128-bit security."""
+
 
 class CkksContext:
     """Derived tables + lazily cached per-level precomputes."""
 
     def __init__(self, params: CkksParams):
         self.params = params
+        # parameters are taken as given (HEStd_NotSet), but a sub-128-bit
+        # chain is surfaced when the context is built
+        bits = params.security_bits()
+        if bits < 128:
+            warnings.warn(
+                f"CKKS parameters (N={params.n}, log2(QP)="
+                f"{sum(int(q).bit_length() for q in params.q_moduli + params.p_moduli)}) "
+                f"fall below 128-bit HE-standard security (estimate: {bits}-bit)",
+                SecurityWarning,
+                stacklevel=2,
+            )
         self.moduli_qp = tuple(params.q_moduli) + tuple(params.p_moduli)
         roots = None
         if params.q_roots is not None:

@@ -1,5 +1,6 @@
-"""High-level CKKS facade: the subset of ``ppqsflhe_tpu.ckks.scheme``
-without the FLEXIBLEAUTOEXT extension limb: encoding and decoding, keygen,
+"""High-level CKKS facade, the twin of ``ppqsflhe_tpu.ckks.scheme``: encoding
+and decoding (fresh full-level plaintexts at Δ·q_ext under FLEXIBLEAUTOEXT,
+whose extension limb is dropped before any multiplication), keygen,
 rekey_gen, relinearization, rotation and conjugation keys, encrypt_values,
 decrypt, add, sub, add_plain, mult_plain, mult_scalar, ct×ct mult,
 rescale, rotations (plain, hoisted, rotation sums), conjugation, the packed
@@ -35,9 +36,13 @@ class CkksScheme:
     def make_plaintext(self, values, nlimbs: int | None = None,
                        scale: float | None = None) -> Plaintext:
         """One real vector, or a list of them (→ a batched plaintext), to
-        eval-domain residues over the first ``nlimbs`` Q limbs."""
+        eval-domain residues over the first ``nlimbs`` Q limbs. Under
+        FLEXIBLEAUTOEXT a fresh full-level plaintext encodes at Δ·q_ext."""
         l = nlimbs or self.params.num_q
-        scale = self.params.scale if scale is None else scale
+        if scale is None:
+            scale = self.params.scale
+            if self.params.flexible_ext and l == self.params.num_q:
+                scale *= float(self.params.q_moduli[-1])
         batched = isinstance(values, (list, tuple))
         coeffs = self.encoder.encode_batch(values if batched else [values], scale)
         rns = self.encoder.to_rns_batch(coeffs, self.ctx.moduli_qp[:l])   # (B, l, n)
@@ -93,6 +98,12 @@ class CkksScheme:
     def decrypt(self, sk: SecretKey, ct: Ciphertext, num: int | None = None) -> np.ndarray:
         return rlwe.decrypt(self.ctx, sk, ct, self.encoder, num)
 
+    def _maybe_drop_ext(self, ct: Ciphertext) -> Ciphertext:
+        """FLEXIBLEAUTOEXT: drop the extension limb before any mult."""
+        if self.params.flexible_ext and ct.nlimbs == self.params.num_q:
+            return self.rescale(ct)
+        return ct
+
     # -- homomorphic ops ----------------------------------------------------
 
     def add(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
@@ -105,15 +116,16 @@ class CkksScheme:
         return ev.add_plain(self.ctx, ct, pt)
 
     def mult_plain(self, ct: Ciphertext, pt: Plaintext, rescale_after: bool = True) -> Ciphertext:
-        out = ev.mult_plain(self.ctx, ct, pt)
+        out = ev.mult_plain(self.ctx, self._maybe_drop_ext(ct), pt)
         return ev.rescale(self.ctx, out) if rescale_after else out
 
     def mult_scalar(self, ct: Ciphertext, c: float, rescale_after: bool = True) -> Ciphertext:
-        return ev.mult_scalar(self.ctx, ct, c, rescale_after)
+        return ev.mult_scalar(self.ctx, self._maybe_drop_ext(ct), c, rescale_after)
 
     def mult(self, ct1: Ciphertext, ct2: Ciphertext, relin_key: KeySwitchKey,
              rescale_after: bool = True) -> Ciphertext:
-        return ev.mult(self.ctx, ct1, ct2, relin_key, rescale_after)
+        return ev.mult(self.ctx, self._maybe_drop_ext(ct1), self._maybe_drop_ext(ct2),
+                       relin_key, rescale_after)
 
     def rescale(self, ct: Ciphertext) -> Ciphertext:
         return ev.rescale(self.ctx, ct)

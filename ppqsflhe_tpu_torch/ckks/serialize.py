@@ -12,12 +12,13 @@ document gives the same bytes:
 - the PQTC ciphertext blobs: v1 (raw u64), v2 (per-limb widths from the
   residues' actual maxima), v3 (seeded: packed c0 + the 16-byte seed);
 - the encrypted-weights documents: JSON with Base64 fields, or the PQWD
-  raw-binary container.
+  raw-binary container;
+- the reference's OpenFHE wire: a ciphertext as cereal-BINARY
+  (:mod:`.openfhe_emit`), written by :func:`ciphertext_to_b64_openfhe` and
+  read, beside PQTC, by :func:`ciphertext_from_bytes_any`.
 
 Residues cross as numpy ``uint64`` on the host and load as int64 tensors on
-``device`` (the card unless the caller names another). The OpenFHE cereal
-wire (``openfhe_emit``) is not ported: a blob that is not PQTC raises "bad
-ciphertext magic", and the tools refuse ``wire="openfhe"``.
+``device`` (the card unless the caller names another).
 """
 
 from __future__ import annotations
@@ -37,7 +38,6 @@ from .types import Ciphertext, KeySwitchKey, PublicKey, SecretKey
 
 MAGIC = b"PQTC"  # ppqsflhe-tpu ciphertext
 DOC_MAGIC = b"PQWD"
-NOT_PORTED = "the OpenFHE cereal wire is not ported yet (use the native PQTC wire)"
 
 
 # -- params / context -------------------------------------------------------
@@ -56,15 +56,13 @@ def params_to_dict(p: CkksParams) -> Dict[str, Any]:
         "sigma": p.sigma,
         "ntt_backend": p.ntt_backend,
         "ntt_impl": p.ntt_impl,
-        "flexible_ext": False,
+        "flexible_ext": p.flexible_ext,
         "pre_mode": p.pre_mode,
         "pre_flood_bits": p.pre_flood_bits,
     }
 
 
 def params_from_dict(d: Dict[str, Any]) -> CkksParams:
-    if d.get("flexible_ext", False):
-        raise ValueError("flexible_ext=True (FLEXIBLEAUTOEXT) is not ported")
     return CkksParams(
         n=d["ring_dim"],
         q_moduli=tuple(int(x) for x in d["q_moduli"]),
@@ -77,6 +75,7 @@ def params_from_dict(d: Dict[str, Any]) -> CkksParams:
         sigma=d.get("sigma", 3.19),
         ntt_backend=d.get("ntt_backend", "radix2"),
         ntt_impl=d.get("ntt_impl", "xla"),
+        flexible_ext=d.get("flexible_ext", False),
         pre_mode=d.get("pre_mode", "INDCPA"),
         pre_flood_bits=d.get("pre_flood_bits", 30),
     )
@@ -236,8 +235,7 @@ def ciphertext_parts(b: bytes):
     u64[k, l, n] and seed None for v1/v2, c0 u64[l, n] and the 16-byte seed
     for v3. Raises "bad ciphertext magic" for anything else."""
     if b[:4] != MAGIC:
-        raise ValueError("bad ciphertext magic: not a PQTC blob (this package has no parser "
-                         "for the OpenFHE cereal wire yet)")
+        raise ValueError("bad ciphertext magic: not a PQTC blob")
     ver, k, l, n, scale = struct.unpack("<IIIId", b[4:28])
     if ver == 1:
         return np.frombuffer(b[28:], dtype="<u8").reshape(k, l, n).copy(), None, scale
@@ -282,6 +280,64 @@ def ciphertext_to_b64(ct: Ciphertext, a_seed: bytes | None = None) -> str:
 
 def ciphertext_from_b64(s: str, ctx: CkksContext | None = None, device="cuda") -> Ciphertext:
     return ciphertext_from_bytes(base64.b64decode(s), ctx, device)
+
+
+# -- the OpenFHE wire (cereal-BINARY ciphertexts) ---------------------------
+
+def _openfhe_emitter(ctx: CkksContext):
+    """The context's cereal emitter over the Q chain, made once."""
+    em = getattr(ctx, "_openfhe_emitter", None)
+    if em is None:
+        from .openfhe_emit import OpenFheEmitter
+
+        L = ctx.params.num_q
+        em = ctx._openfhe_emitter = OpenFheEmitter(
+            ctx.params.n, list(ctx.params.q_moduli), [int(p) for p in ctx.basis.psis[:L]],
+            batch_size=ctx.params.slots, scaling_mod_size=ctx.params.scale_bits,
+            mult_depth=ctx.params.num_q - 1, dnum=ctx.params.dnum, sigma=ctx.params.sigma)
+    return em
+
+
+def ciphertext_to_bytes_openfhe(ct: Ciphertext, ctx: CkksContext,
+                                key_tag: str = "ppqsflhe") -> bytes:
+    """One ciphertext (data (k, l, n)) as cereal-BINARY, the reference's
+    wire (``Serial::Serialize(ct, BINARY)``); a level-reduced ciphertext
+    carries its truncated chain, as OpenFHE's do."""
+    l = ct.nlimbs
+    return _openfhe_emitter(ctx).ciphertext_binary(
+        _np(ct.data), scale=float(ct.scale), level=ctx.params.num_q - l, key_tag=key_tag,
+        moduli=list(ctx.params.q_moduli[:l]), roots=[int(p) for p in ctx.basis.psis[:l]])
+
+
+def ciphertext_to_b64_openfhe(ct: Ciphertext, ctx: CkksContext,
+                              key_tag: str = "ppqsflhe") -> str:
+    """Base64(cereal-BINARY): :func:`ciphertext_to_bytes_openfhe` as the
+    reference's tools write it into a document."""
+    return base64.b64encode(ciphertext_to_bytes_openfhe(ct, ctx, key_tag)).decode()
+
+
+def ciphertext_from_b64_any(s: str, ctx: CkksContext | None = None,
+                            device="cuda") -> Ciphertext:
+    """Either wire's ciphertext, Base64-wrapped: a PQTC blob or OpenFHE
+    cereal-BINARY (told apart by the leading bytes)."""
+    return ciphertext_from_bytes_any(base64.b64decode(s), ctx, device)
+
+
+def ciphertext_from_bytes_any(b: bytes, ctx: CkksContext | None = None,
+                              device="cuda") -> Ciphertext:
+    if b[:4] == MAGIC:
+        return ciphertext_from_bytes(b, ctx, device)
+    from .openfhe_emit import parse_ciphertext_binary
+
+    try:
+        rec = parse_ciphertext_binary(b)
+    except Exception as e:
+        # a corrupted or foreign blob would otherwise surface as a bare
+        # AssertionError from deep inside the cereal parser
+        raise ValueError(
+            "bad ciphertext magic: not a PQTC blob and not parseable as "
+            f"OpenFHE cereal BINARY ({type(e).__name__})") from e
+    return Ciphertext(data=_tensor(rec["towers"], device), scale=rec["scale"])
 
 
 # -- encrypted-weights documents (JSON or raw-binary container) -------------

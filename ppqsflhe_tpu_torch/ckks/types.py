@@ -10,7 +10,7 @@ float metadata shared by the batch.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
@@ -59,3 +59,11 @@ class KeySwitchKey:
 
     data: torch.Tensor               # int64[ndigits, 2, L+K, N]
     mont: bool = False
+
+
+@dataclass
+class EvalKey:
+    """Bundle of evaluation keys (relinearization + rotation keys)."""
+
+    relin: KeySwitchKey | None = None
+    rotations: dict = field(default_factory=dict)  # rot index -> KeySwitchKey

@@ -10,7 +10,7 @@ Both evaluation orders cross: the params carry ``ntt_backend``, so keys and
 ciphertexts stay in the order their context was made for. Every four-step
 ``ntt_impl`` gives the same evaluations: ``"pallas"`` runs the port's
 butterfly transform, the others (``"xla"``, ``"mxu"``, ``"pallas_mxu"``)
-its digit-matmul route. ``flexible_ext=True`` is refused (not ported).
+its digit-matmul route.
 
 A model family's parameter list (``train/``, Keras layout, float32) crosses
 as a list of numpy arrays: :func:`train_params` and :func:`train_params_np`.
@@ -26,9 +26,6 @@ import torch
 from .ckks.params import CkksParams
 from .ckks.types import Ciphertext, KeySwitchKey, PublicKey, SecretKey
 
-# CkksParams fields the JAX package has and the port does not, with the only
-# value the port supports
-_JAX_ONLY = {"flexible_ext": False}
 _PORT_FIELDS = tuple(f.name for f in dataclasses.fields(CkksParams))
 
 
@@ -46,9 +43,6 @@ def residues_np(t: torch.Tensor) -> np.ndarray:
 def params(fields: dict) -> CkksParams:
     """The port's params from the JAX ``CkksParams`` fields
     (``dataclasses.asdict`` of it)."""
-    for k, want in _JAX_ONLY.items():
-        if k in fields and fields[k] != want:
-            raise ValueError(f"the port supports {k}={want!r} only, got {fields[k]!r}")
     kw = {k: fields[k] for k in _PORT_FIELDS if k in fields}
     for k in ("q_moduli", "p_moduli", "q_roots", "p_roots"):
         if kw.get(k) is not None:
@@ -58,7 +52,7 @@ def params(fields: dict) -> CkksParams:
 
 def params_fields(p: CkksParams) -> dict:
     """Keyword arguments for the JAX ``CkksParams`` that matches ``p``."""
-    return dict(dataclasses.asdict(p), **_JAX_ONLY)
+    return dataclasses.asdict(p)
 
 
 def secret_key(s_eval, s_int, device="cuda") -> SecretKey:

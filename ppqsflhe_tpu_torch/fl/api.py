@@ -26,7 +26,8 @@ Weights JSON: ``{"weights_summary": [{layer, shape, mean, std_dev,
 values[]}…]}``; optimizer layers are skipped, values are chunked at the slot
 count and the padding is trimmed on decrypt. The encrypted document holds
 the same layers with ciphertext fields (Base64 PQTC blobs, or raw blobs in
-the PQWD container, which every tool preserves). Each tool runs the
+the PQWD container, which every tool preserves; with ``wire="openfhe"``,
+Base64 cereal-BINARY in JSON, the reference's wire). Each tool runs the
 ciphertexts of a file as ONE stacked (B, 2, l, N) batch on ``device`` (the
 card unless the caller names another). Noise comes from a
 ``torch.Generator``: with a seed, one seeded from it; without, one whose
@@ -36,7 +37,8 @@ public key's ``a`` half and the seeded wire's c1 are bit-equal to theirs.
 
 :func:`change_cipher_domain_batch` and :func:`aggregate_batch` are the
 tools' compute cores on batched ciphertexts; :func:`server_round` composes
-them the way ``bench.py``'s ``server_round`` does (``bench.py:197-222``).
+the round the way ``bench.py``'s ``server_round`` does in each of its five
+schedules (``bench.py:178-222``).
 """
 
 from __future__ import annotations
@@ -105,21 +107,36 @@ def aggregate_batch(sch: CkksScheme, stacks: Sequence[Ciphertext], lazy: bool) -
     return ev.mult_scalar(sch.ctx, acc, 1.0 / n_clients)
 
 
+LAZY_MODES = (0, 1, 2, 3, 4)
+
+
 def server_round(sch: CkksScheme, stack1: Ciphertext, stack2: Ciphertext,
                  rk12: KeySwitchKey, rk21: KeySwitchKey, lazy: int = 4):
     """The server's encrypted-aggregation round over two clients' batches:
-    PRE 1→2, FedAvg, PRE back to 1. Returns (average in client 2's domain,
-    average re-encrypted to client 1).
+    PRE 1→2, FedAvg, PRE back to 1, composed as ``bench.py:178-222``
+    composes it in each schedule. Returns (average in client 2's domain,
+    average re-encrypted to client 1); their scale is the one ``bench.py``
+    decrypts at (the input's ×2 wherever ÷2 is free).
 
-    ``lazy=4`` (the default schedule): LevelReduce one limb, PRE with one
-    digit, add, ÷2 as scale metadata plus LevelReduce, PRE at one limb.
-    ``lazy=0``: the full-level schedule — PRE with every digit, add,
-    mult_scalar(0.5) + rescale, PRE one level down."""
-    if lazy not in (0, 4):
-        raise ValueError(f"lazy={lazy}: only the 4 and 0 schedules are ported")
-    drop = min(1, sch.params.num_q - 1) if lazy else 0
+    - ``lazy=0``: the full level: PRE with every digit, add,
+      mult_scalar(0.5) + rescale, PRE one level down;
+    - ``lazy=1``: LevelReduce one limb first, then as 0;
+    - ``lazy=2``: LevelReduce to one limb, ÷2 as scale metadata, both PREs
+      at one limb;
+    - ``lazy=3``: LevelReduce one limb, ÷2 as scale metadata, both PREs at
+      that level;
+    - ``lazy=4`` (the default): as 3, then a LevelReduce of one more limb
+      before the PRE back."""
+    if lazy not in LAZY_MODES:
+        raise ValueError(f"lazy={lazy}: one of {LAZY_MODES}")
+    L = sch.params.num_q
+    drop = min(2 if lazy == 2 else min(lazy, 1), L - 1)
     c1in2 = change_cipher_domain_batch(sch, rk12, stack1, drop_limbs=drop)
-    avg = aggregate_batch(sch, [c1in2, stack2], lazy=bool(lazy))
+    if lazy in (2, 3):
+        s = ev.add(sch.ctx, c1in2, ev.level_reduce(sch.ctx, stack2, L - drop))
+        avg = Ciphertext(s.data, scale=2 * s.scale)
+    else:
+        avg = aggregate_batch(sch, [c1in2, stack2], lazy=lazy == 4)
     return avg, change_cipher_domain_batch(sch, rk21, avg)
 
 
@@ -234,15 +251,18 @@ def rekey_gen(cc_path: str, own_priv: str, peer_pub: str, rekey_out: str,
 # Ciphertexts on the wire
 # ---------------------------------------------------------------------------
 
-def _check_wire(wire: str) -> None:
-    if wire != "native":
-        raise ValueError(f"wire={wire!r}: {ser.NOT_PORTED}")
-
-
-def _blobs_of(cts: Ciphertext, seeds=None) -> List[bytes]:
-    """PQTC blobs of every ciphertext of a batch (v3 where a seed is given),
-    after one copy of the batch to the host."""
+def _blobs_of(sch: CkksScheme, cts: Ciphertext, wire: str = "native",
+              seeds=None) -> List[bytes]:
+    """The wire bytes of every ciphertext of a batch, after one copy of the
+    batch to the host: PQTC blobs (v3 where a seed is given) on the
+    ``"native"`` wire, cereal-BINARY on the ``"openfhe"`` one (the
+    reference's; it has no seeded form, so both components ship dense)."""
     host = cts.data.cpu()
+    if wire == "openfhe":
+        return [ser.ciphertext_to_bytes_openfhe(Ciphertext(d, cts.scale), sch.ctx)
+                for d in host]
+    if wire != "native":
+        raise ValueError(f"wire={wire!r}: 'native' or 'openfhe'")
     seeds = seeds or [None] * host.shape[0]
     return [ser.ciphertext_to_bytes(Ciphertext(d, cts.scale), a_seed=s)
             for d, s in zip(host, seeds)]
@@ -267,14 +287,18 @@ def _raw(payload) -> bytes:
 
 
 def _load_cts(payloads, sch: CkksScheme) -> List[Ciphertext]:
-    """Ciphertexts from wire payloads (Base64 or raw PQTC, any version).
-    Dense blobs upload one by one; seeded v3 blobs expand their c1 in ONE
-    batched transform per level."""
+    """Ciphertexts from wire payloads (Base64 or raw; PQTC of any version or
+    OpenFHE cereal-BINARY). Dense blobs upload one by one; seeded v3 blobs
+    expand their c1 in ONE batched transform per level."""
     dev = sch.device
     cts: List[Ciphertext | None] = []
     seeded: Dict[int, list] = {}
     for p in payloads:
-        data, seed, scale = ser.ciphertext_parts(_raw(p))
+        raw = _raw(p)
+        if raw[:4] != ser.MAGIC:
+            cts.append(ser.ciphertext_from_bytes_any(raw, sch.ctx, dev))
+            continue
+        data, seed, scale = ser.ciphertext_parts(raw)
         if seed is None:
             cts.append(Ciphertext(data=convert.residues(data, dev), scale=scale))
         else:
@@ -309,8 +333,10 @@ def encrypt_weights(cc_path: str, pub_path: str, weights_in: str, enc_out: str,
     slot-sized chunks, all as ONE batch. With the client's SECRET key file
     as ``pub_path`` (detected by its type), each chunk is sk-encrypted with
     a seed-expanded c1 and ships as a seeded v3 blob (c0 + 16-byte seed).
-    ``container="bin"`` writes the PQWD container."""
-    _check_wire(wire)
+    ``container="bin"`` writes the PQWD container. ``wire="openfhe"`` writes
+    every field as Base64(cereal-BINARY), the reference's wire: an
+    sk-encryption then ships both components dense, always in a JSON
+    document."""
     sch = load_scheme(cc_path, device)
     keydoc = ser.load_json(pub_path)
     sk_mode = keydoc.get("type") == "ckks_secret_key"
@@ -340,8 +366,8 @@ def encrypt_weights(cc_path: str, pub_path: str, weights_in: str, enc_out: str,
         seeds = None
         pk = ser.deserialize_public_key(keydoc, sch.ctx, device)
         cts = sch.encrypt(pk, pt, _rng(seed))
-    blobs = iter(_blobs_of(cts, seeds))
-    raw = container == "bin"
+    blobs = iter(_blobs_of(sch, cts, wire, seeds))
+    raw = container == "bin" and wire != "openfhe"
     out = {"weights_summary": []}
     for entry, nchunks in layout:
         out["weights_summary"].append({
@@ -433,8 +459,8 @@ def change_cipher_domain(cc_path: str, rekey_path: str, enc_in: str, enc_out: st
     """ReEncrypt every ciphertext field as one batched key switch, after an
     optional LevelReduce (``drop_limbs``, or ``keep_limbs`` absolute).
     Under PREMode INDCCA ``pub_path`` (the TARGET domain's public key) is
-    required: every output is re-randomized with Enc_pk(0) + flooding."""
-    _check_wire(wire)
+    required: every output is re-randomized with Enc_pk(0) + flooding.
+    The input's container is kept, except on the OpenFHE wire (JSON)."""
     sch = load_scheme(cc_path, device)
     rekey = _load_rekey_mont(sch, rekey_path)
     indcca = sch.params.pre_mode == "INDCCA"
@@ -448,8 +474,8 @@ def change_cipher_domain(cc_path: str, rekey_path: str, enc_in: str, enc_out: st
     cts = _stack(_load_cts([f[3] for f in fields], sch))
     out = change_cipher_domain_batch(sch, rekey, cts, drop_limbs, keep_limbs, pk,
                                      _rng(seed) if indcca else None)
-    binary = ser.doc_is_binary(enc_in)
-    _write_back(enc, fields, _blobs_of(out), binary)
+    binary = ser.doc_is_binary(enc_in) and wire != "openfhe"
+    _write_back(enc, fields, _blobs_of(sch, out, wire), binary)
     ser.save_enc_doc(enc, enc_out, binary=binary)
     return enc
 
@@ -461,8 +487,7 @@ def aggregate_encrypted_weights(cc_path: str, enc_paths: Sequence[str], agg_out:
     layers matched by name AND shape (unmatched ones dropped), ct_avg =
     (Σ ct_i)·(1/N) as one batch. ``lazy``: for N a power of two, ÷N is
     exact scale metadata plus one more LevelReduce. The first input's
-    container is kept."""
-    _check_wire(wire)
+    container is kept, except on the OpenFHE wire (JSON)."""
     sch = load_scheme(cc_path, device)
     docs = [ser.load_enc_doc(p) for p in enc_paths]
 
@@ -489,8 +514,8 @@ def aggregate_encrypted_weights(cc_path: str, enc_paths: Sequence[str], agg_out:
     lmin = min(ct.nlimbs for cl in loaded for ct in cl)
     stacks = [_stack([ev.level_reduce(sch.ctx, ct, lmin) for ct in cl]) for cl in loaded]
     avg = aggregate_batch(sch, stacks, lazy)
-    blobs = iter(_blobs_of(avg))
-    binary = ser.doc_is_binary(enc_paths[0])
+    blobs = iter(_blobs_of(sch, avg, wire))
+    binary = ser.doc_is_binary(enc_paths[0]) and wire != "openfhe"
     out = {"weights_summary": []}
     for rec, nv in layout:
         rec["mean"] = _field(next(blobs), binary)

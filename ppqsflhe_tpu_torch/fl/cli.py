@@ -10,6 +10,11 @@ binaries:
   python -m ppqsflhe_tpu_torch.fl.cli changeCipherDomain <cc> <rekey> <enc_in> <enc_out> [target_pk]
   python -m ppqsflhe_tpu_torch.fl.cli aggregateEncryptedWeights <cc> <agg_out> <enc_in1> <enc_in2> [...]
 
+Local training (the reference's ``c_trainAndUpdate.py``; the ``CLIENT``
+section of a client config):
+
+  python -m ppqsflhe_tpu_torch.fl.cli [--seed S] train <c_config.json>
+
 The threshold multiparty tools (ckks/threshold.py):
 
   python -m ppqsflhe_tpu_torch.fl.cli thresholdKeyGen <cc> <crs_seed> <share_out> <bshare_out>
@@ -27,6 +32,7 @@ The threshold multiparty tools (ckks/threshold.py):
 from __future__ import annotations
 
 import argparse
+import json
 import sys
 import time
 
@@ -60,7 +66,8 @@ def main(argv=None) -> int:
     s.add_argument("weights_in")
     s.add_argument("enc_out")
     s.add_argument("--wire", choices=("native", "openfhe"), default="native",
-                   help="ciphertext wire format (only the native PQTC blobs are ported)")
+                   help="ciphertext wire: native PQTC blobs, or the reference's OpenFHE "
+                        "cereal-BINARY")
     s.add_argument("--binary", action="store_true",
                    help="write the PQWD raw-binary container instead of JSON+Base64 "
                         "(downstream tools detect and keep it)")
@@ -91,6 +98,9 @@ def main(argv=None) -> int:
     s.add_argument("--lazy", action="store_true",
                    help="free ÷N (power-of-two client counts) + LevelReduce")
     s.add_argument("--wire", choices=("native", "openfhe"), default="native")
+
+    s = sub.add_parser("train")
+    s.add_argument("config")
 
     s = sub.add_parser("thresholdKeyGen")
     s.add_argument("cc")
@@ -184,6 +194,12 @@ def main(argv=None) -> int:
     elif args.cmd == "thresholdFuseDecrypt":
         api.threshold_fuse_decrypt(args.cc, args.enc_in, args.partials, args.plain_out,
                                    device=dev)
+    elif args.cmd == "train":
+        from ..train.trainer import train_client
+
+        with open(args.config) as f:
+            cfg = json.load(f)["CLIENT"]
+        train_client(cfg, seed=args.seed or 0, device=dev)
     print(f"[{args.cmd}] done in {time.time() - t0:.2f}s", file=sys.stderr)
     return 0
 

@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from typing import List
 
+import numpy as np
 import torch
 
 from .gru import ParamListModel, _glorot, dropout
@@ -44,3 +45,6 @@ class Model(ParamListModel):
             h = dropout(h, dropout_rate, generator)
         return (h @ p[4] + p[5])[:, 0]
 
+
+def num_params(params) -> int:
+    return sum(int(np.prod(p.shape)) for p in params)

@@ -104,3 +104,6 @@ class Model(ParamListModel):
             h = h + f
         return (h[:, -1, :] @ params[-2] + params[-1])[:, 0]
 
+
+def num_params(params) -> int:
+    return sum(int(np.prod(p.shape)) for p in params)

@@ -242,7 +242,17 @@ def test_cli_smoke(files, tmp_path):
     for a, b in zip(p["s1"], p["s2"]):
         want = (np.asarray(a["values"]) + np.asarray(b["values"])) / 2
         np.testing.assert_allclose(got[a["layer"]], want, atol=1e-3)
-    with pytest.raises(ValueError, match="not ported"):
-        run("encryptModelWeights", cc, P("pk1"), p["w1"], P("x"), "--wire", "openfhe")
+    # the OpenFHE wire: cereal-BINARY fields in a JSON document, which the
+    # other tools read
+    assert run("encryptModelWeights", cc, P("pk1"), p["w1"], P("x"), "--wire", "openfhe") == 0
+    assert not ser.doc_is_binary(P("x"))
+    with open(P("x")) as f:
+        assert base64.b64decode(json.load(f)["weights_summary"][0]["mean"])[:4] != ser.MAGIC
+    assert run("decryptModelWeights", cc, P("sk1"), P("x"), P("xdec")) == 0
+    with open(P("xdec")) as f:
+        got = values_of(json.load(f))
+    assert set(got) == {a["layer"] for a in p["s1"][:3]}       # the optimizer layer skipped
+    for a in p["s1"][:3]:
+        np.testing.assert_allclose(got[a["layer"]], a["values"], atol=1e-3)
     with pytest.raises(ValueError, match="PREMode"):
         api.gen_cc({"ring_dim": 128, "batch_size": 32, "PREMode": "INDCCA2"}, P("bad.json"))

@@ -36,6 +36,8 @@ MODULES = [
     "ppqsflhe_tpu_torch.ckks.noise",
     "ppqsflhe_tpu_torch.ckks.multikey",
     "ppqsflhe_tpu_torch.ckks.threshold",
+    "ppqsflhe_tpu_torch.ckks.openfhe_emit",
+    "ppqsflhe_tpu_torch.ckks.openfhe_io",
     "ppqsflhe_tpu_torch.fl.api",
     "ppqsflhe_tpu_torch.fl.cli",
     "ppqsflhe_tpu_torch.probes",
@@ -44,6 +46,13 @@ MODULES = [
     "ppqsflhe_tpu_torch.bench",
     "ppqsflhe_tpu_torch.bench.multikey",
     "ppqsflhe_tpu_torch.bench.orchestrated",
+    "ppqsflhe_tpu_torch.bench.timing",
+    "ppqsflhe_tpu_torch.bench.server_round",
+    "ppqsflhe_tpu_torch.bench.rotations",
+    "ppqsflhe_tpu_torch.bench.kernels",
+    "ppqsflhe_tpu_torch.bench.sizes",
+    "ppqsflhe_tpu_torch.utils",
+    "ppqsflhe_tpu_torch.utils.profiling",
     "ppqsflhe_tpu_torch.convert",
     "ppqsflhe_tpu_torch.comm",
     "ppqsflhe_tpu_torch.comm.metrics",

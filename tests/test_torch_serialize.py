@@ -60,8 +60,9 @@ def test_params_documents_cross(world, tmp_path):
     d = jser.params_to_dict(jp)
     del d["ntt_backend"]
     assert ser.params_from_dict(d).ntt_backend == "radix2"
-    with pytest.raises(ValueError, match="flexible_ext"):
-        ser.params_from_dict(dict(d, flexible_ext=True))
+    # a FLEXIBLEAUTOEXT document loads with the mode on and re-emits it
+    fx = ser.params_from_dict(dict(d, flexible_ext=True))
+    assert fx.flexible_ext and ser.params_to_dict(fx)["flexible_ext"] is True
     assert ser.params_to_dict(sch.params) == jser.params_to_dict(jp)
 
 

@@ -1,7 +1,7 @@
 """The port's whole slice against the JAX package: keys and ciphertexts made
 by the JAX package cross over through ``convert``, and the port's
 ``server_round`` must give the same residues, bit for bit, as the same round
-run by the JAX package (bench.py's ``server_round``) in both schedules.
+run by the JAX package (bench.py's ``server_round``) in all five schedules.
 Decryption crosses both ways. Decrypted values are held to 1e-6 absolute at
 Δ = 2^40 (the fresh-encryption noise is ~1e-8 there)."""
 
@@ -34,9 +34,9 @@ TOL = 1e-6
 
 
 def _jax_server_round(sch, s1, s2, k12, k21, scale, lazy):
-    """bench.py's server_round (bench.py:197-222) for lazy ∈ {4, 0}."""
+    """bench.py's server_round (bench.py:178-222) for lazy ∈ {0, …, 4}."""
     L_full = sch.params.num_q
-    drop = min(min(lazy, 1), L_full - 1)
+    drop = min(2 if lazy == 2 else min(lazy, 1), L_full - 1)
 
     def re_enc(d, rk):
         l = d.shape[1]
@@ -48,7 +48,12 @@ def _jax_server_round(sch, s1, s2, k12, k21, scale, lazy):
         if drop:
             d1, d2 = d1[:, : L_full - drop], d2[:, : L_full - drop]
         s = jev.add(sch.ctx, JaxCt(re_enc(d1, k12), scale), JaxCt(d2, scale))
-        avg = JaxCt(s.data[:, :-1], scale) if lazy >= 4 else jev.mult_scalar(sch.ctx, s, 0.5)
+        if lazy >= 4:
+            avg = JaxCt(s.data[:, :-1], scale)
+        elif lazy >= 2:
+            avg = s                             # ÷2 is free: scale ×= 2 outside
+        else:
+            avg = jev.mult_scalar(sch.ctx, s, 0.5)
         return avg.data, re_enc(avg.data, k21)
 
     return jax.vmap(agg_pair)(s1, s2)
@@ -88,7 +93,8 @@ def _max_err(sch, sk, cts, want):
                for i in range(cts.data.shape[0]))
 
 
-@pytest.mark.parametrize("lazy", [4, 0], ids=["lazy4", "full_level"])
+@pytest.mark.parametrize("lazy", [4, 0, 1, 2, 3],
+                         ids=["lazy4", "full_level", "lazy1", "lazy2", "lazy3"])
 def test_server_round_bitequal_to_jax(world, lazy):
     w = world
     js, sch = w["js"], w["sch"]
@@ -101,9 +107,9 @@ def test_server_round_bitequal_to_jax(world, lazy):
     avg, back = server_round(sch, c1, c2, w["rk12"], w["rk21"], lazy)
     np.testing.assert_array_equal(convert.residues_np(avg.data), np.asarray(want_avg))
     np.testing.assert_array_equal(convert.residues_np(back.data), np.asarray(want_back))
-    # bench.py decrypts the lazy schedule's output at scale·2 (÷2 as metadata)
-    assert avg.scale == (2 * w["scale"] if lazy else w["scale"])
-    assert back.nlimbs == (1 if lazy else 2)
+    # bench.py decrypts at scale·2 wherever ÷2 is scale metadata (lazy ≥ 2)
+    assert avg.scale == back.scale == (2 * w["scale"] if lazy >= 2 else w["scale"])
+    assert back.nlimbs == {0: 2, 1: 1, 2: 1, 3: 2, 4: 1}[lazy]
     assert _max_err(sch, w["sk2"], avg, w["want"]) < TOL
     assert _max_err(sch, w["sk1"], back, w["want"]) < TOL
 
@@ -177,16 +183,20 @@ def test_encoder_and_exact_decode_match_reference(world):
 
 
 def test_convert_round_trips_and_refuses_other_orders():
-    """Both evaluation orders round-trip through the JAX fields; an unknown
-    order and the unported FLEXIBLEAUTOEXT mode are refused."""
+    """Both evaluation orders and the FLEXIBLEAUTOEXT chain round-trip
+    through the JAX fields; an unknown order is refused."""
     p = CkksParams.generate(n=1 << 10)
     assert convert.params(convert.params_fields(p)) == p
     r2 = CkksParams.generate(n=1 << 10, ntt_backend="radix2")
     assert convert.params(convert.params_fields(r2)) == r2
     with pytest.raises(ValueError, match="ntt_backend"):
         convert.params(dict(convert.params_fields(p), ntt_backend="radix4"))
-    with pytest.raises(ValueError, match="flexible_ext"):
-        convert.params(dict(convert.params_fields(p), flexible_ext=True))
+    fx = CkksParams.generate(n=1 << 10, extra_mod_bits=20)
+    fields = convert.params_fields(fx)
+    assert fields["flexible_ext"] and convert.params(fields) == fx
+    assert JaxParams(**fields) == JaxParams.generate(n=1 << 10, extra_mod_bits=20,
+                                                     ntt_backend="fourstep",
+                                                     ntt_impl=fx.ntt_impl)
     data = np.random.default_rng(0).integers(0, 1 << 63, (2, 3, 8), dtype=np.uint64) * 2 + 1
     ct = convert.ciphertext(data, 3.0, device="cpu")
     assert np.array_equal(convert.to_numpy(ct)["data"], data)
