@@ -83,7 +83,28 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   (``wire="openfhe"``), parsed back and decrypted (< 1e-3); kernels 1, 2
   and 3 at the FLEXIBLEAUTOEXT chain's shapes (the 20-bit limb, the digit
   {q2, q3}, nd=2 over LK=6) are held to their plain versions first. The
-  phase prints its seconds.
+  phase prints its seconds;
+- **the sharded server round** (``ppqsflhe_tpu_torch.parallel``, the
+  twin of ``bench_sharded.py``) on a one-rank NCCL group, client 1 × coef
+  1, at full width: first kernels 4 and 5 at every per-shard shape of a
+  coef axis of D ∈ {2, 4, 8} ranks (N=2^14 on the round's QP chain, N=2^16
+  on ``bench_kernels.py``'s; N=2^12 at D ∈ {2, 4} and N=2^10 at D=2 for
+  the m = 64 and 32 instances): every shard's column block at col0 = k·c
+  bit-equal to the plain stage A, the blocks exchanged as the tiled
+  all-to-all exchanges them, every rank's rows bit-equal to the plain
+  stage B and the stitched result to the replicated transform; kernels 2
+  and 3 at a shard's width N/D. Then the main path: ``fedavg_round_sharded``
+  and ``fl.api.server_round`` over the sharded context (lazy-4 and full)
+  on phase 1's inputs, bit-equal to phase 1's replicated round and
+  decrypting within 1e-3, with kernels 4, 5, 2 and 3 launched and kernel 1
+  not (11 all-to-alls and one all-reduce a round); a sharded rotation and
+  conjugation bit-equal to the scheme's; ``joint_public_key_sharded`` and
+  ``partial_decrypt_psum`` at 16 local parties (bit-equal to the joint key
+  and to the single-device fusion, RMS error 0.9–1.1 σ); the twin
+  ``bench/sharded.py`` in both schedules (``[twin json]``, the sharded
+  round's marginal beside the replicated one's); and ``runtime/`` built
+  with make, its artifact server answering ``/getCC`` and ``/download/``.
+  The phase prints its seconds.
 
 For each path:
 
@@ -2474,6 +2495,300 @@ def twins_phase(card, device):
     return cases.take_launches(launches)
 
 
+# ---------------------------------------------------------------------------
+# Path 12: the sharded server round on a one-rank NCCL group, and runtime/
+# ---------------------------------------------------------------------------
+
+SHARD_COUNTS = (2, 4, 8)        # the coef axis sizes whose per-shard shapes are checked
+
+
+def shard_stage_checks(cases, runner, x, tag, shards=SHARD_COUNTS):
+    """Kernels 4 and 5 at every per-shard shape of a D-rank coef axis, on one
+    card: x (B, L, N) over all L limbs of ``runner`` (a CudaMxuNtt). Per
+    direction and D (whole 16-wide tiles only): kernel 4 on every shard k's
+    column block at col0 = k·c (bit-equal to ``stage_a_plain(..., col0)``),
+    the blocks exchanged as ``all_to_all_tiled`` exchanges them
+    (``mesh.exchange_tiled``, one process), kernel 5 over each rank's m1/D
+    rows (bit-equal to ``stage_b_plain``), and the stitched result bit-equal
+    to the replicated transform. One JSON row per stage of the forward
+    transform, timed on the last shard (col0 ≠ 0); the inverse's shards
+    are held bit-equal the same way, untimed."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ops import streamed_ntt as sn
+    from ppqsflhe_tpu_torch.parallel.mesh import exchange_tiled
+
+    B, L, n = x.shape
+    n1, n2 = runner.n1, runner.n2
+    sel, chain = list(range(L)), runner.tables.streamed
+    limbs = [chain.limb(i) for i in sel]
+    for fwd in (True, False):
+        m1, m2 = (n1, n2) if fwd else (n2, n1)
+        xm = x.reshape(B, L, m1, m2)
+        want = (runner.ntt if fwd else runner.intt)(x)
+        tabs, info_a, info_b = chain.device(x.device, sel, fwd)
+        way = "forward" if fwd else "inverse"
+        for D in shards:
+            if m1 % (sn.TILE * D) or m2 % (sn.TILE * D):
+                continue
+            c, rows = m2 // D, m1 // D
+            blocks = [xm[..., k * c:(k + 1) * c].contiguous() for k in range(D)]
+            run_a = lambda k: sn.stage_a(blocks[k], torch.empty_like(blocks[k]), tabs, info_a,
+                                         fwd, m2, k * c)
+            plain_a = lambda k: sn.stage_a_plain(blocks[k], limbs, fwd, k * c)
+            ys = [run_a(k).clone() for k in range(D)]
+            for k in range(D):
+                if not torch.equal(ys[k], plain_a(k)):
+                    raise AssertionError(f"kernel 4 shard {k} of {D} ({way}, {tag}) differs "
+                                         f"from stage_a_plain")
+            k = D - 1
+            if fwd:
+                cases.check(f"streamed_stage_a (sharded {way}, D={D}: shard {k} at col0="
+                            f"{k * c}, c={c}, m={m1}, {L} limbs x {B} polys, {tag}; all {D} "
+                            f"shards and the inverse's bit-equal)", "streamed_stage_a",
+                            SRC_STREAMED, K4, ys[k], plain_a(k), lambda: run_a(k),
+                            lambda: plain_a(k), 10, stage_work(L, B, m1, c, 16))
+            ts = [t.contiguous() for t in exchange_tiled(ys, 2, 3)]     # (B, L, m1/D, m2)
+            run_b = lambda d: sn.stage_b(ts[d], torch.empty((B, L, m2, rows), dtype=torch.int64,
+                                                            device=x.device), tabs, info_b, fwd)
+            plain_b = lambda d: sn.stage_b_plain(ts[d], limbs, fwd)
+            zs = [run_b(d) for d in range(D)]
+            for d in range(D):
+                if not torch.equal(zs[d], plain_b(d)):
+                    raise AssertionError(f"kernel 5 rank {d} of {D} ({way}, {tag}) differs "
+                                         f"from stage_b_plain")
+            if fwd:
+                cases.check(f"streamed_stage_b (sharded {way}, D={D}: rank {D - 1}, {rows} rows "
+                            f"x m={m2}, {L} limbs x {B} polys, {tag}; all {D} ranks and the "
+                            f"inverse's bit-equal)", "streamed_stage_b", SRC_STREAMED, K5,
+                            zs[-1], plain_b(D - 1), lambda: run_b(D - 1),
+                            lambda: plain_b(D - 1), 10, stage_work(L, B, m2, rows))
+            if not torch.equal(torch.cat(zs, -1).reshape(B, L, n), want):
+                raise AssertionError(f"D={D} shards stitched ({way}, {tag}) differ from the "
+                                     f"replicated transform")
+        print(f"[shards {tag}] {way}: kernels 4 and 5 on every shard of D in "
+              f"{[D for D in shards if not (m1 % (16 * D) or m2 % (16 * D))]}, stitched = "
+              f"the replicated transform bit for bit")
+
+
+def shard_local_checks(cases, sch, rk_mont, gen, device):
+    """Kernels 2 and 3 at a shard's local width N/D (D = 2 and 8) on the
+    round's shapes: the l=3 digit {q0, q1}'s extension (constant folded, 27
+    polys) and the nd=2, LK=5 inner product over 27 polys."""
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.ops import cuda_ext
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    ctx = sch.ctx
+    mq, L, K = ctx.moduli_qp, sch.params.num_q, sch.params.num_p
+    groups, consts = _ks_decomp_consts(ctx, L)
+    src, pre = groups[0], consts[0]
+    dst = tuple(i for i in ctx.q_idx(L) + ctx.p_idx() if i not in src)
+    ext = ctx.extender(src, dst)
+    limbs = tuple(range(L + K))
+    q, qinv, _ = ctx.limb_consts(limbs, device)
+    lmap = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+    nd = len(ctx.digit_groups)
+    for D in (SHARD_COUNTS[0], SHARD_COUNTS[-1]):
+        w = sch.params.n // D
+        xe = rand_residues([mq[i] for i in src], (N_CTS,), w, gen, device)
+        cases.check(f"base_extend (l={L}, {len(src)}->{len(dst)} limbs, pre, {N_CTS} polys, "
+                    f"a shard's width N/D = {w}, D={D})", "base_extend", SRC_EXT, K2,
+                    cuda_ext.fused_extend(xe, ext, pre), ext.extend(xe, pre),
+                    lambda: cuda_ext.fused_extend(xe, ext, pre), lambda: ext.extend(xe, pre), 20,
+                    ext_work(N_CTS, len(src), len(dst), w))
+        dig = rand_residues(mq, (N_CTS, nd), w, gen, device)
+        key = rk_mont.data[..., :w].contiguous()
+        args = (dig, key, lmap, q, qinv)
+        cases.check(f"ks_inner_product (nd={nd}, LK={len(limbs)}, {N_CTS} polys, a shard's width "
+                    f"N/D = {w}, D={D})", "ks_inner_product", SRC_KS, K3,
+                    ks_inner_product(*args), ks_inner_product_plain(*args),
+                    lambda: ks_inner_product(*args), lambda: ks_inner_product_plain(*args), 20,
+                    ks_work(N_CTS, nd, len(limbs), w))
+
+
+def runtime_check(card):
+    """runtime/: build with make, start the artifact server, fetch /getCC and
+    one /download/ path."""
+    import subprocess
+    import tempfile
+    import urllib.request
+
+    from ppqsflhe_tpu_torch.runtime import NativeSerde, build_native, native_server_binary
+
+    t0 = time.perf_counter()
+    if not build_native():
+        raise AssertionError("runtime: make of the artifact server and serde failed")
+    t_build = time.perf_counter() - t0
+    if not NativeSerde().is_native or NativeSerde().decode(NativeSerde().encode(b"ppq")) != b"ppq":
+        raise AssertionError("runtime: libserde did not load or round-trip")
+    with tempfile.TemporaryDirectory() as tmp:
+        os.makedirs(os.path.join(tmp, "client_1"))
+        with open(os.path.join(tmp, "CC.json"), "w") as f:
+            f.write('{"cc": 1}')
+        with open(os.path.join(tmp, "client_1", "w.json"), "w") as f:
+            f.write("WEIGHTS" * 1000)
+        proc = subprocess.Popen([native_server_binary(), tmp, "0"], stdout=subprocess.PIPE,
+                                text=True)
+        try:
+            line = proc.stdout.readline().strip()
+            if not line.startswith("LISTENING "):
+                raise AssertionError(f"runtime: the server printed {line!r}")
+            base = f"http://127.0.0.1:{int(line.split()[1])}"
+            with urllib.request.urlopen(base + "/getCC", timeout=5) as r:
+                cc = r.read()
+            with urllib.request.urlopen(base + "/download/client_1/w.json", timeout=5) as r:
+                body = r.read()
+        finally:
+            proc.terminate()
+            proc.wait(timeout=5)
+    if cc != b'{"cc": 1}' or body != b"WEIGHTS" * 1000:
+        raise AssertionError("runtime: the artifact server answered wrongly")
+    print(f"[runtime] make built the artifact server and libserde in {t_build:.1f} s; the server "
+          f"answered /getCC and /download/ ({len(body)} B) ({card})")
+
+
+def sharded_phase(card, device, w, outs):
+    """The sharded server round on a one-rank NCCL group (client 1 × coef 1)
+    at full width, after the per-shard kernel checks: ``fedavg_round_sharded``
+    and ``fl.api.server_round`` over the sharded context (lazy-4 and full)
+    bit-equal to phase 1's replicated round on its world ``w``, ``outs``, and
+    decrypting within 1e-3; a sharded rotation and conjugation; the threshold
+    key and fused decryption of 16 local parties; then the twin of
+    ``bench_sharded.py`` in both schedules, and ``runtime/``. Returns the
+    kernels' rows."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.bench import sharded as sharded_twin
+    from ppqsflhe_tpu_torch.ckks import threshold as th
+    from ppqsflhe_tpu_torch.ckks.types import Ciphertext, KeySwitchKey
+    from ppqsflhe_tpu_torch.core import primes
+    from ppqsflhe_tpu_torch.fl.api import server_round
+    from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import CudaMxuNtt
+    from ppqsflhe_tpu_torch.parallel import mesh as pm
+    from ppqsflhe_tpu_torch.parallel import sharded_scheme as ss
+
+    t0 = time.perf_counter()
+    cases = KernelCases(card)
+    gen = torch.Generator().manual_seed(SEED + 12)
+    sch, ctx = w.sch, w.sch.ctx
+    x = rand_residues(ctx.moduli_qp, (N_CTS,), N_ROUND, gen, device)
+    shard_stage_checks(cases, ctx.fntt, x, "N=2^14, the round's QP chain")
+    for n, b, shards in ((N_BIG, 8, SHARD_COUNTS), (1 << 12, 8, (2, 4)), (1 << 10, 8, (2,))):
+        moduli = [primes.first_prime_down(59, 2 * n)] + [primes.first_prime_down(40 + i, 2 * n)
+                                                         for i in range(3)]
+        runner = CudaMxuNtt(n, moduli, [primes.root_of_unity(2 * n, q) for q in moduli])
+        shard_stage_checks(cases, runner, rand_residues(moduli, (b,), n, gen, device),
+                           f"N=2^{n.bit_length() - 1}, bench_kernels' chain", shards)
+    shard_local_checks(cases, sch, w.rk12, gen, device)
+    torch.cuda.synchronize()
+    t_checks = time.perf_counter() - t0
+
+    with pm.single_process_group(device):
+        mesh = pm.make_mesh({"client": 1, "coef": 1}, device.type)
+        sctx = ss.ShardedEvalContext(sch.params, mesh)
+        view = ss.scheme_view(sch, sctx)
+        key = lambda k: KeySwitchKey(sctx.local(k.data), k.mont)
+        loc = lambda ct: Ciphertext(sctx.local(ct.data), ct.scale)
+        rot_key = sch.rotation_key_gen(w.sk2, [1], w.gen)[1]
+        conj_key = sch.conjugation_key_gen(w.sk2, w.gen)
+        torch.cuda.synchronize()
+
+        reset_counts()
+        pm.reset_collectives()
+        agg, back = ss.fedavg_round_sharded(sctx, sctx.local(torch.stack([w.ct1.data,
+                                                                          w.ct2.data])),
+                                            key(w.rk12), key(w.rk21), w.ct1.scale)
+        torch.cuda.synchronize()
+        colls = pm.read_collectives()
+        per_sched = {lazy: server_round(view, loc(w.ct1), loc(w.ct2), key(w.rk12),
+                                        key(w.rk21), lazy) for lazy in (4, 0)}
+        rot = ss.rotate_sharded(sctx, loc(w.ct2), 1, key(rot_key))
+        conj = ss.conjugate_sharded(sctx, loc(w.ct2), key(conj_key))
+        torch.cuda.synchronize()
+        launches = read_counts()
+        print(f"[sharded] main path (fedavg_round_sharded, server_round lazy 4 and 0 over the "
+              f"sharded context, a rotation and a conjugation) kernel launches: "
+              f"{ {k: v for k, v in launches.items() if v} }; collectives of one "
+              f"fedavg_round_sharded: {colls} ({card})")
+        missing = [k for k in ("streamed_stage_a", "streamed_stage_b", "base_extend",
+                               "ks_inner_product") if not launches[k]]
+        if missing or launches["mxu_ntt"] or launches["mxu_ntt_mont"]:
+            raise AssertionError(f"the sharded path never launched {missing}, or launched "
+                                 f"kernel 1/1b: {launches}")
+        if colls["all_to_all"]["ops"] != 11 or colls["all_reduce"]["ops"] != 1:
+            raise AssertionError(f"fedavg_round_sharded issued {colls}: 11 all-to-alls and one "
+                                 f"all-reduce expected")
+        checks = [("fedavg_round_sharded average", agg, outs[0][0].data),
+                  ("fedavg_round_sharded re-encrypted", back, outs[0][1].data),
+                  ("rotate_sharded r=1", rot.data, sch.rotate(w.ct2, 1, rot_key).data),
+                  ("conjugate_sharded", conj.data, sch.conjugate(w.ct2, conj_key).data)]
+        for lazy, (a, b) in per_sched.items():
+            checks += [(f"server_round lazy={lazy} average", a.data, outs[lazy][0].data),
+                       (f"server_round lazy={lazy} re-encrypted", b.data, outs[lazy][1].data)]
+        for name, got, want in checks:
+            if not torch.equal(got, sctx.local(want)):
+                raise AssertionError(f"sharded {name} differs from the replicated one")
+        e2 = max_err(sch, w.sk2, Ciphertext(sctx.gather(agg), w.ct1.scale), w.want)
+        e1 = max_err(sch, w.sk1, Ciphertext(sctx.gather(back), w.ct1.scale), w.want)
+        print(f"[sharded] bit-equal to the replicated path: " + ", ".join(c[0] for c in checks)
+              + f"; fedavg_round_sharded decrypt max err {e2:.3e} / {e1:.3e} (gate {ERR_GATE}) "
+              f"({card})")
+        if not max(e1, e2) < ERR_GATE:
+            raise AssertionError(f"fedavg_round_sharded decrypt error {max(e1, e2)}")
+
+        # threshold: 16 local parties on one rank of the client axis
+        cmesh = pm.make_mesh({"client": 1}, device.type)
+        tgen = torch.Generator(device=device).manual_seed(SEED + 13)
+        a = th.common_random_poly(ctx, CRS_SEED, device)
+        parts = [th.partial_keygen(ctx, a, tgen) for _ in range(TH_PARTIES)]
+        b_local = torch.stack([b for _, b in parts])
+        pk = th.joint_public_key_sharded(ctx, a, b_local, cmesh)
+        if not torch.equal(pk.data, th.joint_public_key(ctx, a, [b for _, b in parts]).data):
+            raise AssertionError("joint_public_key_sharded differs from joint_public_key")
+        payload = list(w.want)
+        ct = sch.encrypt_values(pk, payload, tgen)
+        fgens = lambda: [torch.Generator(device=device).manual_seed(SEED + 200 + i)
+                         for i in range(TH_PARTIES)]
+        t1 = time.perf_counter()
+        coeffs = th.partial_decrypt_psum(ctx, ct, torch.stack([s.s_eval for s, _ in parts]),
+                                         fgens(), cmesh)
+        torch.cuda.synchronize()
+        t_psum = (time.perf_counter() - t1) * 1e3
+        single = th.fuse_partial_decryptions(ctx, ct, [th.partial_decrypt(ctx, s, ct, g)
+                                                       for (s, _), g in zip(parts, fgens())])
+        if not torch.equal(coeffs, single):
+            raise AssertionError("partial_decrypt_psum differs from the single-device fusion")
+        rms, mx = slot_errors(sch, coeffs, ct, payload)
+        sig = smudge_sigma(TH_PARTIES, N_ROUND, th.DEFAULT_SMUDGING_BITS, ct.scale)
+        print(f"[sharded threshold] {TH_PARTIES} local parties: joint_public_key_sharded = "
+              f"joint_public_key; partial_decrypt_psum = the single-device fusion bit for bit, "
+              f"{t_psum:.1f} ms for {N_CTS} ciphertexts; error RMS {rms:.4e}, max {mx:.4e}, "
+              f"sigma {sig:.4f} (RMS/sigma {rms / sig:.3f}, max/sigma {mx / sig:.2f}; gate "
+              f"0.9-1.1, < 6) ({card})")
+        if not (0.9 * sig <= rms <= 1.1 * sig and mx < 6 * sig):
+            raise AssertionError(f"partial_decrypt_psum error RMS {rms / sig:.3f} sigma")
+
+        lines = []
+        t2 = time.perf_counter()
+        for lazy in (4, 0):
+            sharded_twin.bench(device, lazy, reps=TWIN_REPS,
+                               out=lambda s: (print(f"[twin json] {s}"),
+                                              lines.append(json.loads(s))))
+        t_twin = time.perf_counter() - t2
+    for r in lines:
+        print(f"[timing sharded] lazy={r['lazy']}: sharded round {r['value']:.3f} ms/round "
+              f"marginal on a 1-rank NCCL coef mesh, replicated {r['replicated_ms']:.3f} ms "
+              f"(ratio {r['value'] / r['replicated_ms']:.2f}); one sharded round: device "
+              f"{show_us(r['device_ms'])}, enqueue {r['enqueue_ms']:.3f} ms; {r['collectives']} "
+              f"({card})")
+    runtime_check(card)
+    print(f"[sharded] phase 12: {time.perf_counter() - t0:.1f} s (kernel checks {t_checks:.1f} "
+          f"s, bench twin {t_twin:.1f} s) ({card})")
+    return cases.take_launches(launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -2509,6 +2824,7 @@ def main() -> None:
     kernels += probe_phase(card, device)
     kernels += orchestrated_phase(card, device)
     kernels += twins_phase(card, device)
+    kernels += sharded_phase(card, device, world, outs)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -6,25 +6,35 @@ modules under the same name, and each is held bit for bit against it by the
 ``jax``.
 
 - ``core``  : int64 twins of the RNS modular arithmetic, prime/NTT tables,
-              HPS base extension constants, samplers on ``torch.Generator``.
-- ``ops``   : the digit-matmul NTT tables and plain transforms (the TPU
-              method, kept as the reference), the butterfly stages that
-              run the same transforms on the card (fused, and the streamed
-              two-stage pair) with their plain torch versions, the four-step
-              evaluation order, and the wrappers of the hand-written CUDA
-              kernels (``csrc/``): the NTT stages, the HPS base extension
-              and the key-switch-key inner product.
-- ``ckks``  : the RNS-CKKS subset the server's aggregation round and the
-              rotation path need — params/context, keygen, PRE rekey,
-              relinearization and Galois key generation, encrypt,
-              decrypt, add, mult_scalar, ct×ct mult, rescale, hybrid key
-              switching, rotations (plain, hoisted, rotation sums),
-              conjugation and the packed inner product.
-- ``fl``    : the in-memory halves of the server's two tools
-              (changeCipherDomain, aggregateEncryptedWeights) and the
-              composed server round.
-- ``convert``: numpy ⇄ torch carriers for keys, ciphertexts and params, so
-              one set of inputs can feed both packages.
+              HPS base extension constants, samplers on ``torch.Generator``,
+              and a replay of the JAX PRNG for the threshold CRS.
+- ``ops``   : the four-step NTT tables and plain transforms, the wrappers
+              of the hand-written CUDA kernels (``csrc/``: the fused NTT
+              stages, the streamed pair, the butterfly transform, the HPS
+              base extension, the key-switch-key inner product) with their
+              plain torch versions, and the coefficient-sharded NTT.
+- ``ckks``  : the whole RNS-CKKS scheme (params/context with
+              FLEXIBLEAUTOEXT, keys, PRE rekeys, encrypt/decrypt, the
+              arithmetic, rescale, hybrid key switching, rotations plain,
+              hoisted and summed, conjugation, the inner product, noise
+              budgets), multikey aggregation and threshold CKKS (N-of-N and
+              t-of-N, with their mesh variants), and both wires: the native
+              PQTC/PQWD serialization and the OpenFHE cereal one.
+- ``fl``    : the seven FL tools and the seven threshold tools on files,
+              their CLI, and the server's in-memory round in every schedule.
+- ``train`` : the GRU, LSTM, MLP and transformer forecasters and their
+              Adam trainer, data pipeline and evaluation.
+- ``comm``, ``ingest``, ``orchestration``: the artifact server and client,
+              the telemetry broker, and the orchestrated FL loop.
+- ``parallel``: process meshes and collectives on ``torch.distributed``
+              (NCCL on the card, ``gloo`` on the CPU), the client- and
+              coefficient-sharded server round, multi-host execution and
+              the multi-rank dry run.
+- ``runtime``: the native C++ artifact server and Base64 codec (ctypes).
+- ``bench``, ``probes``: the twins of the JAX package's root benches and
+              of its overlap probe, run on the card.
+- ``convert``: numpy ⇄ torch carriers for keys, ciphertexts, params and
+              model parameters, so one set of inputs can feed both packages.
 
 Residue convention: ``torch.int64`` tensors holding values < 2^62 (every
 modulus is < 2^60). 64-bit constants that exceed 2^63 (Shoup companions,

@@ -2,9 +2,11 @@
 decryption, N-of-N by additive shares and t-of-N by Shamir sharing of
 them.
 
-Twin of the single-device functions of :mod:`ppqsflhe_tpu.ckks.threshold`
-(``:68-303``; its mesh variants belong with ``torch.distributed`` and are
-not here). The protocol, as OpenFHE's multiparty surface:
+Twin of :mod:`ppqsflhe_tpu.ckks.threshold`: the single-device functions
+(``:68-303``) and the mesh variants over a ``client`` axis
+(:func:`joint_public_key_sharded`, :func:`partial_decrypt_psum`, ``:305-367``),
+each rank holding its own parties' shares. The protocol, as OpenFHE's
+multiparty surface:
 
 - party i samples a ternary share s_i; the joint secret s = Σ s_i is never
   formed;
@@ -36,6 +38,8 @@ import torch
 
 from ..core import jax_prng, primes, sampling
 from ..core.modarith import modadd, modmul, modneg
+from ..parallel.mesh import axis_group, psum_mod
+from .multikey import fold_local
 from .params import CkksContext
 from .rlwe import _poly_mul, _signed_to_eval, decode_coeffs
 from .types import Ciphertext, PublicKey, SecretKey
@@ -273,3 +277,37 @@ def threshold_decrypt_t(ctx: CkksContext, ct: Ciphertext, sigmas: dict,
     partials = [partial_decrypt_t(ctx, sigmas[j], ct, party_set, j, gen, smudging_bits)
                 for j in party_set]
     return _decode(ctx, fuse_partial_decryptions(ctx, ct, partials), ct, encoder, num)
+
+
+# ---------------------------------------------------------------------------
+# Mesh variants: each rank holds its own parties (client axis collectives)
+# ---------------------------------------------------------------------------
+
+def joint_public_key_sharded(ctx: CkksContext, a: torch.Tensor, b_local: torch.Tensor, mesh,
+                             axis: str = "client") -> PublicKey:
+    """pk = (Σ b_i, a) with this rank's public shares ``b_local``
+    (parties_local, L+K, N) folded locally and one modular psum over
+    ``axis``; the same key on every rank."""
+    q, _, _ = _all_q(ctx, b_local.device)
+    b = psum_mod(fold_local(b_local, q), q, axis_group(mesh, axis))
+    return PublicKey(data=torch.stack([b, a]))
+
+
+def partial_decrypt_psum(ctx: CkksContext, ct: Ciphertext, s_eval_local: torch.Tensor,
+                         gens_local: Sequence[torch.Generator], mesh, axis: str = "client",
+                         smudging_bits: int = DEFAULT_SMUDGING_BITS) -> torch.Tensor:
+    """Every party's partial decryption and the fusion as one collective:
+    this rank sums c1·s_i + e_i over its parties (``s_eval_local``
+    (parties_local, L+K, N), party i's flood from ``gens_local[i]`` as in
+    :func:`partial_decrypt`), one modular psum over ``axis``, then c0 is
+    added and the iNTT taken. Returns the plaintext's coefficient residues,
+    the same on every rank."""
+    _check_two(ct)
+    idx = ctx.q_idx(ct.nlimbs)
+    q, _, _ = ctx.limb_consts(idx, ct.data.device)
+    acc = None
+    for s_i, gen in zip(s_eval_local, gens_local):
+        p = decryption_share(ctx, ct, s_i, _flood(ctx, ct, gen, smudging_bits))
+        acc = p if acc is None else modadd(acc, p, q)
+    fused = psum_mod(acc, q, axis_group(mesh, axis))
+    return ctx.intt(modadd(ct.data[..., 0, :, :], fused, q), idx)

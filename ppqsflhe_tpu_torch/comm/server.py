@@ -10,8 +10,10 @@ Same route contract as the reference Mongoose server:
 
 plus /healthz. Python stdlib ThreadingHTTPServer is plenty for the control
 plane (the reference measured 36-96 ms per 37 MB upload server-side —
-SURVEY.md §6); the C++ native server in runtime/ is a drop-in for
-deployments that need it.
+SURVEY.md §6); the port's C++ native server
+(``ppqsflhe_tpu_torch/runtime/artifact_server.cpp``, built by
+``runtime.build_native()`` into ``build/ppqsflhe_tpu_torch/runtime/bin/``)
+is a drop-in for deployments that need it.
 """
 
 from __future__ import annotations

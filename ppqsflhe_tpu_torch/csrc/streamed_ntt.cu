@@ -233,9 +233,23 @@ int launch_b(const void* x, void* y, const void* tabs, const void* info, int B, 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int LOGM>
+int dispatch_a(const void* x, void* y, const void* tabs, const void* info, int B, int L, int c,
+               int tw_cols, int col0, int forward, cudaStream_t s) {
+  return forward ? launch_a<LOGM, true>(x, y, tabs, info, B, L, c, tw_cols, col0, s)
+                 : launch_a<LOGM, false>(x, y, tabs, info, B, L, c, tw_cols, col0, s);
+}
+
+template <int LOGM>
+int dispatch_b(const void* t, void* y, const void* tabs, const void* info, int B, int L,
+               int rows, int forward, cudaStream_t s) {
+  return forward ? launch_b<LOGM, true>(t, y, tabs, info, B, L, rows, s)
+                 : launch_b<LOGM, false>(t, y, tabs, info, B, L, rows, s);
+}
+
 }  // namespace
 
-// x, y: (B, L, m, c) int64, m in {128, 256}, c a multiple of 16; info (L, 4):
+// x, y: (B, L, m, c) int64, m in {32, 64, 128, 256}, c a multiple of 16; info (L, 4):
 // q and the offsets in tabs of the limb's m-vector pair, Pease row 0 pair and
 // (m, tw_cols) twiddle pair, x holding the table's columns [col0, col0 + c)
 // (col0 a multiple of 16).
@@ -243,26 +257,26 @@ extern "C" int ppq_streamed_stage_a(const void* x, void* y, const void* tabs, co
                                     int B, int L, int m, int c, int tw_cols, int col0,
                                     int forward, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m == 256)
-    return forward ? launch_a<8, true>(x, y, tabs, info, B, L, c, tw_cols, col0, s)
-                   : launch_a<8, false>(x, y, tabs, info, B, L, c, tw_cols, col0, s);
-  if (m == 128)
-    return forward ? launch_a<7, true>(x, y, tabs, info, B, L, c, tw_cols, col0, s)
-                   : launch_a<7, false>(x, y, tabs, info, B, L, c, tw_cols, col0, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (m) {
+    case 32: return dispatch_a<5>(x, y, tabs, info, B, L, c, tw_cols, col0, forward, s);
+    case 64: return dispatch_a<6>(x, y, tabs, info, B, L, c, tw_cols, col0, forward, s);
+    case 128: return dispatch_a<7>(x, y, tabs, info, B, L, c, tw_cols, col0, forward, s);
+    case 256: return dispatch_a<8>(x, y, tabs, info, B, L, c, tw_cols, col0, forward, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// t: (B, L, rows, m) int64, transformed along its last axis (m in {128, 256},
+// t: (B, L, rows, m) int64, transformed along its last axis (m in {32, ..., 256},
 // rows a multiple of 16); y: (B, L, m, rows); info (L, 4) as above (the
 // twiddle offset unused).
 extern "C" int ppq_streamed_stage_b(const void* t, void* y, const void* tabs, const void* info,
                                     int B, int L, int m, int rows, int forward, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (m == 256)
-    return forward ? launch_b<8, true>(t, y, tabs, info, B, L, rows, s)
-                   : launch_b<8, false>(t, y, tabs, info, B, L, rows, s);
-  if (m == 128)
-    return forward ? launch_b<7, true>(t, y, tabs, info, B, L, rows, s)
-                   : launch_b<7, false>(t, y, tabs, info, B, L, rows, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (m) {
+    case 32: return dispatch_b<5>(t, y, tabs, info, B, L, rows, forward, s);
+    case 64: return dispatch_b<6>(t, y, tabs, info, B, L, rows, forward, s);
+    case 128: return dispatch_b<7>(t, y, tabs, info, B, L, rows, forward, s);
+    case 256: return dispatch_b<8>(t, y, tabs, info, B, L, rows, forward, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

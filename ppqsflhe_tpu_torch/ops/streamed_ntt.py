@@ -51,7 +51,7 @@ launches_stage_a = 0  # kernel 4 launches since the last reset
 launches_stage_b = 0  # kernel 5 launches
 INFO = 4              # per limb: q, vector, root-row and twiddle offsets in the table buffer
 TILE = 16             # csrc/streamed_ntt.cu TC: columns (stage A) or rows (stage B) per block
-SIZES = (128, 256)    # the m the kernels take: 16 threads of 16 values per column at 256
+SIZES = (32, 64, 128, 256)   # the m the kernels take: m/16 threads of 16 values a column
 
 
 @dataclass

@@ -74,6 +74,16 @@ MODULES = [
     "ppqsflhe_tpu_torch.orchestration",
     "ppqsflhe_tpu_torch.orchestration.orchestrator",
     "ppqsflhe_tpu_torch.orchestration.cli",
+    "ppqsflhe_tpu_torch.ops.sharded_ntt",
+    "ppqsflhe_tpu_torch.parallel",
+    "ppqsflhe_tpu_torch.parallel.mesh",
+    "ppqsflhe_tpu_torch.parallel.multihost",
+    "ppqsflhe_tpu_torch.parallel.sharded_scheme",
+    "ppqsflhe_tpu_torch.parallel.dryrun",
+    "ppqsflhe_tpu_torch.bench.sharded",
+    "ppqsflhe_tpu_torch.bench.scaling",
+    "ppqsflhe_tpu_torch.runtime",
+    "ppqsflhe_tpu_torch.runtime.native",
 ]
 
 
