@@ -104,7 +104,27 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   ``bench/sharded.py`` in both schedules (``[twin json]``, the sharded
   round's marginal beside the replicated one's); and ``runtime/`` built
   with make, its artifact server answering ``/getCC`` and ``/download/``.
-  The phase prints its seconds.
+  The phase prints its seconds;
+- **small rings and narrow shards** (phase 13): kernels 1, 1b and 6 at
+  m = 8 and 16 (N = 2^6 … 2^9 on ``bench_kernels.py``'s chain, 4 limbs ×
+  27 polys), every launch of both stages or passes, forward and inverse,
+  bit-equal to its plain version, the whole forward transforms timed (1
+  and 1b also held to the digit transform, on the CPU: cuBLAS's int8
+  product refuses the small digit matrices); kernels 4 and 5 there as a
+  one-rank coef axis, and on shards narrower than a 16-wide tile: N=2^12
+  at D = 8, 16, 32, 64 (c = 8, 4, 2, 1), N=2^14 at D = 16, 32 and N=2^16
+  at D = 32, every shard bit-equal and the stitched shards equal to the
+  replicated transform; kernels 2 and 3 at the small rounds' shapes. Rows
+  are timed at N = 2^7 (n1 = 8, n2 = 16: both instances and 8-wide
+  tiles), at D = 64 of N=2^12 (1-wide tiles), and for kernels 2 and 3 at
+  N = 2^9. Then the main
+  path: ``bench.py``'s server round at N = 2^8 and 2^9 in both schedules through
+  the default route (kernels 1, 2 and 3 launched, decrypt error < 1e-3,
+  bit-equal to the same round run on the CPU, ms/round), the N = 2^8 round
+  in the butterfly configuration (kernel 6, bit-equal to it), and
+  ``bench.scaling``'s three paths at D = 1 on the JAX bench's shapes (the
+  aggregation at N=256) on a one-rank NCCL group, its collectives equal
+  to ``SCALING_MODEL.json``'s D = 1 row. The phase prints its seconds.
 
 For each path:
 
@@ -250,16 +270,18 @@ def fused_case(cases, fntt, x, sel, fwd, mont, run, iters, tag):
     """A whole kernel-1 (1b with ``mont``) transform ``run`` of x over limbs
     ``sel`` against its plain version (the two butterfly stages in torch),
     after a one-off check against the digit-matmul plain transform (the TPU
-    method's twin)."""
+    method's twin), run on the CPU for the small rings, N ≤ 2^9 (cuBLAS's
+    int8 product refuses their digit matrices)."""
     import torch
 
     from ppqsflhe_tpu_torch.ops import mxu_ntt
 
     got = run()
     fn = mxu_ntt.mxu_ntt_limb if fwd else mxu_ntt.mxu_intt_limb
-    digit = torch.stack([fn(x[..., k, :], fntt.tabs[i], mont) for k, i in enumerate(sel)],
+    xd = x.cpu() if fntt.n <= SMALL_RINGS[-1] else x
+    digit = torch.stack([fn(xd[..., k, :], fntt.tabs[i], mont) for k, i in enumerate(sel)],
                         dim=-2)
-    if not torch.equal(got, digit):
+    if not torch.equal(got.to(digit.device), digit):
         raise AssertionError(f"kernel 1{'b' if mont else ''} differs from the digit transform "
                              f"({tag})")
     B, tabs = x.numel() // (len(sel) * fntt.n), [fntt.tabs[i] for i in sel]
@@ -2502,17 +2524,22 @@ def twins_phase(card, device):
 SHARD_COUNTS = (2, 4, 8)        # the coef axis sizes whose per-shard shapes are checked
 
 
-def shard_stage_checks(cases, runner, x, tag, shards=SHARD_COUNTS):
+def shard_stage_checks(cases, runner, x, tag, shards=SHARD_COUNTS, timed=True):
     """Kernels 4 and 5 at every per-shard shape of a D-rank coef axis, on one
     card: x (B, L, N) over all L limbs of ``runner`` (a CudaMxuNtt). Per
-    direction and D (whole 16-wide tiles only): kernel 4 on every shard k's
-    column block at col0 = k·c (bit-equal to ``stage_a_plain(..., col0)``),
-    the blocks exchanged as ``all_to_all_tiled`` exchanges them
-    (``mesh.exchange_tiled``, one process), kernel 5 over each rank's m1/D
-    rows (bit-equal to ``stage_b_plain``), and the stitched result bit-equal
-    to the replicated transform. One JSON row per stage of the forward
-    transform, timed on the last shard (col0 ≠ 0); the inverse's shards
-    are held bit-equal the same way, untimed."""
+    direction and D: kernel 4 on every shard k's
+    column block at col0 = k·c, bit-equal to the same columns of
+    ``stage_a_plain`` over the whole matrix (the plain stage transforms each
+    column on its own, so one call holds every shard), the blocks exchanged
+    as ``all_to_all_tiled`` exchanges them (``mesh.exchange_tiled``, one
+    process), kernel 5 over each rank's m1/D rows, bit-equal to the same
+    rows of ``stage_b_plain`` over the whole matrix, and the stitched result
+    bit-equal to the replicated transform. One JSON row per stage of the
+    forward transform, timed on the last shard (col0 ≠ 0 where D > 1); the
+    inverse's shards are held bit-equal the same way, untimed (and the
+    forward's too unless ``timed``). A D that does not divide n1 and n2 is
+    skipped; a shard narrower than 16 columns or rows runs the kernels'
+    narrow tiles."""
     import torch
 
     from ppqsflhe_tpu_torch.ops import streamed_ntt as sn
@@ -2526,10 +2553,12 @@ def shard_stage_checks(cases, runner, x, tag, shards=SHARD_COUNTS):
         m1, m2 = (n1, n2) if fwd else (n2, n1)
         xm = x.reshape(B, L, m1, m2)
         want = (runner.ntt if fwd else runner.intt)(x)
+        plain_all_a = sn.stage_a_plain(xm, limbs, fwd)                  # (B, L, m1, m2)
+        plain_all_b = sn.stage_b_plain(plain_all_a, limbs, fwd)         # (B, L, m2, m1)
         tabs, info_a, info_b = chain.device(x.device, sel, fwd)
         way = "forward" if fwd else "inverse"
         for D in shards:
-            if m1 % (sn.TILE * D) or m2 % (sn.TILE * D):
+            if m1 % D or m2 % D:
                 continue
             c, rows = m2 // D, m1 // D
             blocks = [xm[..., k * c:(k + 1) * c].contiguous() for k in range(D)]
@@ -2538,11 +2567,11 @@ def shard_stage_checks(cases, runner, x, tag, shards=SHARD_COUNTS):
             plain_a = lambda k: sn.stage_a_plain(blocks[k], limbs, fwd, k * c)
             ys = [run_a(k).clone() for k in range(D)]
             for k in range(D):
-                if not torch.equal(ys[k], plain_a(k)):
+                if not torch.equal(ys[k], plain_all_a[..., k * c:(k + 1) * c]):
                     raise AssertionError(f"kernel 4 shard {k} of {D} ({way}, {tag}) differs "
                                          f"from stage_a_plain")
             k = D - 1
-            if fwd:
+            if fwd and timed:
                 cases.check(f"streamed_stage_a (sharded {way}, D={D}: shard {k} at col0="
                             f"{k * c}, c={c}, m={m1}, {L} limbs x {B} polys, {tag}; all {D} "
                             f"shards and the inverse's bit-equal)", "streamed_stage_a",
@@ -2554,10 +2583,10 @@ def shard_stage_checks(cases, runner, x, tag, shards=SHARD_COUNTS):
             plain_b = lambda d: sn.stage_b_plain(ts[d], limbs, fwd)
             zs = [run_b(d) for d in range(D)]
             for d in range(D):
-                if not torch.equal(zs[d], plain_b(d)):
+                if not torch.equal(zs[d], plain_all_b[..., d * rows:(d + 1) * rows]):
                     raise AssertionError(f"kernel 5 rank {d} of {D} ({way}, {tag}) differs "
                                          f"from stage_b_plain")
-            if fwd:
+            if fwd and timed:
                 cases.check(f"streamed_stage_b (sharded {way}, D={D}: rank {D - 1}, {rows} rows "
                             f"x m={m2}, {L} limbs x {B} polys, {tag}; all {D} ranks and the "
                             f"inverse's bit-equal)", "streamed_stage_b", SRC_STREAMED, K5,
@@ -2567,7 +2596,7 @@ def shard_stage_checks(cases, runner, x, tag, shards=SHARD_COUNTS):
                 raise AssertionError(f"D={D} shards stitched ({way}, {tag}) differ from the "
                                      f"replicated transform")
         print(f"[shards {tag}] {way}: kernels 4 and 5 on every shard of D in "
-              f"{[D for D in shards if not (m1 % (16 * D) or m2 % (16 * D))]}, stitched = "
+              f"{[D for D in shards if not (m1 % D or m2 % D)]}, stitched = "
               f"the replicated transform bit for bit")
 
 
@@ -2789,6 +2818,230 @@ def sharded_phase(card, device, w, outs):
     return cases.take_launches(launches)
 
 
+# ---------------------------------------------------------------------------
+# Path 13: small rings and narrow shards
+# ---------------------------------------------------------------------------
+
+SMALL_RINGS = (1 << 6, 1 << 7, 1 << 8, 1 << 9)     # n1, n2 = 8 or 16: the m = 8, 16 instances
+SMALL_ROUNDS = (1 << 8, 1 << 9)                    # bench.py's round on the smallest rings
+SMALL_TIMED = (1 << 7,)     # the ring whose kernel rows are timed: n1 = 8, n2 = 16, so each
+#                             transform runs the m = 8 and the m = 16 instances, and 8-wide tiles
+# (N, timed coef axis sizes, untimed ones) whose shards are narrower than a 16-wide tile:
+# c = n2/D = 8, 4, 2, 1; every shard of every D is held bit-equal, and the timed rows are
+# cut to the narrowest tile, c = 1 at m = 64 (the phase's time limit; the 8-wide tile is
+# timed at N = 2^7)
+NARROW_SHARDS = ((1 << 12, (64,), (8, 16, 32)), (1 << 14, (), (16, 32)), (1 << 16, (), (32,)))
+
+
+def kernels_chain(n):
+    """bench_kernels.py's chain at ring size n: first_prime_down(59, 2n)
+    and three primes of 40, 41, 42 bits, with their 2n-th roots."""
+    from ppqsflhe_tpu_torch.core import primes
+
+    moduli = [primes.first_prime_down(59, 2 * n)] + [primes.first_prime_down(40 + i, 2 * n)
+                                                     for i in range(3)]
+    return moduli, [primes.root_of_unity(2 * n, q) for q in moduli]
+
+
+def small_ring_checks(cases, n, gen, device, timed):
+    """Kernels 1, 1b, 4, 5 and 6 at ring size n ≤ 2^9 (m = 8 and 16), 4
+    limbs × N_CTS polys: every launch of 1, 1b (both stages) and 6 (both
+    passes), forward and inverse, bit-equal to its plain version, and 4 and
+    5 as a coef axis of one rank; with ``timed``, the whole forward
+    transforms of 1, 1b and 6 timed against theirs (1 and 1b also against
+    the digit transform) and the forward stages of 4 and 5."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ops import cuda_mxu_ntt as cm
+    from ppqsflhe_tpu_torch.ops import cuda_ntt
+
+    moduli, psis = kernels_chain(n)
+    runner, bf = cm.CudaMxuNtt(n, moduli, psis), cuda_ntt.CudaFourStepNtt(n, moduli, psis)
+    B, L, sel = N_CTS, len(moduli), list(range(len(moduli)))
+    st = runner.tables.streamed
+    limbs = [st.limb(i) for i in sel]
+    tag = f"N=2^{n.bit_length() - 1}, n1={runner.n1}, n2={runner.n2}"
+    x = rand_residues(moduli, (B,), n, gen, device)
+    empty = lambda *shape: torch.empty(shape, dtype=torch.int64, device=device)
+    held = []
+    for fwd in (True, False):
+        way = "forward" if fwd else "inverse"
+        m1, m2 = (runner.n1, runner.n2) if fwd else (runner.n2, runner.n1)
+        xb = x.reshape(B, L, m1, m2)
+        launches = []
+        for mont in (False, True):
+            buf, info1, info2 = st.device(device, sel, fwd, mont)
+            y = cm.ntt_stage(xb, empty(B, L, m2, m1), buf, info1, fwd, True, mont)
+            z = cm.ntt_stage(y, empty(B, L, m2, m1), buf, info2, fwd, False, mont)
+            k = "1b" if mont else "1"
+            launches += [(f"kernel {k} stage 1 (m={m1})", y, cm.stage1_plain(xb, limbs, fwd, mont)),
+                         (f"kernel {k} stage 2 (m={m2})", z, cm.stage2_plain(y, limbs, fwd))]
+        tabs, info1, info2 = bf.device(device, sel, fwd)
+        y = cuda_ntt.fourstep_pass(xb, empty(B, L, m2, m1), tabs, info1, fwd, True)
+        z = cuda_ntt.fourstep_pass(y, empty(B, L, m2, m1), tabs, info2, fwd, False)
+        launches += [(f"kernel 6 pass 1 (m={m1})", y, bf.plain_pass(xb, fwd, True, sel)),
+                     (f"kernel 6 pass 2 (m={m2})", z, bf.plain_pass(y, fwd, False, sel))]
+        for name, got, want in launches:
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} ({way}, {tag}) differs from its plain version")
+        held += [f"{name} {way}" for name, _, _ in launches]
+    print(f"[small rings {tag}] bit-equal launch by launch: {', '.join(held)}")
+    shard_stage_checks(cases, runner, x, tag, shards=(1,), timed=timed)
+    if not timed:
+        return
+    for mont in (False, True):
+        run = lambda: runner.fused(x, True, sel, mont)
+        fused_case(cases, runner, x, sel, True, mont, run, 10, f"{L} limbs x {B} polys, {tag}")
+    run, plain = lambda: bf.ntt(x), lambda: bf.plain(x, True, sel)
+    cases.check(f"fourstep_ntt (forward, {L} limbs x {B} polys, {tag})", "fourstep_ntt", SRC_FS,
+                K6, run(), plain(), run, plain, 10, butterfly_work(L, B, bf.n1, bf.n2))
+
+
+def small_round_checks(cases, sch, rk_mont, gen, device, timed):
+    """Kernels 2 and 3 at the small round's shapes, bit-equal to their plain
+    versions (timed with ``timed``): the full level's first digit
+    decomposed and extended (its constant folded, N_CTS polys), the ModDown
+    P → Q (both components), and the nd=2 inner product over LK=5."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
+    from ppqsflhe_tpu_torch.ops import cuda_ext
+    from ppqsflhe_tpu_torch.ops.cuda_ks import ks_inner_product, ks_inner_product_plain
+
+    ctx, n, L = sch.ctx, sch.params.n, sch.params.num_q
+    mq, tag = ctx.moduli_qp, f"N=2^{n.bit_length() - 1}"
+    groups, consts = _ks_decomp_consts(ctx, L)
+    src = groups[0]
+    cases_2 = ((src, tuple(i for i in ctx.q_idx(L) + ctx.p_idx() if i not in src), consts[0],
+                (N_CTS,)), (ctx.p_idx(), ctx.q_idx(L), None, (2, N_CTS)))
+    limbs = tuple(range(L + sch.params.num_p))
+    q, qinv, _ = ctx.limb_consts(limbs, device)
+    lmap = ctx.consts(("limb_map", limbs), lambda: limbs, device)
+    nd = len(ctx.digit_groups)
+    args = (rand_residues(mq, (N_CTS, nd), n, gen, device), rk_mont.data, lmap, q, qinv)
+    runs = []
+    for src, dst, pre, lead in cases_2:
+        ext = ctx.extender(src, dst)
+        xe = rand_residues([mq[i] for i in src], lead, n, gen, device)
+        runs.append((f"base_extend (l={L}, {len(src)}->{len(dst)} limbs, "
+                     f"{'pre' if pre is not None else 'ModDown'}, {'x'.join(map(str, lead))} "
+                     f"polys, {tag})", "base_extend", SRC_EXT, K2,
+                     lambda ext=ext, xe=xe, pre=pre: cuda_ext.fused_extend(xe, ext, pre),
+                     lambda ext=ext, xe=xe, pre=pre: ext.extend(xe, pre),
+                     ext_work(xe.numel() // (len(src) * n), len(src), len(dst), n)))
+    runs.append((f"ks_inner_product (nd={nd}, LK={len(limbs)}, {N_CTS} polys, {tag})",
+                 "ks_inner_product", SRC_KS, K3, lambda: ks_inner_product(*args),
+                 lambda: ks_inner_product_plain(*args), ks_work(N_CTS, nd, len(limbs), n)))
+    for name, counter, src_file, replaces, run, plain, work in runs:
+        if timed:
+            cases.check(name, counter, src_file, replaces, run(), plain(), run, plain, 20, work)
+        elif not torch.equal(run(), plain()):
+            raise AssertionError(f"{name}: kernel differs from plain version")
+    print(f"[small rings {tag}] kernels 2 and 3 bit-equal at the round's shapes: "
+          f"{', '.join(r[0] for r in runs)}")
+
+
+def small_rings_phase(card, device):
+    """Small rings and narrow shards: kernels 1, 1b, 4, 5 and 6 at m = 8
+    and 16 (N = 2^6 … 2^9) and kernels 4 and 5 on shards narrower than a
+    16-wide tile, held to their plain versions; then the main path:
+    bench.py's server round at N = 2^8 and 2^9 in both schedules through
+    the default route (kernels 1, 2 and 3), decrypting within 1e-3 and
+    bit-equal to the same round run on the CPU, and ``bench.scaling``'s
+    three paths at D = 1 on the JAX bench's shapes (the aggregation at
+    N = 256) on a one-rank NCCL group; the N = 2^8 round also in the
+    butterfly configuration (kernel 6, bit-equal to the default round).
+    Kernel 1b is on no small-ring path: the JAX runner routes every limb at
+    N ≤ 2^9 to the fused Shoup kernel. Returns the kernels' rows."""
+    import dataclasses
+
+    import torch
+
+    from ppqsflhe_tpu_torch.bench import scaling
+    from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
+    from ppqsflhe_tpu_torch.ckks.types import Ciphertext, KeySwitchKey
+    from ppqsflhe_tpu_torch.fl.api import server_round
+    from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import CudaMxuNtt
+    from ppqsflhe_tpu_torch.ops.cuda_ntt import BUTTERFLY
+    from ppqsflhe_tpu_torch.parallel import mesh as pm
+
+    t0 = time.perf_counter()
+    cases = KernelCases(card)
+    gen = torch.Generator().manual_seed(SEED + 14)
+    for n in SMALL_RINGS:
+        small_ring_checks(cases, n, gen, device, timed=n in SMALL_TIMED)
+    for n, timed_shards, untimed_shards in NARROW_SHARDS:
+        moduli, psis = kernels_chain(n)
+        runner, x = CudaMxuNtt(n, moduli, psis), rand_residues(moduli, (8,), n, gen, device)
+        for shards, timed in ((timed_shards, True), (untimed_shards, False)):
+            if shards:
+                shard_stage_checks(cases, runner, x,
+                                   f"N=2^{n.bit_length() - 1}, bench_kernels' chain", shards,
+                                   timed=timed)
+
+    worlds = {n: round_world(n, device) for n in SMALL_ROUNDS}
+    for n, w in worlds.items():
+        small_round_checks(cases, w.sch, w.rk12, gen, device, timed=n == SMALL_ROUNDS[-1])
+    torch.cuda.synchronize()
+    t_checks = time.perf_counter() - t0
+    need = ("mxu_ntt", "base_extend", "ks_inner_product")
+    launches = dict.fromkeys(COUNTERS, 0)
+    outs = {}
+    for n, w in worlds.items():
+        outs[n], counts = drive_round(f"small round N=2^{n.bit_length() - 1}", w.sch, w,
+                                      {4: need, 0: need})
+        launches = {k: v + counts[k] for k, v in launches.items()}
+    # the butterfly configuration (ntt_impl="pallas": kernel 6 runs every NTT)
+    # of the smallest round, on its keys and ciphertexts
+    n, w = SMALL_ROUNDS[0], worlds[SMALL_ROUNDS[0]]
+    bf_sch = CkksScheme(dataclasses.replace(w.sch.params, ntt_impl=BUTTERFLY), device=device)
+    need_bf = ("fourstep_ntt", "base_extend", "ks_inner_product")
+    bf_outs, counts = drive_round(f"small butterfly round N=2^{n.bit_length() - 1}", bf_sch, w,
+                                  {4: need_bf, 0: need_bf},
+                                  absent=("mxu_ntt", "mxu_ntt_mont", "streamed_stage_a",
+                                          "streamed_stage_b"))
+    launches = {k: v + counts[k] for k, v in launches.items()}
+    for lazy in (4, 0):
+        if not all(torch.equal(a.data, b.data) for a, b in zip(bf_outs[lazy], outs[n][lazy])):
+            raise AssertionError(f"the N={n} butterfly round lazy={lazy} differs from the "
+                                 f"default round")
+    with pm.single_process_group(device):
+        reset_counts()
+        row = scaling.run_one(device, reps=2)
+        torch.cuda.synchronize()
+        counts = read_counts()
+    launches = {k: v + counts[k] for k, v in launches.items()}
+    diff = scaling.model_diff({1: row})[1]
+    print(f"[small rings scaling] bench.scaling at D=1: NTT N=2^14 {row['ntt_ms']:.3f} ms, "
+          f"aggregation N={scaling.N_AGG} {row['agg_ms']:.3f} ms, round N=2^12 "
+          f"{row['round_ms']:.3f} ms; collectives {row['collective_bytes']}, model_diff "
+          f"{diff or 'none'}; kernel launches {({k: v for k, v in counts.items() if v})} "
+          f"({card})")
+    if diff:
+        raise AssertionError(f"bench.scaling D=1 collectives differ from the model: {diff}")
+    missing = [k for k in ("streamed_stage_a", "streamed_stage_b", "mxu_ntt") if not counts[k]]
+    if missing:
+        raise AssertionError(f"bench.scaling at D=1 never launched {missing}")
+
+    for n, w in worlds.items():
+        cpu = CkksScheme(w.sch.params, device="cpu")
+        ct = lambda c: Ciphertext(c.data.cpu(), c.scale)
+        key = lambda k: KeySwitchKey(k.data.cpu(), k.mont)
+        for lazy in (4, 0):
+            got = server_round(cpu, ct(w.ct1), ct(w.ct2), key(w.rk12), key(w.rk21), lazy)
+            if not all(torch.equal(a.data, b.data.cpu()) for a, b in zip(got, outs[n][lazy])):
+                raise AssertionError(f"the N={n} round lazy={lazy} on the card differs from the "
+                                     f"same round run on the CPU")
+            run = lambda: server_round(w.sch, w.ct1, w.ct2, w.rk12, w.rk21, lazy)
+            times = median_ms(run, 3)
+            print(f"[timing small round N=2^{n.bit_length() - 1} lazy={lazy}] bit-equal to the "
+                  f"CPU run; {statistics.median(times):.3f} ms/round (median of {len(times)}; "
+                  f"2x{N_CTS} ciphertexts) ({card})")
+    print(f"[small rings] phase 13: {time.perf_counter() - t0:.1f} s (kernel checks and the "
+          f"rounds' set-up {t_checks:.1f} s) ({card})")
+    return cases.take_launches(launches)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -2825,6 +3078,7 @@ def main() -> None:
     kernels += orchestrated_phase(card, device)
     kernels += twins_phase(card, device)
     kernels += sharded_phase(card, device, world, outs)
+    kernels += small_rings_phase(card, device)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,15 +5,19 @@ the JAX bench:
 
 1. the coefficient-sharded NTT (:class:`..ops.sharded_ntt.ShardedNtt`, one
    all-to-all per transform): D polys of 4 limbs
-   (``first_prime_down(59, 2N)`` + three 40-bit primes) at N=2^14;
+   (``first_prime_down(59, 2N)`` + three 40-bit primes) at N=2^14, at every
+   D that divides n1 = n2 = 128;
 2. the multikey aggregation (:func:`..ckks.multikey.aggregate_sharded`, one
-   modular psum): 2 clients a rank, 8 ciphertexts each, on the N=2^12 depth-1
-   chain (the JAX bench took N=256, below the kernels' smallest transform);
+   modular psum): 2 clients a rank, 8 ciphertexts each, on the N=256
+   depth-1 chain, the JAX bench's (``bench_scaling.py:186-201``; its
+   rescale runs kernel 1 at m = 16);
 3. the sharded server round (``fedavg_round_sharded`` on a client 1 × coef
    D mesh): 2D ciphertexts per client at N=2^12, depth 2, dnum 2 — the
-   round of ``SCALING_MODEL.json`` — and the collectives it issues, ops and
-   bytes per kind from :data:`..parallel.mesh.collectives` (the counterpart
-   of ``bench_scaling.py``'s HLO scrape and ``diff_model``).
+   round of ``SCALING_MODEL.json`` — at every D that divides n1 = n2 = 64
+   (D = 8 runs kernels 4 and 5 on 8-column shards), and the collectives it
+   issues, ops and bytes per kind from :data:`..parallel.mesh.collectives`
+   (the counterpart of ``bench_scaling.py``'s HLO scrape and
+   ``diff_model``).
 
 Each D runs as its own job of D ranks (:func:`..parallel.multihost.spawn_ranks`):
 ``gloo`` on the CPU (``--device cpu``: the ranks share this host's cores, so
@@ -28,7 +32,7 @@ bytes; at D = 1 XLA drops the all-to-alls that move nothing, and the port
 keeps them. The root ``SCALING_MODEL.json`` is the JAX package's and is not
 written. Prints one JSON line with the JAX bench's keys plus ``"card"``::
 
-    python -m ppqsflhe_tpu_torch.bench.scaling [--devs 1,2,4] [--device cpu]
+    python -m ppqsflhe_tpu_torch.bench.scaling [--devs 1,2,4,8] [--device cpu]
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from ..parallel import multihost
 from ..parallel.sharded_scheme import ShardedEvalContext, fedavg_round_sharded
 from .timing import card_line
 
-N_NTT, LIMBS, N_ROUND = 1 << 14, 4, 1 << 12
+N_NTT, LIMBS, N_AGG, N_ROUND = 1 << 14, 4, 1 << 8, 1 << 12
 MODEL = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "SCALING_MODEL.json")
 HLO_NAMES = {"all_to_all": "all-to-all", "all_reduce": "all-reduce", "all_gather": "all-gather"}
@@ -82,29 +86,37 @@ def _residues(rng, moduli, shape):
 
 def run_one(device, reps: int, n_ntt: int = N_NTT) -> dict:
     """This rank's part of the three weak-scaling paths at D = the world
-    size; returns the row rank 0 prints."""
+    size; returns the row rank 0 prints. A path whose transform D does not
+    divide (the NTT: n1 = n2 = 128 at N=2^14; the round: 64 at N=2^12) is
+    not run, and its entries are None."""
     D = dist.get_world_size()
     rng = np.random.default_rng(0)
     put = lambda a: torch.as_tensor(a, device=device)
+    row = {"devices": D, "ntt_ms": None, "round_ms": None, "round_cts": 2 * D,
+           "collective_bytes": None}
 
     # 1. the coefficient-sharded NTT: D polys per rank
     moduli = [primes.first_prime_down(59, 2 * n_ntt)] + [
         primes.first_prime_down(40 + i, 2 * n_ntt) for i in range(LIMBS - 1)]
     psis = [primes.root_of_unity(2 * n_ntt, q) for q in moduli]
-    sn = ShardedNtt(n_ntt, moduli, psis, pmesh.make_mesh({"coef": D}, device.type))
-    c = sn.n2 // D
-    x = put(_residues(rng, moduli, (D, sn.n1 * c)).reshape(D, LIMBS, sn.n1, c))
-    ntt_ms = _best_ms(lambda: sn.ntt(x), reps, device)
+    n1 = 1 << ((n_ntt.bit_length() - 1) // 2)
+    if n1 % D == 0:
+        sn = ShardedNtt(n_ntt, moduli, psis, pmesh.make_mesh({"coef": D}, device.type))
+        c = sn.n2 // D
+        x = put(_residues(rng, moduli, (D, sn.n1 * c)).reshape(D, LIMBS, sn.n1, c))
+        row["ntt_ms"] = _best_ms(lambda: sn.ntt(x), reps, device)
 
     # 2. multikey aggregation over the client axis: 2 clients a rank
-    p1 = CkksParams.generate(n=N_ROUND, mult_depth=1, scale_bits=40, dnum=2)
+    p1 = CkksParams.generate(n=N_AGG, mult_depth=1, scale_bits=40, dnum=2)
     ctx1 = CkksContext(p1)
-    stack = put(_residues(rng, p1.q_moduli, (2, 8, 2, N_ROUND)))
+    stack = put(_residues(rng, p1.q_moduli, (2, 8, 2, N_AGG)))
     cmesh = pmesh.make_mesh({"client": D}, device.type)
-    agg_ms = _best_ms(lambda: multikey.aggregate_sharded(ctx1, stack, cmesh, p1.scale, 2 * D),
-                      reps, device)
+    row["agg_ms"] = _best_ms(
+        lambda: multikey.aggregate_sharded(ctx1, stack, cmesh, p1.scale, 2 * D), reps, device)
 
     # 3. the sharded round, client 1 × coef D, 2D ciphertexts per client
+    if (1 << ((N_ROUND.bit_length() - 1) // 2)) % D:
+        return row
     p2 = CkksParams.generate(n=N_ROUND, mult_depth=2, scale_bits=40, dnum=2)
     sctx = ShardedEvalContext(p2, pmesh.make_mesh({"client": 1, "coef": D}, device.type))
     B, nd = 2 * D, len(sctx.digit_groups)
@@ -115,10 +127,9 @@ def run_one(device, reps: int, n_ntt: int = N_NTT) -> dict:
     rnd()
     pmesh.reset_collectives()
     rnd()
-    colls = {HLO_NAMES[k]: v for k, v in pmesh.read_collectives().items()}
-    round_ms = _best_ms(rnd, max(1, reps // 2), device)
-    return {"devices": D, "ntt_ms": ntt_ms, "agg_ms": agg_ms, "round_ms": round_ms,
-            "round_cts": B, "collective_bytes": colls}
+    row["collective_bytes"] = {HLO_NAMES[k]: v for k, v in pmesh.read_collectives().items()}
+    row["round_ms"] = _best_ms(rnd, max(1, reps // 2), device)
+    return row
 
 
 def model_diff(rows: dict) -> dict:
@@ -129,8 +140,8 @@ def model_diff(rows: dict) -> dict:
     out = {}
     for d, row in rows.items():
         want = model.get(str(d))
-        if want is None:
-            out[d] = "no model entry"
+        if want is None or row["collective_bytes"] is None:
+            out[d] = "no model entry" if want is None else "round not run"
             continue
         out[d] = [f"{op}: model {want[op]} vs port {got}"
                   for op, got in row["collective_bytes"].items()
@@ -140,7 +151,7 @@ def model_diff(rows: dict) -> dict:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--devs", default="1,2,4")
+    ap.add_argument("--devs", default="1,2,4,8")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reps", type=int, default=10)
     ap.add_argument("--n-ntt", type=int, default=N_NTT)
@@ -170,10 +181,12 @@ def main(argv=None) -> None:
              "--reps", str(args.reps), "--n-ntt", str(args.n_ntt)], d, args.device)
         rows[d] = json.loads(outs[0].strip().splitlines()[-1])
     d0, dmax = run[0], run[-1]
+    ratio = lambda key: (None if rows[dmax][key] is None or rows[d0][key] is None
+                         else rows[d0][key] / rows[dmax][key])
     print(json.dumps({
         "metric": "weak_scaling_efficiency_ntt",
-        "value": rows[d0]["ntt_ms"] / rows[dmax]["ntt_ms"],
-        "round_value": rows[d0]["round_ms"] / rows[dmax]["round_ms"],
+        "value": ratio("ntt_ms"),
+        "round_value": ratio("round_ms"),
         "unit": "fraction", "devices": run, "skipped": [d for d in devs if d not in run],
         "platform": "gpu" if cuda else "cpu",
         "ntt_ms": {d: r["ntt_ms"] for d, r in rows.items()},

@@ -11,19 +11,19 @@
 // Hopper a block has 227 KB of shared memory: a limb of int64 residues is
 // 128 KB at N=2^14 but 512 KB at N=2^16, and a block-per-limb grid would put
 // only B*L blocks on 132 SMs. So a transform is TWO launches, each a column
-// pass over tiles of TC=16 columns:
+// pass over tiles of TC columns (16; 8 where a pass has only 8):
 //
-//   forward, pass 1: an (n1 x 16) tile of the (n1, n2) input, twisted (lazy
+//   forward, pass 1: an (n1 x TC) tile of the (n1, n2) input, twisted (lazy
 //     Shoup, inputs < 4q), the log2(n1) Pease stages, the lazy twiddle,
 //     stored transposed into (n2, n1);
-//   forward, pass 2: (n2 x 16) tiles of that, log2(n2) stages, one csub,
+//   forward, pass 2: (n2 x TC) tiles of that, log2(n2) stages, one csub,
 //     stored in place: evaluation k2*n1 + k1 lands at rev(k2)*n1 + rev(k1),
 //     the kernel order of fourstep.py:13-16;
-//   inverse, pass 1: (n2 x 16) tiles of the kernel-order input (< 2q), the
+//   inverse, pass 1: (n2 x TC) tiles of the kernel-order input (< 2q), the
 //     inverse stages, the lazy inverse twiddle (a host table stored
 //     transposed, so both passes index tables by their input coordinates),
 //     stored transposed into (n1, n2);
-//   inverse, pass 2: (n1 x 16) tiles, inverse stages, the strict itwist
+//   inverse, pass 2: (n1 x TC) tiles, inverse stages, the strict itwist
 //     (N^{-1} folded in), stored in place.
 //
 // The function is the plain version's, butterfly for butterfly
@@ -41,14 +41,17 @@
 //
 // Design: the register-blocked schedule of csrc/butterfly.cuh, as in kernels
 // 1, 1b, 4 and 5 (no barrier or shared-memory round trip per stage):
-// - A block owns one m x 16 tile of one (poly, limb), m in {32, 64, 128, 256}
-//   (N = 2^10 ... 2^16), and reads it once with 16-byte cp.async copies,
+// - A block owns one m x TC tile of one (poly, limb), m in {8, 16, ..., 256}
+//   (N = 2^6 ... 2^16), TC = 16, or 8 for the 8-column passes of N = 2^6
+//   and 2^7, and reads it once with 16-byte cp.async copies,
 //   with Pease row 0 of the limb's stage table (root^i, what butterfly.cuh
 //   indexes) and the pass's post table tile (twiddle, inverse twiddle or
 //   itwist; 16 B an entry).
 // - m/16 threads per column hold 16 values each: four stages in registers
 //   on the top four row bits, one exchange through shared memory, the rest
 //   in registers on 16 consecutive rows (the inverse the other way round).
+//   At m = 8 and 16 one thread holds the whole column: every stage in
+//   registers, no exchange.
 // - The twist of forward pass 1, the one pass with two tables, is read
 //   straight from global memory: the 16 columns of a row are 128 contiguous
 //   bytes per plane, shared by all B polys and held in L2. So a block stages
@@ -56,8 +59,8 @@
 //   1's stage 1 at the same m (98 KB against 102 KB at m=256: 2 blocks an
 //   SM).
 // - Pass 1 stores transposed through the shared tile (rows padded by 16
-//   bytes), one 16*m run per block, as kernel 1's stage 1; pass 2 in place,
-//   16 threads of a row writing 16 consecutive int64.
+//   bytes), one TC*m run per block, as kernel 1's stage 1; pass 2 in place,
+//   TC threads of a row writing TC consecutive int64.
 // - nvcc -Xptxas -v (sm_90a), registers at m = 32, 64, 128, 256
 //   (probes/kernel_report.py): forward pass 1 96, 96, 96, 96; pass 2 72,
 //   72, 70, 72; inverse pass 1 76, 76, 72, 78; pass 2 70, 74, 74, 72; no
@@ -82,12 +85,12 @@ enum Post { CSUB, LAZY, STRICT };      // after the stages: csub, lazy or strict
 //   STORE_T: y is (B, L, c, M); else (B, L, M, c)
 // An (M, c) table pair is M*c values then M*c companions; a stage table
 // LOGM*M/2 values then as many companions.
-template <int LOGM, bool FWD, bool PRE, Post POST, bool STORE_T>
+template <int LOGM, int TC, bool FWD, bool PRE, Post POST, bool STORE_T>
 __device__ __forceinline__ void pass_body(uint64_t* smem, const uint64_t* __restrict__ x,
                                           uint64_t* __restrict__ y,
                                           const uint64_t* __restrict__ tabs,
                                           const int64_t* __restrict__ info, int L, int c) {
-  constexpr int M = 1 << LOGM, T = M / R, H = M / 2;
+  constexpr int M = 1 << LOGM, R = rows_of(LOGM), T = M / R, NT = T * TC, H = M / 2;
   constexpr int LD = M + 2;                     // a row of the transposed tile, padded
   constexpr bool TAB = POST != CSUB;            // the post table tile, staged
   uint64_t* tile = smem;                                  // [M][TC]; transposed: [TC][LD]
@@ -101,7 +104,7 @@ __device__ __forceinline__ void pass_body(uint64_t* smem, const uint64_t* __rest
   const int tid = threadIdx.x;
 
   const uint64_t* post = tabs + inf[2] + c0;
-  for (int i = tid; i < M * TC / 2; i += M) {
+  for (int i = tid; i < M * TC / 2; i += NT) {
     const int r = i / (TC / 2), ch = 2 * (i % (TC / 2));
     const int64_t g = static_cast<int64_t>(r) * c + ch;
     cp_async16(tile + r * TC + ch, x + base + c0 + g);
@@ -111,8 +114,8 @@ __device__ __forceinline__ void pass_body(uint64_t* smem, const uint64_t* __rest
     }
   }
   const uint64_t* st = tabs + inf[3];
-  copy_block(root, st, H, tid, M);
-  copy_block(root + H, st + LOGM * H, H, tid, M);
+  copy_block(root, st, H, tid, NT);
+  copy_block(root + H, st + LOGM * H, H, tid, NT);
   cp_async_wait_all();
   __syncthreads();
 
@@ -130,25 +133,17 @@ __device__ __forceinline__ void pass_body(uint64_t* smem, const uint64_t* __rest
                  : u;
     }
     high_stages<true>(v, t, T, rw, rs, q, q2);
-#pragma unroll
-    for (int k = 0; k < R; ++k) tile[(t + T * k) * TC + cc] = v[k];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = tile[(R * t + k) * TC + cc];
+    exchange<LOGM, true>(v, tile + cc, TC, t);
     low_stages<LOGM, true>(v, rw, rs, q, q2);
   } else {
 #pragma unroll
     for (int k = 0; k < R; ++k) v[k] = tile[(R * t + k) * TC + cc];
     low_stages<LOGM, false>(v, rw, rs, q, q2);
-#pragma unroll
-    for (int k = 0; k < R; ++k) tile[(R * t + k) * TC + cc] = v[k];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = tile[(t + T * k) * TC + cc];
+    exchange<LOGM, false>(v, tile + cc, TC, t);
     high_stages<false>(v, t, T, rw, rs, q, q2);
   }
   // v[k] holds row a(k) of column cc: the network ends on labels 16*t + k
-  // forward and t + T*k inverse
+  // forward and t + T*k inverse (both k when one thread holds the column)
   const auto a = [&](int k) { return FWD ? R * t + k : t + T * k; };
 #pragma unroll
   for (int k = 0; k < R; ++k) {
@@ -163,7 +158,7 @@ __device__ __forceinline__ void pass_body(uint64_t* smem, const uint64_t* __rest
     for (int k = 0; k < R; ++k) out[static_cast<int64_t>(a(k)) * c] = v[k];
     return;
   }
-  // The block's 16 columns are 16 adjacent rows of y, one run of 16*M int64:
+  // The block's TC columns are TC adjacent rows of y, one run of TC*M int64:
   // transpose through the tile, then every warp stores 512 contiguous bytes.
   __syncthreads();   // every thread has read its values out of the tile
 #pragma unroll
@@ -171,7 +166,7 @@ __device__ __forceinline__ void pass_body(uint64_t* smem, const uint64_t* __rest
   __syncthreads();
   uint64_t* out = y + base + static_cast<int64_t>(c0) * M;
 #pragma unroll
-  for (int i = 2 * tid; i < TC * M; i += 2 * M)
+  for (int i = 2 * tid; i < TC * M; i += 2 * NT)
     *reinterpret_cast<ulonglong2*>(out + i) =
         *reinterpret_cast<const ulonglong2*>(tile + (i / M) * LD + i % M);
 }
@@ -179,25 +174,25 @@ __device__ __forceinline__ void pass_body(uint64_t* smem, const uint64_t* __rest
 // The kernel symbol the profiler and the launch count know. Passes with a
 // staged table tile (98 KB at m=256) run 2 blocks an SM; forward pass 2 is
 // held to 3 (at most 85 registers a thread).
-template <int LOGM, bool FWD, bool PRE, Post POST, bool STORE_T>
-__global__ void __launch_bounds__(1 << LOGM, POST == CSUB ? 3 : 2)
+template <int LOGM, int TC, bool FWD, bool PRE, Post POST, bool STORE_T>
+__global__ void __launch_bounds__(threads_of(LOGM, TC), POST == CSUB ? 3 : 2)
 fourstep_ntt_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
                     const uint64_t* __restrict__ tabs, const int64_t* __restrict__ info, int L,
                     int c) {
   extern __shared__ __align__(16) uint64_t smem[];
-  pass_body<LOGM, FWD, PRE, POST, STORE_T>(smem, x, y, tabs, info, L, c);
+  pass_body<LOGM, TC, FWD, PRE, POST, STORE_T>(smem, x, y, tabs, info, L, c);
 }
 
-template <int LOGM, bool FWD, bool PRE, Post POST, bool STORE_T>
+template <int LOGM, int TC, bool FWD, bool PRE, Post POST, bool STORE_T>
 int launch(const void* x, void* y, const void* tabs, const void* info, int B, int L, int c,
            cudaStream_t stream) {
   constexpr int M = 1 << LOGM;
   const size_t smem = ((STORE_T ? TC * (M + 2) : M * TC) + (POST != CSUB ? 2 * M * TC : 0) + M) *
                       sizeof(uint64_t);
-  const auto kernel = fourstep_ntt_kernel<LOGM, FWD, PRE, POST, STORE_T>;
+  const auto kernel = fourstep_ntt_kernel<LOGM, TC, FWD, PRE, POST, STORE_T>;
   static const cudaError_t set = allow_smem(kernel, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
-  kernel<<<dim3(c / TC, L, B), M, smem, stream>>>(
+  kernel<<<dim3(c / TC, L, B), threads_of(LOGM, TC), smem, stream>>>(
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
       static_cast<const uint64_t*>(tabs), static_cast<const int64_t*>(info), L, c);
   return static_cast<int>(cudaGetLastError());
@@ -206,17 +201,20 @@ int launch(const void* x, void* y, const void* tabs, const void* info, int B, in
 template <int LOGM>
 int launch_m(const void* x, void* y, const void* tabs, const void* info, int B, int L, int c,
              int forward, int first, cudaStream_t s) {
-  if (forward)
-    return first ? launch<LOGM, true, true, LAZY, true>(x, y, tabs, info, B, L, c, s)
-                 : launch<LOGM, true, false, CSUB, false>(x, y, tabs, info, B, L, c, s);
-  return first ? launch<LOGM, false, false, LAZY, true>(x, y, tabs, info, B, L, c, s)
-               : launch<LOGM, false, false, STRICT, false>(x, y, tabs, info, B, L, c, s);
+  return fused_tiles<LOGM>(c, [&](auto tc) {
+    constexpr int TC = decltype(tc)::value;
+    if (forward)
+      return first ? launch<LOGM, TC, true, true, LAZY, true>(x, y, tabs, info, B, L, c, s)
+                   : launch<LOGM, TC, true, false, CSUB, false>(x, y, tabs, info, B, L, c, s);
+    return first ? launch<LOGM, TC, false, false, LAZY, true>(x, y, tabs, info, B, L, c, s)
+                 : launch<LOGM, TC, false, false, STRICT, false>(x, y, tabs, info, B, L, c, s);
+  });
 }
 
 }  // namespace
 
-// x: (B, L, m, c) int64, transformed down its m rows (m in {32, 64, 128,
-// 256}, c a multiple of 16, 16-byte aligned). y: (B, L, c, m) for the first
+// x: (B, L, m, c) int64, transformed down its m rows (m in {8, 16, ...,
+// 256}, c a multiple of 16 or, when m <= 16, 8; 16-byte aligned). y: (B, L, c, m) for the first
 // pass of a transform, (B, L, m, c) for the second. info: (L, 4) per limb: q
 // and the offsets in tabs of the pass's pre-, post- and stage tables.
 extern "C" int ppq_fourstep_pass(const void* x, void* y, const void* tabs, const void* info,
@@ -224,6 +222,8 @@ extern "C" int ppq_fourstep_pass(const void* x, void* y, const void* tabs, const
                                  void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
+    case 8: return launch_m<3>(x, y, tabs, info, B, L, c, forward, first, s);
+    case 16: return launch_m<4>(x, y, tabs, info, B, L, c, forward, first, s);
     case 32: return launch_m<5>(x, y, tabs, info, B, L, c, forward, first, s);
     case 64: return launch_m<6>(x, y, tabs, info, B, L, c, forward, first, s);
     case 128: return launch_m<7>(x, y, tabs, info, B, L, c, forward, first, s);

@@ -50,29 +50,33 @@
 // it in VMEM, at one block an SM: an under-filled wave at the round's
 // shapes.
 //
-// Design (the schedule of csrc/butterfly.cuh, shared with kernels 4 and 5):
-// - A block owns one tile, m rows x 16 columns of one (poly, limb), m in
-//   {32, 64, 128, 256} (N = 2^10 ... 2^16), and reads it once with 16-byte
-//   cp.async copies of 128-byte row segments, with its limb's m-vector of
-//   twist or scale factors, Pease row 0 and, in stage 1, its 16-column tile
-//   of the twiddle table. No residue is read twice; there is no digit and no
-//   matrix.
+// Design (the schedule of csrc/butterfly.cuh, shared with kernels 4, 5 and 6):
+// - A block owns one tile, m rows x TC columns of one (poly, limb), m in
+//   {8, 16, ..., 256} (N = 2^6 ... 2^16), TC = 16, or 8 where a stage has 8
+//   columns (m = 16 at N = 2^7, m = 8 at N = 2^6 and 2^7), and reads it once
+//   with 16-byte cp.async copies of 8*TC-byte row segments, with its limb's
+//   m-vector of twist or scale factors, Pease row 0 and, in stage 1, its
+//   TC-column tile of the twiddle table. No residue is read twice; there is
+//   no digit and no matrix.
 // - m/16 threads per column hold 16 values each: four stages in registers on
 //   the top four row bits, one exchange through shared memory, the rest in
-//   registers on 16 consecutive rows.
-// - Stage 1 stores transposed. The block's 16 columns are 16 adjacent rows
-//   of y, one run of 16*m int64, so the values go through the shared tile
+//   registers on 16 consecutive rows. At m = 8 and 16 (N <= 2^9, where the
+//   JAX runner's route is always the fused one) one thread holds the whole
+//   column and every stage runs in registers, with no exchange.
+// - Stage 1 stores transposed. The block's TC columns are TC adjacent rows
+//   of y, one run of TC*m int64, so the values go through the shared tile
 //   (transposed, rows padded by 16 bytes) and every warp stores 512
 //   contiguous bytes. Storing each thread's 16 consecutive rows straight
 //   from registers (32 lines a warp instruction) made stage 1 4-37% slower
-//   on an H100 (PERF.md section 6). Stage 2 stores like kernel 4: 16
-//   threads of one row write 16 consecutive int64.
+//   on an H100 (PERF.md section 6). Stage 2 stores like kernel 4: TC
+//   threads of one row write TC consecutive int64.
 // - nvcc -Xptxas -v (sm_90a), at m=256: stage 1 forward 92 registers
 //   (kernel 1) and 80 (1b, 8 bytes of spill), inverse 80 and 80; stage 2
 //   72-78; no other spill. Dynamic shared memory: stage 1 102 KB (kernel 1)
 //   and 70 KB (1b), stage 2 38 KB; at m=128 51, 35 and 19 KB. So at m=256
 //   stage 1 of kernel 1 runs 2 blocks an SM (shared memory), 1b and stage 2
-//   3 (registers, held to 85 by __launch_bounds__).
+//   3 (registers, held to 85 by __launch_bounds__). The small-ring
+//   instances (probes/kernel_report.py lists every one) are a few KB.
 #include "butterfly.cuh"
 
 namespace {
@@ -85,12 +89,12 @@ using namespace ppq;
 //     (MONT: w*2^64 mod q; else Shoup values, companions M*c further on),
 //     stored transposed to y (B, L, c, M), values < 2q;
 //   else stage 2, y (B, L, M, c), canonical.
-template <int LOGM, bool FWD, bool FIRST, bool MONT>
+template <int LOGM, int TC, bool FWD, bool FIRST, bool MONT>
 __device__ __forceinline__ void stage_body(uint64_t* smem, const uint64_t* __restrict__ x,
                                            uint64_t* __restrict__ y,
                                            const uint64_t* __restrict__ tabs,
                                            const int64_t* __restrict__ info, int L, int c) {
-  constexpr int M = 1 << LOGM, T = M / R;
+  constexpr int M = 1 << LOGM, R = rows_of(LOGM), T = M / R, NT = T * TC;
   constexpr int LD = M + 2;                        // a row of the transposed tile, padded
   constexpr int TW = FIRST ? (MONT ? 1 : 2) : 0;   // twiddle planes
   uint64_t* tile = smem;               // [M][TC]; stage 1's store: [TC][LD]
@@ -105,15 +109,15 @@ __device__ __forceinline__ void stage_body(uint64_t* smem, const uint64_t* __res
 
   const uint64_t* twg = tabs + inf[3] + c0;
   const int64_t tw_size = static_cast<int64_t>(M) * c;
-  for (int i = tid; i < M * TC / 2; i += M) {
+  for (int i = tid; i < M * TC / 2; i += NT) {
     const int r = i / (TC / 2), ch = 2 * (i % (TC / 2));
     const int64_t g = static_cast<int64_t>(r) * c + ch;
     cp_async16(tile + r * TC + ch, x + base + c0 + g);
 #pragma unroll
     for (int p = 0; p < TW; ++p) cp_async16(tw + p * M * TC + r * TC + ch, twg + p * tw_size + g);
   }
-  copy_block(vec, tabs + inf[1], 2 * M, tid, M);
-  copy_block(root, tabs + inf[2], M, tid, M);
+  copy_block(vec, tabs + inf[1], 2 * M, tid, NT);
+  copy_block(root, tabs + inf[2], M, tid, NT);
   cp_async_wait_all();
   __syncthreads();
 
@@ -127,11 +131,7 @@ __device__ __forceinline__ void stage_body(uint64_t* smem, const uint64_t* __res
       v[k] = shoup_lazy(tile[a * TC + cc], vec[a], vec[M + a], q);
     }
     high_stages<true>(v, t, T, rw, rs, q, q2);
-#pragma unroll
-    for (int k = 0; k < R; ++k) tile[(t + T * k) * TC + cc] = v[k];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = tile[(R * t + k) * TC + cc];
+    exchange<LOGM, true>(v, tile + cc, TC, t);
     low_stages<LOGM, true>(v, rw, rs, q, q2);
   } else {
 #pragma unroll
@@ -140,15 +140,11 @@ __device__ __forceinline__ void stage_body(uint64_t* smem, const uint64_t* __res
       v[k] = FIRST && u >= q2 ? u - q2 : u;
     }
     low_stages<LOGM, false>(v, rw, rs, q, q2);
-#pragma unroll
-    for (int k = 0; k < R; ++k) tile[(R * t + k) * TC + cc] = v[k];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < R; ++k) v[k] = tile[(t + T * k) * TC + cc];
+    exchange<LOGM, false>(v, tile + cc, TC, t);
     high_stages<false>(v, t, T, rw, rs, q, q2);
   }
   // v[k] holds row a(k) of column cc: the network ends on labels 16*t + k
-  // forward and t + T*k inverse
+  // forward and t + T*k inverse (both k when one thread holds the column)
   const auto a = [&](int k) { return FWD ? R * t + k : t + T * k; };
 
   if (!FIRST) {
@@ -166,7 +162,7 @@ __device__ __forceinline__ void stage_body(uint64_t* smem, const uint64_t* __res
     const uint64_t u = FWD ? v[k] : shoup_lazy(v[k], vec[a(k)], vec[M + a(k)], q);
     v[k] = MONT ? mont_lazy(u, tw[i], q, qinv) : shoup_lazy(u, tw[i], tw[M * TC + i], q);
   }
-  // The block's 16 columns are 16 adjacent rows of y, one run of 16*M int64:
+  // The block's TC columns are TC adjacent rows of y, one run of TC*M int64:
   // transpose through the tile, then every warp stores 512 contiguous bytes.
   __syncthreads();   // every thread has read its values out of the tile
 #pragma unroll
@@ -174,7 +170,7 @@ __device__ __forceinline__ void stage_body(uint64_t* smem, const uint64_t* __res
   __syncthreads();
   uint64_t* out = y + base + static_cast<int64_t>(c0) * M;
 #pragma unroll
-  for (int i = 2 * tid; i < TC * M; i += 2 * M)
+  for (int i = 2 * tid; i < TC * M; i += 2 * NT)
     *reinterpret_cast<ulonglong2*>(out + i) =
         *reinterpret_cast<const ulonglong2*>(tile + (i / M) * LD + i % M);
 }
@@ -182,38 +178,38 @@ __device__ __forceinline__ void stage_body(uint64_t* smem, const uint64_t* __res
 // kernel 1: stage 1 (Shoup twiddle, transposed store) or stage 2. At m=256
 // stage 1's shared memory allows 2 blocks an SM; the other kernels are held
 // to 3 (at most 85 registers a thread).
-template <int LOGM, bool FWD, bool FIRST>
-__global__ void __launch_bounds__(1 << LOGM, FIRST ? 2 : 3)
+template <int LOGM, int TC, bool FWD, bool FIRST>
+__global__ void __launch_bounds__(threads_of(LOGM, TC), FIRST ? 2 : 3)
 mxu_ntt_stage_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
                      const uint64_t* __restrict__ tabs, const int64_t* __restrict__ info, int L,
                      int c) {
   extern __shared__ __align__(16) uint64_t smem[];
-  stage_body<LOGM, FWD, FIRST, false>(smem, x, y, tabs, info, L, c);
+  stage_body<LOGM, TC, FWD, FIRST, false>(smem, x, y, tabs, info, L, c);
 }
 
 // kernel 1b: the same two stages with the Montgomery twiddle
-template <int LOGM, bool FWD, bool FIRST>
-__global__ void __launch_bounds__(1 << LOGM, 3)
+template <int LOGM, int TC, bool FWD, bool FIRST>
+__global__ void __launch_bounds__(threads_of(LOGM, TC), 3)
 mxu_ntt_stage_mont_kernel(const uint64_t* __restrict__ x, uint64_t* __restrict__ y,
                           const uint64_t* __restrict__ tabs, const int64_t* __restrict__ info,
                           int L, int c) {
   extern __shared__ __align__(16) uint64_t smem[];
-  stage_body<LOGM, FWD, FIRST, true>(smem, x, y, tabs, info, L, c);
+  stage_body<LOGM, TC, FWD, FIRST, true>(smem, x, y, tabs, info, L, c);
 }
 
 using Kernel = void (*)(const uint64_t*, uint64_t*, const uint64_t*, const int64_t*, int, int);
 
-template <int LOGM, bool FWD, bool FIRST, bool MONT>
+template <int LOGM, int TC, bool FWD, bool FIRST, bool MONT>
 int launch(const void* x, void* y, const void* tabs, const void* info, int B, int L, int c,
            cudaStream_t stream) {
   constexpr int M = 1 << LOGM;
   constexpr int TW = FIRST ? (MONT ? 1 : 2) : 0;
   const size_t smem = ((1 + TW) * M * TC + 3 * M + (FIRST ? 2 * TC : 0)) * sizeof(uint64_t);
-  const Kernel kernel = MONT ? mxu_ntt_stage_mont_kernel<LOGM, FWD, FIRST>
-                             : mxu_ntt_stage_kernel<LOGM, FWD, FIRST>;
+  const Kernel kernel = MONT ? mxu_ntt_stage_mont_kernel<LOGM, TC, FWD, FIRST>
+                             : mxu_ntt_stage_kernel<LOGM, TC, FWD, FIRST>;
   static const cudaError_t set = allow_smem(kernel, smem);
   if (set != cudaSuccess) return static_cast<int>(set);
-  kernel<<<dim3(c / TC, L, B), M, smem, stream>>>(
+  kernel<<<dim3(c / TC, L, B), threads_of(LOGM, TC), smem, stream>>>(
       static_cast<const uint64_t*>(x), static_cast<uint64_t*>(y),
       static_cast<const uint64_t*>(tabs), static_cast<const int64_t*>(info), L, c);
   return static_cast<int>(cudaGetLastError());
@@ -222,11 +218,14 @@ int launch(const void* x, void* y, const void* tabs, const void* info, int B, in
 template <int LOGM, bool MONT>
 int launch_m(const void* x, void* y, const void* tabs, const void* info, int B, int L, int c,
              int forward, int first, cudaStream_t s) {
-  if (forward)
-    return first ? launch<LOGM, true, true, MONT>(x, y, tabs, info, B, L, c, s)
-                 : launch<LOGM, true, false, MONT>(x, y, tabs, info, B, L, c, s);
-  return first ? launch<LOGM, false, true, MONT>(x, y, tabs, info, B, L, c, s)
-               : launch<LOGM, false, false, MONT>(x, y, tabs, info, B, L, c, s);
+  return fused_tiles<LOGM>(c, [&](auto tc) {
+    constexpr int TC = decltype(tc)::value;
+    if (forward)
+      return first ? launch<LOGM, TC, true, true, MONT>(x, y, tabs, info, B, L, c, s)
+                   : launch<LOGM, TC, true, false, MONT>(x, y, tabs, info, B, L, c, s);
+    return first ? launch<LOGM, TC, false, true, MONT>(x, y, tabs, info, B, L, c, s)
+                 : launch<LOGM, TC, false, false, MONT>(x, y, tabs, info, B, L, c, s);
+  });
 }
 
 template <bool MONT>
@@ -234,6 +233,8 @@ int dispatch(const void* x, void* y, const void* tabs, const void* info, int B, 
              int c, int forward, int first, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (m) {
+    case 8: return launch_m<3, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
+    case 16: return launch_m<4, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
     case 32: return launch_m<5, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
     case 64: return launch_m<6, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
     case 128: return launch_m<7, MONT>(x, y, tabs, info, B, L, c, forward, first, s);
@@ -244,17 +245,24 @@ int dispatch(const void* x, void* y, const void* tabs, const void* info, int B, 
 
 }  // namespace
 
-// x: (B, L, m, c) int64 transformed down its m rows (m in {32, 64, 128,
-// 256}, c a multiple of 16). first: stage 1, y (B, L, c, m), values < 2q;
-// else stage 2, y (B, L, m, c), canonical. info (L, 4): q and the offsets in
-// tabs of the stage's m-vector pair, Pease row 0 pair and (stage 1) the
-// (m, c) twiddle pair.
+// x: (B, L, m, c) int64 transformed down its m rows (m in {8, 16, ...,
+// 256}, c a multiple of 16, or 8 when m <= 16). first: stage 1, y (B, L, c,
+// m), values < 2q; else stage 2, y (B, L, m, c), canonical. info (L, 4): q
+// and the offsets in tabs of the stage's m-vector pair, Pease row 0 pair and
+// (stage 1) the (m, c) twiddle pair.
+//
+// ops/cuda_lib.py builds this file in two parts that compile in parallel:
+// PPQ_PART 0 holds kernel 1's entry point and instances, 1 kernel 1b's;
+// without PPQ_PART (probes/kernel_report.py) both.
+#if !defined(PPQ_PART) || PPQ_PART == 0
 extern "C" int ppq_mxu_ntt_stage(const void* x, void* y, const void* tabs, const void* info,
                                  int B, int L, int m, int c, int forward, int first,
                                  void* stream) {
   return dispatch<false>(x, y, tabs, info, B, L, m, c, forward, first, stream);
 }
+#endif
 
+#if !defined(PPQ_PART) || PPQ_PART == 1
 // kernel 1b: as ppq_mxu_ntt_stage, stage 1's twiddle offset pointing at the
 // limb's (m, c) table of w*2^64 mod q.
 extern "C" int ppq_mxu_ntt_stage_mont(const void* x, void* y, const void* tabs,
@@ -262,3 +270,4 @@ extern "C" int ppq_mxu_ntt_stage_mont(const void* x, void* y, const void* tabs,
                                       int first, void* stream) {
   return dispatch<true>(x, y, tabs, info, B, L, m, c, forward, first, stream);
 }
+#endif

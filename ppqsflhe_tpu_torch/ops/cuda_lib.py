@@ -1,13 +1,13 @@
 """Build and load the port's CUDA kernels (``ppqsflhe_tpu_torch/csrc``).
 
 The kernel sources compile with nvcc into ONE shared library with a plain
-C interface, loaded with ctypes: one nvcc per source, all started together,
-then one link. Nothing is built when this module is imported:
-:func:`library` builds on first use, into ``build/ppqsflhe_tpu_torch/``
-under the repository root, named by a hash of the sources and flags so a
-stale library is never loaded. Every C entry point returns
-``cudaGetLastError()`` after its launch; :func:`check` turns a non-zero
-code into an exception.
+C interface, loaded with ctypes: one nvcc per source (per part of a source
+in :data:`PARTS`), all started together, then one link. Nothing is built
+when this module is imported: :func:`library` builds on first use, into
+``build/ppqsflhe_tpu_torch/`` under the repository root, named by a hash of
+the sources and flags so a stale library is never loaded. Every C entry
+point returns ``cudaGetLastError()`` after its launch; :func:`check` turns
+a non-zero code into an exception.
 """
 
 from __future__ import annotations
@@ -25,6 +25,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppqsflhe_tpu_torch"
 SOURCES = ("mxu_ntt.cu", "streamed_ntt.cu", "fourstep_ntt.cu", "base_ext.cu", "ks_ip.cu",
            "overlap_probe.cu")
 HEADERS = ("common.cuh", "butterfly.cuh")
+# sources built in parts, each an nvcc of its own with -DPPQ_PART=p (p < parts):
+# a part holds one C entry point and the kernel instances it launches, so the
+# two widest sources (~50 and ~28 s whole on an H100 host) compile in parallel
+PARTS = {"mxu_ntt.cu": 2, "streamed_ntt.cu": 2}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -65,16 +69,18 @@ def build() -> Path:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    objs = [tmp.with_suffix(f".{Path(s).stem}.o") for s in SOURCES]
+    units = [(s, [f"-DPPQ_PART={p}"] if s in PARTS else [], f"{Path(s).stem}{p}")
+             for s in SOURCES for p in range(PARTS.get(s, 1))]
+    objs = [tmp.with_suffix(f".{stem}.o") for _, _, stem in units]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", str(CSRC / s), "-o", str(o)],
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, *part, "-c", str(CSRC / s), "-o", str(o)],
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for s, o in zip(SOURCES, objs)]
+             for (s, part, _), o in zip(units, objs)]
     errors = []
-    for s, p in zip(SOURCES, procs):
+    for (s, part, _), p in zip(units, procs):
         _, err = p.communicate()
         if p.returncode != 0:
-            errors.append(f"nvcc {s} failed ({p.returncode}):\n{err[-4000:]}")
+            errors.append(f"nvcc {s} {' '.join(part)} failed ({p.returncode}):\n{err[-4000:]}")
     if not errors:
         r = subprocess.run([nvcc(), *NVCC_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
                            capture_output=True, text=True)

@@ -36,12 +36,12 @@ import torch
 from . import cuda_lib
 from .fourstep import kernel_to_std
 from .mxu_ntt import MxuNttTables
-from .streamed_ntt import (INFO, TILE, StreamedChain, first_stage, second_stage, stage_a,
-                           stage_a_plain, stage_b, stage_b_plain)
+from .streamed_ntt import (FUSED_NARROW, INFO, TILE, StreamedChain, first_stage, second_stage,
+                           stage_a, stage_a_plain, stage_b, stage_b_plain, tile_width)
 
 launches = 0          # kernel 1 launches (two per transform) since the last reset
 launches_mont = 0     # kernel 1b launches (two per transform)
-SIZES = (32, 64, 128, 256)   # the m kernels 1 and 1b take: N = 2^10 ... 2^16
+SIZES = (8, 16, 32, 64, 128, 256)   # the m kernels 1 and 1b take: N = 2^6 ... 2^16
 # the JAX runner's default scoped-VMEM budget for one fused grid cell
 # (PallasMxuNtt._vmem_budget with PPQSFLHE_FUSED_VMEM_KIB unset)
 FUSED_VMEM_BUDGET = 1024 * 12896
@@ -83,12 +83,15 @@ def ntt_stage(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.
     Shoup, or with ``mont`` lazy Montgomery against the w·2^64 mod q table)
     and stored transposed to y (B, L, c, m), values < 2q; else stage 2, y
     (B, L, m, c), canonical residues. ``info`` (L, 4): q and the stage's
-    table offsets in ``tabs`` (:meth:`.streamed_ntt.StreamedChain.device`)."""
+    table offsets in ``tabs`` (:meth:`.streamed_ntt.StreamedChain.device`).
+    m is in :data:`SIZES` and c whole 16-column tiles, or 8 (the 8-column
+    stages of N = 2^6 and 2^7, m ≤ 16); raises ValueError otherwise, before
+    any build or launch."""
     global launches, launches_mont
     B, L, m, c = x.shape
-    if m not in SIZES or c % TILE:
-        raise ValueError(f"ntt kernel takes m in {SIZES} and whole {TILE}-column tiles, got "
-                         f"m={m}, c={c}")
+    if m not in SIZES:
+        raise ValueError(f"ntt kernel takes m in {SIZES}, got m={m}")
+    tile_width(c, f"ntt kernel at m={m}: columns", FUSED_NARROW if m <= TILE else ())
     cuda_lib.require(x, "ntt x")
     cuda_lib.require(y, "ntt y", (B, L, c, m) if first else (B, L, m, c))
     cuda_lib.require(tabs, "ntt tables")

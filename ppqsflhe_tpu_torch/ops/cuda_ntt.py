@@ -29,6 +29,7 @@ from . import cuda_lib
 from .cuda_mxu_ntt import CudaMxuNtt, _limb_subset
 from .fourstep import (FourStepTables, intt_body_cg, intt_pass1, intt_pass2, kernel_to_std,
                        ntt_body_cg, ntt_pass1, ntt_pass2)
+from .streamed_ntt import FUSED_NARROW, TILE, tile_width
 
 MXU, BUTTERFLY = "pallas_mxu", "pallas"     # named by their JAX counterparts
 # every four-step ntt_impl of the JAX package → the runner that gives its
@@ -36,8 +37,8 @@ MXU, BUTTERFLY = "pallas_mxu", "pallas"     # named by their JAX counterparts
 RUNNER = {"xla": MXU, "mxu": MXU, MXU: MXU, BUTTERFLY: BUTTERFLY}
 launches = 0          # kernel 6 launches (two per transform) since the last reset
 INFO = 4              # per limb and pass: q, pre-, post- and stage-table offsets
-TILE = 16             # csrc/butterfly.cuh TC: columns per block
-SIZES = (32, 64, 128, 256)   # m the kernel takes: 16 rows a thread, ≤ 98 KB of shared memory
+SIZES = (8, 16, 32, 64, 128, 256)   # m the kernel takes: ≤ 16 rows a thread, ≤ 98 KB of
+#                                     shared memory
 
 
 def fourstep_pass(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Tensor,
@@ -48,12 +49,13 @@ def fourstep_pass(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: to
     transform's stages and the csub (forward) or strict itwist (inverse),
     y (B, L, m, c). ``info`` (L, 4): q and the pass's table offsets in
     ``tabs``. Raises, before any build or launch, on m outside
-    :data:`SIZES`, on a partial 16-column tile and on a CPU tensor."""
+    :data:`SIZES`, on a partial 16-column tile (8 columns pass at m ≤ 16: the
+    8-column passes of N = 2^6 and 2^7) and on a CPU tensor."""
     global launches
     B, L, m, c = x.shape
-    if m not in SIZES or c % TILE:
-        raise ValueError(f"fourstep kernel takes m in {SIZES} and whole {TILE}-column tiles, "
-                         f"got m={m}, c={c}")
+    if m not in SIZES:
+        raise ValueError(f"fourstep kernel takes m in {SIZES}, got m={m}")
+    tile_width(c, f"fourstep kernel at m={m}: columns", FUSED_NARROW if m <= TILE else ())
     cuda_lib.require(x, "fourstep x")
     cuda_lib.require(y, "fourstep y", (B, L, c, m) if first else (B, L, m, c))
     cuda_lib.require(tabs, "fourstep tables")

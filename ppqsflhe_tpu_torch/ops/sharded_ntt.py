@@ -20,11 +20,14 @@ output are the same.
 Layouts, as in the JAX package: a coefficient-domain limb viewed as an
 (n1, n2) matrix is sharded on n2, so rank r holds columns [r·n2/D,
 (r+1)·n2/D); the transform leaves it in the four-step kernel order viewed
-as (n2, n1), sharded on n1. The inverse runs the mirror image. The kernels
-take m ∈ {32, …, 256} and whole 16-column (stage A) or 16-row (stage B)
-tiles, so D must divide n1/16 and n2/16 (8 ranks at N=2^14 and 2^16, 4 at
-N=2^12); :func:`check_shards` raises on any device when it does not, so a
-CPU run accepts only the meshes the card accepts.
+as (n2, n1), sharded on n1. The inverse runs the mirror image. The coef
+axis takes every D that the JAX classes take, any D dividing n1 and n2 (up
+to 64 ranks at N=2^12, 256 at N=2^16): the kernels take m ∈ {8, …, 256}
+and blocks of whole 16-wide tiles or of a power of two below 16 columns
+(stage A) or rows (stage B), and since n1 and n2 are powers of two, so are
+a shard's n2/D columns and m1/D rows. :func:`check_shards` raises on any
+device where the JAX classes raise, so a CPU run accepts exactly the meshes
+the card accepts.
 """
 
 from __future__ import annotations
@@ -35,17 +38,18 @@ import torch
 
 from ..parallel.mesh import all_to_all_tiled, axis_group, axis_index, axis_size
 from .cuda_mxu_ntt import MxuChainTables
-from .streamed_ntt import SIZES, TILE, stage_a, stage_a_plain, stage_b, stage_b_plain
+from .streamed_ntt import SIZES, stage_a, stage_a_plain, stage_b, stage_b_plain
 
 
 def check_shards(n1: int, n2: int, D: int) -> None:
     """Raise ValueError unless D ranks can each run kernels 4 and 5 on their
-    shard of an (n1, n2) four-step transform."""
+    shard of an (n1, n2) four-step transform: n1 and n2 in the kernels'
+    :data:`.streamed_ntt.SIZES` (N = 2^6 … 2^16), and D dividing both, the
+    JAX classes' condition."""
     if n1 not in SIZES or n2 not in SIZES:
         raise ValueError(f"the sharded transform takes n1, n2 in {SIZES}, got {n1}, {n2}")
-    if n1 % (TILE * D) or n2 % (TILE * D):
-        raise ValueError(f"coef axis size {D} must divide n1/{TILE}={n1 // TILE} and "
-                         f"n2/{TILE}={n2 // TILE}: each shard is whole {TILE}-wide tiles")
+    if D < 1 or n1 % D or n2 % D:
+        raise ValueError(f"coef axis size {D} must divide n1={n1}, n2={n2}")
 
 
 def halves(x: torch.Tensor, chain, sel: Sequence[int], forward: bool, rank: int, D: int,

@@ -50,8 +50,29 @@ from .fourstep import _col_ct_cg, _col_gs_cg, _pair, _pease, _powers
 launches_stage_a = 0  # kernel 4 launches since the last reset
 launches_stage_b = 0  # kernel 5 launches
 INFO = 4              # per limb: q, vector, root-row and twiddle offsets in the table buffer
-TILE = 16             # csrc/streamed_ntt.cu TC: columns (stage A) or rows (stage B) per block
-SIZES = (32, 64, 128, 256)   # the m the kernels take: m/16 threads of 16 values a column
+TILE = 16             # csrc/butterfly.cuh TC_MAX: the widest tile, columns (stage A) or rows
+#                       (stage B) a block; a narrower block is a power of two below it
+SIZES = (8, 16, 32, 64, 128, 256)   # the m the kernels take: m/16 threads of 16 values a
+#                                     column, or one thread a column at m = 8 and 16
+
+
+NARROW = (1, 2, 4, 8)   # the narrower tiles of kernels 4 and 5: every power of two below 16
+FUSED_NARROW = (8,)     # kernels 1, 1b and 6's narrower tile, at m ≤ 16 only (the 8-column
+#                         stages of N = 2^6 and 2^7)
+
+
+def tile_width(w: int, what: str, narrow: tuple = NARROW) -> int:
+    """The tile width of a kernel's block over w columns or rows: 16 for
+    whole 16-wide tiles, else w itself when it is one of the ``narrow``
+    widths (:data:`NARROW` for kernels 4 and 5, :data:`FUSED_NARROW` or none
+    for kernels 1, 1b and 6). csrc/butterfly.cuh ``with_tile`` is its twin.
+    Raises ValueError, naming ``what``, for any other w."""
+    if w > 0 and w % TILE == 0:
+        return TILE
+    if w in narrow:
+        return w
+    widths = f" or a power of two in {list(narrow)}" if narrow else ""
+    raise ValueError(f"{what}: {w} is not whole {TILE}-wide tiles{widths}")
 
 
 @dataclass
@@ -167,15 +188,17 @@ def stage_b_plain(t: torch.Tensor, tabs, forward: bool) -> torch.Tensor:
                         for l, tb in enumerate(tabs)], dim=1)
 
 
-def _check(name, x, y, y_shape, tabs, info, m):
+def _check(name, x, y, y_shape, tabs, info, m, aligned):
+    if m not in SIZES:
+        raise ValueError(f"{name} kernel takes m in {SIZES}, got m={m}")
     cuda_lib.require(x, f"{name} x")
     cuda_lib.require(y, f"{name} y", y_shape)
     cuda_lib.require(tabs, f"{name} tables")
     cuda_lib.require(info, f"{name} info", (x.shape[1], INFO))
     if len({t.device for t in (x, y, tabs, info)}) != 1:
         raise ValueError(f"{name} tensors must share one device")
-    if m not in SIZES:
-        raise ValueError(f"{name} kernel takes m in {SIZES}, got m={m}")
+    if aligned and x.data_ptr() % 16:
+        raise ValueError(f"{name} x must be 16-byte aligned (its 16-byte copies)")
 
 
 def stage_a(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Tensor,
@@ -184,16 +207,19 @@ def stage_a(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Te
     transpose. Limb l's twiddle table is (m, tw_cols) at
     ``tabs[info[l, 3]:]`` (its companions m·tw_cols further on) and x holds
     its columns [col0, col0 + c); ``info[l]`` = (q, vector, Pease row 0,
-    twiddle offsets)."""
+    twiddle offsets). c is whole 16-column tiles or a power of two below 16,
+    col0 a multiple of the tile width; raises ValueError otherwise, and for
+    m outside :data:`SIZES`, before any build or launch."""
     global launches_stage_a
     B, L, m, c = x.shape
     if col0 < 0 or col0 + c > tw_cols:
         raise ValueError(f"stage_a: columns [{col0}, {col0 + c}) outside a "
                          f"{tw_cols}-column twiddle table")
-    if c % TILE or col0 % TILE:
-        raise ValueError(f"stage_a: columns [{col0}, {col0 + c}) are not whole "
-                         f"{TILE}-column tiles")
-    _check("stage_a", x, y, (B, L, m, c), tabs, info, m)
+    tc = tile_width(c, "stage_a columns")
+    if col0 % tc:
+        raise ValueError(f"stage_a: columns [{col0}, {col0 + c}) do not fall on whole "
+                         f"{tc}-column tiles")
+    _check("stage_a", x, y, (B, L, m, c), tabs, info, m, tc > 1)
     lib = cuda_lib.library()
     with torch.cuda.device(x.device):
         code = lib.ppq_streamed_stage_a(x.data_ptr(), y.data_ptr(), tabs.data_ptr(),
@@ -207,12 +233,12 @@ def stage_a(x: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Te
 def stage_b(t: torch.Tensor, y: torch.Tensor, tabs: torch.Tensor, info: torch.Tensor,
             forward: bool) -> torch.Tensor:
     """Kernel 5: t (B, L, rows, m) int64, values < 2q, transformed along its
-    last axis → y (B, L, m, rows) canonical residues."""
+    last axis → y (B, L, m, rows) canonical residues. rows is whole 16-row
+    tiles or a power of two below 16."""
     global launches_stage_b
     B, L, rows, m = t.shape
-    if rows % TILE:
-        raise ValueError(f"stage_b: {rows} rows are not whole {TILE}-row tiles")
-    _check("stage_b", t, y, (B, L, m, rows), tabs, info, m)
+    tile_width(rows, "stage_b rows")
+    _check("stage_b", t, y, (B, L, m, rows), tabs, info, m, True)
     lib = cuda_lib.library()
     with torch.cuda.device(t.device):
         code = lib.ppq_streamed_stage_b(t.data_ptr(), y.data_ptr(), tabs.data_ptr(),

@@ -39,7 +39,10 @@ import torch.distributed as dist
 
 # kind → {"ops", "bytes"} since the last reset
 collectives = {k: {"ops": 0, "bytes": 0} for k in ("all_to_all", "all_reduce", "all_gather")}
-MAX_PSUM_SHARDS = 15    # a raw 64-bit sum of ≤ 15 residues < 2^60 cannot wrap
+# a raw 64-bit sum of 16 residues < 2^60 stays below 2^64 and below 16q,
+# which the fold by 8q, 4q, 2q and q brings back into [0, q); a 17th term
+# would leave the sum ≥ 16q for some inputs, beyond the fold
+MAX_PSUM_SHARDS = 16
 _SIGN = -(1 << 63)      # flips the sign bit: an unsigned compare as a signed one
 
 
@@ -174,11 +177,13 @@ def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
 
 
 def fold_mod(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """Reduce a raw 64-bit sum of at most 15 residues < q (q < 2^60) into
-    [0, q): the JAX package's folds by 8q, 4q, 2q and q
-    (``ppqsflhe_tpu/ckks/multikey.py:29-45``). The sum may exceed 2^63, so it
-    is read as unsigned: int64 addition wraps as uint64 addition does, and
-    each compare flips the sign bits."""
+    """Reduce a raw 64-bit sum of at most 16 residues < q (q < 2^60, so the
+    sum is < 16q and < 2^64) into [0, q): the fold by 8q, 4q, 2q and q of
+    the JAX package's sharded-round psum
+    (``ppqsflhe_tpu/parallel/sharded_scheme.py:515-522``), each step
+    halving the bound. The sum may exceed 2^63, so it is read as unsigned:
+    int64 addition wraps as uint64 addition does, and each compare flips
+    the sign bits."""
     for shift in (3, 2, 1, 0):
         step = q << shift
         s = torch.where((s ^ _SIGN) >= (step ^ _SIGN), s - step, s)
@@ -188,10 +193,13 @@ def fold_mod(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def psum_mod(x: torch.Tensor, q: torch.Tensor, group) -> torch.Tensor:
     """Modular ``psum``: every rank's residues x < q summed over ``group``
     (one ``all_reduce``) and folded back into [0, q); the result is on
-    every rank. At most 15 ranks, as for the JAX fold."""
+    every rank. At most 16 ranks, as for the JAX psum: the raw sum of more
+    could reach 16q, past the fold."""
     D = dist.get_world_size(group)
     if D > MAX_PSUM_SHARDS:
-        raise ValueError(f"psum_mod folds at most {MAX_PSUM_SHARDS} shards, got {D}")
+        raise ValueError(f"psum_mod folds at most {MAX_PSUM_SHARDS} shards (a raw sum of more "
+                         f"residues can reach {MAX_PSUM_SHARDS}q, past the fold by 8q, 4q, 2q "
+                         f"and q), got {D}")
     s = x.clone(memory_format=torch.contiguous_format)
     _count("all_reduce", s)
     dist.all_reduce(s, group=group)

@@ -52,7 +52,9 @@ class ShardedEvalContext(CkksContext):
     the coefficients on ``axis``; the local trailing dim is N/D. Both
     four-step implementations (``"pallas_mxu"``, ``"pallas"``) run the same
     per-shard kernels, as the JAX class runs its Pallas stage kernels for
-    both names; ``impl`` keeps the name given."""
+    both names; ``impl`` keeps the name given. The coef axis takes every D
+    the JAX class takes, any D dividing n1 and n2
+    (:func:`..ops.sharded_ntt.check_shards`)."""
 
     def __init__(self, params: CkksParams, mesh, axis: str = "coef"):
         self.impl = params.ntt_impl

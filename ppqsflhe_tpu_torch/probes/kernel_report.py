@@ -5,6 +5,10 @@ Prints, for every kernel instance under ``ppqsflhe_tpu_torch/csrc``:
 - ``[ptxas]``: the registers, spill bytes and static shared memory that
   ``nvcc -Xptxas -v`` reports for sm_90a (the build flags of
   ``ops/cuda_lib.py``, one nvcc per source, all started together);
+- ``[ptxas-instances]``: per NTT kernel template (kernels 1, 1b, 4, 5, 6,
+  whose first two template arguments are log2(m) and the tile width TC),
+  the count, register range and spilling instances of all its instances,
+  of the small rings' (m = 8, 16) and of the narrow tiles' (TC < 16);
 - ``[ptxas-note]``: every line ptxas prints about ``wgmma`` or
   ``setmaxnreg`` (a serialization of the wgmmas, an ignored register
   count);
@@ -93,6 +97,29 @@ def ptxas_report() -> tuple:
                     entry, spill = None, (0, 0)
     names = _demangle([r[1] for r in rows])
     return [(r[0], names.get(r[1], r[1])) + r[2:] for r in rows], notes
+
+
+def instance_summary(rows) -> list:
+    """Lines of :func:`ptxas_report`'s rows grouped per NTT kernel template
+    (first template arguments log2(m), TC): all instances, those at m ≤ 16
+    and those with TC < 16, each as count, register range and spilling
+    count."""
+    groups = {}
+    for src, name, regs, st, ld, _ in rows:
+        m = re.match(r"void <unnamed>::(\w+)<\(int\)(\d+), \(int\)(\d+)", name)
+        if m and src in ("mxu_ntt.cu", "streamed_ntt.cu", "fourstep_ntt.cu"):
+            g = groups.setdefault((src, m.group(1)), {"all": [], "m <= 16": [], "TC < 16": []})
+            rec = (regs, st + ld > 0)
+            g["all"].append(rec)
+            if int(m.group(2)) <= 4:
+                g["m <= 16"].append(rec)
+            if int(m.group(3)) < 16:
+                g["TC < 16"].append(rec)
+    part = lambda recs: (f"{len(recs)} instances, {min(r for r, _ in recs)}-"
+                         f"{max(r for r, _ in recs)} registers, {sum(s for _, s in recs)} "
+                         f"spilling" if recs else "none")
+    return [f"{src} {kernel}: " + "; ".join(f"{k}: {part(v)}" for k, v in g.items())
+            for (src, kernel), g in groups.items()]
 
 
 def sass_opcodes(text: str) -> dict:
@@ -224,6 +251,8 @@ def main() -> None:
     for src, name, regs, st, ld, smem in rows:
         print(f"[ptxas] {src} {name}: {regs} registers, spill {st}/{ld} bytes (stores/loads), "
               f"{smem} bytes static smem")
+    for line in instance_summary(rows):
+        print(f"[ptxas-instances] {line}")
     for src, line in notes:
         print(f"[ptxas-note] {src}: {line}")
     if not any(src == "overlap_probe.cu" for src, _ in notes):

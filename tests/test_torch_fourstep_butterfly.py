@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
-from test_torch_streamed_ntt import _high, _low
+from test_torch_streamed_ntt import _high, _labels, _low
 
 from ppqsflhe_tpu.ops.pallas_ntt import FourStepNtt as JaxFourStepNtt
 from ppqsflhe_tpu_torch.core import primes
@@ -38,23 +38,22 @@ def _ring(n):
 
 
 def _model_tile(x, buf, info, fwd, first, c0):
-    """One block of kernel 6: columns [c0, c0 + 16) of one limb's x (B, m, c).
-    Thread (t, cc) holds rows t + T·k of column cc (k < 16); forward pass 1
+    """One block of kernel 6: columns [c0, c0 + TC) of one limb's x (B, m, c),
+    TC = min(c, 16). Thread (t, cc) holds rows t + T·k of column cc (k < R:
+    R = 16, or m at m ≤ 16, where there is no exchange); forward pass 1
     twists them by the (m, c) table read from global memory; four stages on
     those labels, one exchange to rows 16·t + k, the rest there (the
     inverse the other way round), twiddles from Pease row 0 of the stage
     table; then the post table tile (lazy twiddle, lazy inverse twiddle,
     strict itwist) or forward pass 2's csub. Pass 1 returns the block's run
-    of y (B, 16, m), written through the tile transposed; pass 2 (B, m, 16)."""
+    of y (B, TC, m), written through the tile transposed; pass 2 (B, m, TC)."""
     B, m, c = x.shape
-    logm, T, h = m.bit_length() - 1, m // 16, m // 2
+    logm, (T, R, hi, lo), h, tc = m.bit_length() - 1, _labels(m), m // 2, min(c, 16)
     q, size = int(info[0]), m * c
     stage = buf[int(info[3]):]
     rw, rs = stage[:h], stage[logm * h:logm * h + h]      # Pease row 0: root^i
-    pair = lambda off: buf[int(off):int(off) + 2 * size].view(2, m, c)[..., c0:c0 + 16]
-    hi = torch.arange(T)[:, None] + T * torch.arange(16)[None, :]      # label t + T·k
-    lo = 16 * torch.arange(T)[:, None] + torch.arange(16)[None, :]     # label 16·t + k
-    tile = x[..., c0:c0 + 16].clone()
+    pair = lambda off: buf[int(off):int(off) + 2 * size].view(2, m, c)[..., c0:c0 + tc]
+    tile = x[..., c0:c0 + tc].clone()
     if fwd:
         v = tile[:, hi]
         if first:
@@ -82,16 +81,17 @@ def _model_tile(x, buf, info, fwd, first, c0):
         out = torch.empty_like(tile)
         out[:, labels] = v
         return out
-    tile_t = torch.empty((B, 16, m), dtype=v.dtype)
+    tile_t = torch.empty((B, tc, m), dtype=v.dtype)
     tile_t[:, :, labels] = v.permute(0, 3, 1, 2)       # (B, col, t, k) → [col][row]
     return tile_t
 
 
 def _model_pass(x, buf, info, fwd, first):
-    """The kernel's grid: every limb of x (B, L, m, c), every 16-column block."""
+    """The kernel's grid: every limb of x (B, L, m, c), every TC-column block."""
     return torch.stack([
         torch.cat([_model_tile(x[:, l], buf, info[l], fwd, first, c0)
-                   for c0 in range(0, x.shape[-1], 16)], dim=1 if first else 2)
+                   for c0 in range(0, x.shape[-1], min(x.shape[-1], 16))],
+                  dim=1 if first else 2)
         for l in range(x.shape[1])], dim=1)
 
 
@@ -111,13 +111,15 @@ def _inputs(moduli, sel, n, fwd, seed):
                         for i in sel], axis=1))
 
 
-@pytest.mark.parametrize("n", [1 << 11, 1 << 15], ids=["m32_64", "m128_256"])
+@pytest.mark.parametrize("n", [1 << 11, 1 << 15, 1 << 6, 1 << 7, 1 << 9],
+                         ids=["m32_64", "m128_256", "m8", "m8_16", "m16_32"])
 @pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
 def test_kernel_schedule_model_matches_plain(n, forward):
     """The schedule over the uploaded tables equals ntt_body_cg /
-    intt_body_cg bit for bit, at m ∈ {32, 64} (N=2^11: n1=32, n2=64) and
-    {128, 256} (N=2^15); each launch equals its plain pass (pass 1's lazy
-    representative too)."""
+    intt_body_cg bit for bit, at m ∈ {32, 64} (N=2^11: n1=32, n2=64),
+    {128, 256} (N=2^15) and the small rings' m = 8, 16 (N = 2^6, 2^7, 2^9:
+    one thread a column, 8-wide tiles for the 8-column passes); each launch
+    equals its plain pass (pass 1's lazy representative too)."""
     moduli, _, port = _ring(n)
     sel = [1, 0]
     x = _inputs(moduli, sel, n, forward, seed=n + forward)
@@ -160,12 +162,13 @@ def test_kernel_schedule_model_matches_pallas_interpret(n):
 
 
 def test_fourstep_pass_refuses_unsupported_shapes_and_cpu_tensors():
-    """Kernel 6 takes m ∈ {32, 64, 128, 256} and whole 16-column tiles, on
-    CUDA tensors only: each refusal raises before any build or launch (an
-    unsupported m before the device is looked at), and the counter stays."""
+    """Kernel 6 takes m ∈ {8, 16, …, 256} and whole 16-column tiles (8
+    columns at m ≤ 16), on CUDA tensors only: each refusal raises before any
+    build or launch (an unsupported m before the device is looked at), and
+    the counter stays."""
     before = cuda_ntt.launches
     tabs, info = torch.zeros(8, dtype=torch.int64), torch.zeros((1, 4), dtype=torch.int64)
-    for m, c, match in ((16, 32, "m in"), (512, 32, "m in"), (96, 32, "m in"), (2, 32, "m in"),
+    for m, c, match in ((4, 32, "m in"), (512, 32, "m in"), (96, 32, "m in"), (2, 32, "m in"),
                         (32, 40, "tiles"), (64, 32, "CUDA"), (256, 256, "CUDA")):
         x = torch.zeros((1, 1, m, c), dtype=torch.int64)
         for forward in (True, False):

@@ -14,6 +14,7 @@ prep and check run on the CPU with the port's own keys and decrypt below
 1e-3."""
 
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -175,3 +176,40 @@ def test_prep_round_and_check_on_port_keys(world, lazy):
     errs = mk.check(sch, w, vecs, avg, outs)
     assert set(errs) == {"hub", "client 0", "client 2"}
     assert max(errs.values()) < mk.ERR_GATE, errs
+
+
+def test_aggregate_sharded_fold_divergence(tmp_path):
+    """A recorded divergence where the reference is wrong: the JAX
+    ``multikey._psum_mod`` (``ppqsflhe_tpu/ckks/multikey.py:29-37``) folds a
+    raw sum by "−8q if ≥ 8q, then −q if ≥ q" four times, which leaves a sum
+    in [6q, 8q) at [q, 3q). On 8 clients, one a device of the virtual mesh
+    (N=2^12, depth 1, uniform residues from numpy seed 0), the JAX
+    ``aggregate_sharded`` (average off) leaves residues ≥ q, congruent mod q
+    to the sum; the port's, one client a rank of an 8-rank gloo job
+    (``tests/torch_dist_worker.py``'s ``agg_fold``), is the sum mod q
+    exactly, every residue in [0, q)."""
+    from jax.sharding import Mesh
+
+    from ppqsflhe_tpu.ckks.params import CkksContext as JaxContext
+    from ppqsflhe_tpu_torch.parallel import multihost
+
+    clients, n = 8, 1 << 12
+    jp = JaxParams.generate(n=n, mult_depth=1, scale_bits=40, dnum=2)
+    q = np.array(jp.q_moduli, np.uint64)[:, None]
+    rng = np.random.default_rng(0)
+    stack = np.stack([np.stack([rng.integers(0, qi, (1, 2, n), dtype=np.uint64) for qi in q[:, 0]],
+                               axis=-2) for _ in range(clients)])     # (8, B=1, 2, l=2, N)
+    want = stack.sum(axis=0, dtype=np.uint64) % q                     # 8 residues < 2^60: exact
+    got_jax = np.asarray(jmk.aggregate_sharded(
+        JaxContext(jp), jnp.asarray(stack), Mesh(np.array(jax.devices()[:clients]), ("client",)),
+        jp.scale, clients, average=False).data)
+    assert (got_jax >= q).sum() > 0 and (got_jax < 3 * q).all()
+    np.testing.assert_array_equal(got_jax % q, want)
+    np.savez(tmp_path / "in.npz", stack=stack.view(np.int64),
+             params=json.dumps(convert.params_fields(convert.params(dataclasses.asdict(jp)))))
+    multihost.spawn_ranks(["tests/torch_dist_worker.py", "agg_fold", str(tmp_path / "in.npz"),
+                           str(tmp_path)], clients, "cpu", timeout=300)
+    for r in range(clients):
+        got = np.load(tmp_path / f"rank{r}.npz")["agg"].view(np.uint64)
+        np.testing.assert_array_equal(got, want)
+        assert (got < q).all()

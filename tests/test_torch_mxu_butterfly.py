@@ -10,7 +10,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from test_torch_streamed_ntt import _high, _low
+from test_torch_streamed_ntt import _high, _labels, _low
 
 from ppqsflhe_tpu.ops import pallas_mxu_ntt as PMX
 from ppqsflhe_tpu_torch.core import primes
@@ -115,20 +115,18 @@ def _neg_inv64(q):
 
 
 def _model_tile(x, buf, info, fwd, first, mont, c0):
-    """One block of kernel 1 (1b with ``mont``): the 16 columns [c0, c0 + 16)
-    of one limb's x (B, m, c), tables read from the uploaded buffer at the
-    info row's offsets. Stage 1 returns the block's part of y (B, 16, m):
-    the kernel writes each thread's values into the shared tile transposed,
-    column cc's row a at [cc][a], and stores the 16 rows of y as one run;
-    stage 2 returns (B, m, 16)."""
+    """One block of kernel 1 (1b with ``mont``): the TC columns [c0, c0 +
+    TC) of one limb's x (B, m, c), TC = min(c, 16), tables read from the
+    uploaded buffer at the info row's offsets. Stage 1 returns the block's
+    part of y (B, TC, m): the kernel writes each thread's values into the
+    shared tile transposed, column cc's row a at [cc][a], and stores the TC
+    rows of y as one run; stage 2 returns (B, m, TC)."""
     B, m, c = x.shape
-    logm, T = m.bit_length() - 1, m // 16
+    logm, (T, R, hi, lo), tc = m.bit_length() - 1, _labels(m), min(c, 16)
     q = int(info[0])
     vw, vs = buf[info[1]:info[1] + m], buf[info[1] + m:info[1] + 2 * m]
     rw, rs = buf[info[2]:info[2] + m // 2], buf[info[2] + m // 2:info[2] + m]
-    hi = torch.arange(T)[:, None] + T * torch.arange(16)[None, :]      # label t + T·k
-    lo = 16 * torch.arange(T)[:, None] + torch.arange(16)[None, :]     # label 16·t + k
-    tile = x[..., c0:c0 + 16].clone()
+    tile = x[..., c0:c0 + tc].clone()
     if fwd:
         v = shoup_mul_lazy(tile[:, hi], vw[hi][..., None], vs[hi][..., None], q)
         _high(v, T, rw, rs, q, True)
@@ -155,24 +153,25 @@ def _model_tile(x, buf, info, fwd, first, mont, c0):
     if not fwd:
         v = shoup_mul_lazy(v, vw[hi][..., None], vs[hi][..., None], q)
     if mont:
-        tw = buf[info[3]:info[3] + m * c].view(m, c)[:, c0:c0 + 16]
+        tw = buf[info[3]:info[3] + m * c].view(m, c)[:, c0:c0 + tc]
         v = mont_mul_lazy(v, tw[labels], q, int(u64_to_i64(_neg_inv64(q))))
     else:
-        tw = buf[info[3]:info[3] + 2 * m * c].view(2, m, c)[..., c0:c0 + 16]
+        tw = buf[info[3]:info[3] + 2 * m * c].view(2, m, c)[..., c0:c0 + tc]
         v = shoup_mul_lazy(v, tw[0][labels], tw[1][labels], q)
-    tile_t = torch.empty((B, 16, m), dtype=v.dtype)
+    tile_t = torch.empty((B, tc, m), dtype=v.dtype)
     tile_t[:, :, labels] = v.permute(0, 3, 1, 2)       # (B, col, t, k) → [col][row]
     return tile_t
 
 
 def _model_stage(x, buf, info, fwd, first, mont):
-    """The kernel's grid over one limb: every 16-column block of x (B, m, c)."""
+    """The kernel's grid over one limb: every TC-column block of x (B, m, c)."""
     blocks = [_model_tile(x, buf, info, fwd, first, mont, c0)
-              for c0 in range(0, x.shape[-1], 16)]
+              for c0 in range(0, x.shape[-1], min(x.shape[-1], 16))]
     return torch.cat(blocks, dim=1 if first else 2)
 
 
-@pytest.mark.parametrize("n", [1 << 11, 1 << 15], ids=["m32_64", "m128_256"])
+@pytest.mark.parametrize("n", [1 << 11, 1 << 15, 1 << 6, 1 << 7, 1 << 9],
+                         ids=["m32_64", "m128_256", "m8", "m8_16", "m16_32"])
 @pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
 @pytest.mark.parametrize("mont", [False, True], ids=["shoup", "mont"])
 def test_kernel_schedule_model_matches_plain(n, forward, mont):
@@ -183,7 +182,9 @@ def test_kernel_schedule_model_matches_plain(n, forward, mont):
     with -q^{-1} from Newton's iteration) and transposed store — run on the
     CPU over the uploaded table buffer, block by block, equals the plain
     stages bit for bit at m ∈ {32, 64} (N=2^11) and {128, 256} (N=2^15), in
-    both stages and both directions."""
+    both stages and both directions; and at m = 8 and 16 (N = 2^6, 2^7,
+    2^9), where one thread holds a whole column and an 8-column stage is
+    one 8-wide tile."""
     moduli, runner = _runner(n)
     sel = [2, 0]
     chain = runner.tables.streamed
@@ -203,14 +204,14 @@ def test_kernel_schedule_model_matches_plain(n, forward, mont):
 
 
 def test_ntt_stage_rejects_cpu_tensors_and_unsupported_m():
-    """Kernels 1 and 1b take m ∈ {32, 64, 128, 256} and whole 16-column
-    tiles, on CUDA tensors only: each refusal raises before any build or
-    launch (an unsupported m before the device is looked at, so a CUDA
-    tensor of that shape raises too and is never sent to a plain version),
-    and the counters stay."""
+    """Kernels 1 and 1b take m ∈ {8, 16, …, 256} and whole 16-column tiles
+    (8 columns at m ≤ 16), on CUDA tensors only: each refusal raises before
+    any build or launch (an unsupported m before the device is looked at, so
+    a CUDA tensor of that shape raises too and is never sent to a plain
+    version), and the counters stay."""
     before = (cuda_mxu_ntt.launches, cuda_mxu_ntt.launches_mont)
     tabs, info = torch.zeros(8, dtype=torch.int64), torch.zeros((1, 4), dtype=torch.int64)
-    for m, c, match in ((16, 32, "m in"), (512, 32, "m in"), (96, 32, "m in"),
+    for m, c, match in ((4, 32, "m in"), (512, 32, "m in"), (96, 32, "m in"),
                         (32, 40, "tiles"), (64, 32, "CUDA")):
         x = torch.zeros((1, 1, m, c), dtype=torch.int64)
         for forward in (True, False):

@@ -306,10 +306,11 @@ def test_collective_counts(ranks):
             assert int(r[f"round_{nc}x{nd}_a2a_ops"]) == want
 
 
-@pytest.mark.parametrize("terms", range(2, 16))
+@pytest.mark.parametrize("terms", range(2, 17))
 def test_fold_mod_exact(terms):
     """The modular fold of a raw int64 sum of ``terms`` residues q − 1 on a
-    60-bit prime (the sum passes 2^63 from 8 terms on) gives terms·(q−1) mod q."""
+    60-bit prime (the sum passes 2^63 from 8 terms on; 16 terms, psum_mod's
+    most, reach 16q − 16) gives terms·(q−1) mod q."""
     q = JaxParams.generate(n=N, mult_depth=2, scale_bits=40, dnum=2).q_moduli[0]
     assert q.bit_length() == 60
     qt = torch.tensor([[q], [q - 2]], dtype=torch.int64)
@@ -324,17 +325,23 @@ def test_fold_mod_exact(terms):
 
 
 def test_shard_limits(monkeypatch):
-    """Kernels 4 and 5 take whole 16-wide tiles, so the coef axis must
-    divide n1/16 and n2/16 on every device: 4 ranks at N=2^12 (n1 = n2 = 64),
-    8 at N=2^14 and 2^16; the JAX context takes any D dividing n1 and n2.
-    The modular psum refuses more than 15 ranks (a group of 16 stood in
-    for by the world size it reports), where the JAX fold would wrap."""
-    sharded_ntt.check_shards(64, 64, 4)
-    sharded_ntt.check_shards(128, 128, 8)
-    sharded_ntt.check_shards(256, 256, 8)
-    for n1, n2, D in ((64, 64, 8), (128, 128, 16), (16, 16, 1), (64, 64, 3)):
-        with pytest.raises(ValueError):
+    """The coef axis takes every D the JAX classes take, any D dividing n1
+    and n2 (kernels 4 and 5 take shards narrower than a 16-wide tile, and
+    m = 8 and 16): 8 ranks at N=2^12 (n1 = n2 = 64), 16 at N=2^14, one at
+    N=2^8. It raises where the JAX classes raise, for a D that does not
+    divide n1 or n2. The modular psum takes 16 ranks and refuses 17 (a group
+    of 17 stood in for by the world size it reports): a raw sum of 17
+    residues can reach 16q, past the fold by 8q, 4q, 2q and q."""
+    for n1, n2, D in ((64, 64, 4), (128, 128, 8), (256, 256, 8), (64, 64, 8),
+                      (128, 128, 16), (16, 16, 1), (8, 16, 8), (64, 64, 64), (256, 256, 256)):
+        sharded_ntt.check_shards(n1, n2, D)
+    for n1, n2, D in ((64, 64, 3), (64, 64, 128), (16, 32, 32), (8, 8, 16), (64, 64, 0)):
+        with pytest.raises(ValueError, match="must divide"):
             sharded_ntt.check_shards(n1, n2, D)
-    monkeypatch.setattr(pm.dist, "get_world_size", lambda group=None: 16)
-    with pytest.raises(ValueError, match="15 shards"):
-        pm.psum_mod(torch.zeros(1, dtype=torch.int64), torch.ones(1, dtype=torch.int64), None)
+    with pytest.raises(ValueError, match="n1, n2 in"):
+        sharded_ntt.check_shards(4, 8, 1)
+    assert pm.MAX_PSUM_SHARDS == 16
+    q = torch.ones(1, dtype=torch.int64)
+    monkeypatch.setattr(pm.dist, "get_world_size", lambda group=None: 17)
+    with pytest.raises(ValueError, match="16 shards"):
+        pm.psum_mod(torch.zeros(1, dtype=torch.int64), q, None)

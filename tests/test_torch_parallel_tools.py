@@ -41,17 +41,21 @@ def test_sharded_bench_on_cpu(lazy):
 
 
 def test_scaling_bench_on_cpu():
-    """Weak scaling at D = 1 and 2 on gloo: the JAX bench's keys, and at
-    D = 2 the sharded round's collectives equal the JAX package's committed
-    model (SCALING_MODEL.json) in ops and bytes."""
+    """Weak scaling at D = 1, 2 and 8 on gloo, on the JAX bench's shapes
+    (the aggregation at N=256, the round at N=2^12 with 2D ciphertexts a
+    client): the JAX bench's keys, and at D = 2 and 8 the sharded round's
+    collectives equal the JAX package's committed model
+    (SCALING_MODEL.json) in ops and bytes; D = 8 runs the round on shards
+    of 8 columns."""
     out = json.loads(_run(["ppqsflhe_tpu_torch.bench.scaling", "--device", "cpu", "--devs",
-                           "1,2", "--reps", "1", "--n-ntt", "4096"])[-1])
+                           "1,2,8", "--reps", "1", "--n-ntt", "4096"])[-1])
     for key in ("metric", "value", "round_value", "unit", "devices", "platform", "ntt_ms",
                 "agg_ms", "round_ms", "round_cts", "collective_bytes", "note", "card"):
         assert key in out
-    assert out["platform"] == "cpu" and out["devices"] == [1, 2]
-    assert out["model_diff"] == {"1": [], "2": []}
+    assert out["platform"] == "cpu" and out["devices"] == [1, 2, 8]
+    assert out["model_diff"] == {"1": [], "2": [], "8": []}
     assert out["collective_bytes"]["2"]["all-to-all"] == {"ops": 11, "bytes": 2490368}
+    assert out["round_cts"]["8"] == 16 and all(v is not None for v in out["round_ms"].values())
 
 
 @pytest.mark.parametrize("n", [1, 2])

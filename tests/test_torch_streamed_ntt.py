@@ -151,13 +151,26 @@ def test_big_route_matches_jax_run_and_kernel6(n, idx):
 # The CUDA kernels' schedule (csrc/streamed_ntt.cu), modelled on the CPU
 # ---------------------------------------------------------------------------
 
+def _labels(m):
+    """(T, R, hi, lo): T threads a column of R values each (R = 16, or m
+    itself at m ≤ 16), their row labels t + T·k and R·t + k."""
+    R = min(m, 16)
+    T = m // R
+    hi = torch.arange(T)[:, None] + T * torch.arange(R)[None, :]      # label t + T·k
+    lo = R * torch.arange(T)[:, None] + torch.arange(R)[None, :]      # label R·t + k
+    return T, R, hi, lo
+
+
 def _high(v, T, rw, rs, q, fwd):
-    """high_stages: v (..., T, 16, cols) holds row labels t + T·k."""
+    """high_stages: v (..., T, R, cols) holds row labels t + T·k; log2(R)
+    stages (all of them when one thread holds the column)."""
     t = torch.arange(T)
-    for it in range(4):
-        s = it if fwd else 3 - it
-        dk = 8 >> s
-        for k in range(16):
+    R = v.shape[-2]
+    S = R.bit_length() - 1
+    for it in range(S):
+        s = it if fwd else S - 1 - it
+        dk = (R // 2) >> s
+        for k in range(R):
             if k & dk:
                 continue
             e = (t + T * (k & (dk - 1))) << s
@@ -196,12 +209,10 @@ def _model_limb(cols, buf, info, fwd, stage_a, tw_cols=0, col0=0):
     t, transposed), tables read from the uploaded buffer at the info row's
     offsets. Returns (B, m, c) in the store's row order."""
     B, m, c = cols.shape
-    logm, T = m.bit_length() - 1, m // 16
+    logm, (T, R, hi, lo) = m.bit_length() - 1, _labels(m)
     q = int(info[0])
     vw, vs = buf[info[1]:info[1] + m], buf[info[1] + m:info[1] + 2 * m]
     rw, rs = buf[info[2]:info[2] + m // 2], buf[info[2] + m // 2:info[2] + m]
-    hi = torch.arange(T)[:, None] + T * torch.arange(16)[None, :]      # label t + T·k
-    lo = 16 * torch.arange(T)[:, None] + torch.arange(16)[None, :]     # label 16·t + k
     tile = cols.clone()
     if fwd:
         v = shoup_mul_lazy(tile[:, hi], vw[hi][..., None], vs[hi][..., None], q)
@@ -267,10 +278,44 @@ def test_kernel_schedule_model_matches_plain(forward, sel):
     assert torch.equal(got_b, want_b)
 
 
+@pytest.mark.parametrize("n", [1 << 6, 1 << 7, 1 << 9], ids=["m8", "m8_16", "m16_32"])
+@pytest.mark.parametrize("forward", [True, False], ids=["fwd", "inv"])
+def test_kernel_schedule_model_small_m(n, forward):
+    """At m = 8 and 16 one thread holds a whole column (R = m values, every
+    stage in registers, no exchange): the model equals the plain stages bit
+    for bit, stage A on every column block of a coef axis of 2, 4 and 8
+    ranks (c down to 1, stage B over m1/D rows) too."""
+    moduli = _chain(n)[:2]
+    psis = [primes.root_of_unity(2 * n, q) for q in moduli]
+    tables = MxuChainTables(n, moduli, psis)
+    chain, sel = StreamedChain(tables.tabs), [1, 0]
+    buf, info_a, info_b = chain.device("cpu", sel, forward)
+    m1, m2 = (tables.n1, tables.n2) if forward else (tables.n2, tables.n1)
+    assert min(m1, m2) <= 16
+    tabs = [chain.limb(i) for i in sel]
+    x = _t(_inputs(moduli, sel, (m1, m2), seed=n + forward)[:1])
+    for D in (1, 2, 4, 8):
+        c = m2 // D
+        for k in range(D):
+            xk = x[..., k * c:(k + 1) * c]
+            want_a = stage_a_plain(xk, tabs, forward, k * c)
+            got_a = torch.stack([_model_limb(xk[:, l], buf, info_a[l], forward, True, m2, k * c)
+                                 for l in range(len(sel))], dim=1)
+            assert torch.equal(got_a, want_a)
+    want_a = stage_a_plain(x, tabs, forward)
+    for D in (1, 2, 4, 8):
+        rows = m1 // D
+        t = want_a[..., :rows, :]              # rank 0's rows after the exchange
+        got_b = torch.stack([_model_limb(t[:, l].transpose(-1, -2), buf, info_b[l], forward,
+                                         False) for l in range(len(sel))], dim=1)
+        assert torch.equal(got_b, stage_b_plain(t.contiguous(), tabs, forward))
+
+
 def test_streamed_launchers_reject_cpu_tensors_and_bad_blocks():
-    """Kernels 4 and 5 take CUDA tensors only, and stage A whole tiles of a
-    column block inside its table: each refusal raises before any build or
-    launch, and the counters stay."""
+    """Kernels 4 and 5 take CUDA tensors only, and blocks of whole 16-wide
+    tiles or a power of two below 16 (stage A: inside its table, starting on
+    a tile): each refusal raises before any build or launch, and the
+    counters stay."""
     before = (streamed_ntt.launches_stage_a, streamed_ntt.launches_stage_b)
     x = torch.zeros((1, 1, 128, 32), dtype=torch.int64)
     tabs, info = torch.zeros(8, dtype=torch.int64), torch.zeros((1, 4), dtype=torch.int64)
@@ -284,7 +329,7 @@ def test_streamed_launchers_reject_cpu_tensors_and_bad_blocks():
         with pytest.raises(ValueError, match="CUDA"):
             streamed_ntt.stage_b(x, x.reshape(1, 1, 32, 128), tabs, info, fwd)
         with pytest.raises(ValueError, match="tiles"):
-            streamed_ntt.stage_b(x.reshape(1, 1, 32, 128)[:, :, :8].contiguous(), x, tabs,
+            streamed_ntt.stage_b(x.reshape(1, 1, 32, 128)[:, :, :24].contiguous(), x, tabs,
                                  info, fwd)
     assert (streamed_ntt.launches_stage_a, streamed_ntt.launches_stage_b) == before
     assert cuda_lib._lib is None

@@ -1,5 +1,7 @@
 """One rank of the port's multi-rank CPU tests (``gloo``), started by
-``tests/test_torch_parallel.py`` and ``tests/test_torch_multihost.py`` as
+``tests/test_torch_parallel.py``, ``tests/test_torch_multihost.py``,
+``tests/test_torch_mesh_d8.py``, ``tests/test_torch_mesh_16.py`` and
+``tests/test_torch_multikey.py`` as
 
     python tests/torch_dist_worker.py <scenario> <in.npz> <out_dir>
 
@@ -162,6 +164,62 @@ def multihost_fedavg(z, out):
     out["agg"] = agg.data.numpy()
 
 
+def mesh_d8(z, out):
+    """tests/test_torch_mesh_d8.py: ShardedNtt over the QP chain and
+    fedavg_round_sharded on a client 1 × coef D mesh, D the world size, and
+    the collectives the round issues."""
+    D, r = dist.get_world_size(), dist.get_rank()
+    params = convert.params(json.loads(str(z["params"])))
+    ctx = CkksContext(params)
+    mesh = pm.make_mesh({"client": 1, "coef": D}, "cpu")
+    n1, n2, L = ctx.fntt.n1, ctx.fntt.n2, len(ctx.moduli_qp)
+    sn = ShardedNtt(params.n, ctx.moduli_qp, ctx.basis.psis, mesh)
+    x, y = _t(z["x"]).reshape(-1, L, n1, n2), _t(z["y"]).reshape(-1, L, n2, n1)
+    out["ntt"] = sn.ntt(pm.shard(x, r, D, -1).contiguous()).numpy()
+    out["intt"] = sn.intt(pm.shard(y, r, D, -1).contiguous()).numpy()
+    sctx = ss.ShardedEvalContext(params, mesh)
+    key = lambda name: KeySwitchKey(sctx.local(_t(z[name])))
+    pm.reset_collectives()
+    avg, back = ss.fedavg_round_sharded(sctx, sctx.local(_t(z["stacks"])), key("rk12"),
+                                        key("rk21"), float(z["scale"]))
+    out["avg"], out["back"] = avg.numpy(), back.numpy()
+    out["colls"] = np.array(json.dumps(pm.read_collectives()))
+
+
+def mesh_16(z, out):
+    """tests/test_torch_mesh_16.py: on a client axis of every rank,
+    psum_mod of this rank's residues and the joint key with this rank's
+    party; on a coef axis of every rank, this rank's shard of ShardedNtt."""
+    D, r = dist.get_world_size(), dist.get_rank()
+    params = convert.params(json.loads(str(z["params"])))
+    ctx = CkksContext(params)
+    qp = ctx.moduli_qp
+    clients = pm.make_mesh({"client": D}, "cpu")
+    q = torch.tensor(qp, dtype=torch.int64)[:, None]
+    out["psum"] = pm.psum_mod(_t(z["terms"][r]), q, pm.axis_group(clients, "client")).numpy()
+    out["joint_pk"] = th.joint_public_key_sharded(ctx, _t(z["crs"]), _t(z["b"][r:r + 1]),
+                                                  clients).data.numpy()
+    sn = ShardedNtt(params.n, qp, ctx.basis.psis, pm.make_mesh({"coef": D}, "cpu"))
+    L, n1, n2 = len(qp), sn.n1, sn.n2
+    x, y = _t(z["x"]).reshape(-1, L, n1, n2), _t(z["y"]).reshape(-1, L, n2, n1)
+    out["ntt"] = sn.ntt(pm.shard(x, r, D, -1).contiguous()).numpy()
+    out["intt"] = sn.intt(pm.shard(y, r, D, -1).contiguous()).numpy()
+
+
+def agg_fold(z, out):
+    """tests/test_torch_multikey.py's fold divergence: this rank's client of
+    the stack, summed over every rank by aggregate_sharded (average off)."""
+    r = dist.get_rank()
+    ctx = CkksContext(convert.params(json.loads(str(z["params"]))))
+    mesh = pm.make_mesh({"client": dist.get_world_size()}, "cpu")
+    out["agg"] = multikey.aggregate_sharded(ctx, _t(z["stack"][r:r + 1]), mesh, 1.0,
+                                            z["stack"].shape[0], average=False).data.numpy()
+
+
+SCENARIOS = {"parallel": parallel, "multihost": multihost_fedavg, "mesh_d8": mesh_d8,
+             "mesh_16": mesh_16, "agg_fold": agg_fold}
+
+
 def main():
     scenario, inputs, out_dir = sys.argv[1:4]
     if scenario == "multihost":
@@ -172,7 +230,7 @@ def main():
     z = np.load(inputs)
     out = {}
     try:
-        {"parallel": parallel, "multihost": multihost_fedavg}[scenario](z, out)
+        SCENARIOS[scenario](z, out)
         np.savez(os.path.join(out_dir, f"rank{dist.get_rank()}.npz"), **out)
     finally:
         dist.destroy_process_group()
