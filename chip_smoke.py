@@ -124,7 +124,18 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   in the butterfly configuration (kernel 6, bit-equal to it), and
   ``bench.scaling``'s three paths at D = 1 on the JAX bench's shapes (the
   aggregation at N=256) on a one-rank NCCL group, its collectives equal
-  to ``SCALING_MODEL.json``'s D = 1 row. The phase prints its seconds.
+  to ``SCALING_MODEL.json``'s D = 1 row. The phase prints its seconds;
+- **the compiled server round** (phase 14, ``fl/compiled.py``): the round
+  captured once as a CUDA graph (``CompiledRound``) for the N=2^14 round in
+  all five schedules, the butterfly configuration and the N=2^16 round
+  at lazy-4 and full level, on the earlier phases' worlds; each case 20
+  chained replays (each rewriting one residue of client 1's stack from
+  the previous replay's checksum, its outputs poisoned before it) held
+  with ``torch.equal`` to the eager round on the same inputs, the first
+  decrypting within 1e-3; the graph must hold every kernel of its round
+  and its replays must run them (``fl.compiled.replayed``); then the
+  eager and the compiled round's wall, host enqueue, device ms and idle.
+  The phase prints its seconds.
 
 For each path:
 
@@ -1287,7 +1298,8 @@ def round16_route_check(sch, gen, device, card):
 def round16_phase(card, device, profile_on):
     """The server round at N=2^16 (8192 slots): set-up, kernel checks, main
     path in both schedules, decrypt, ms/round, the context's device memory,
-    then the big route against kernels 6 and 1b."""
+    then the big route against kernels 6 and 1b. Returns the kernels' rows
+    and the round's world."""
     import torch
 
     from ppqsflhe_tpu_torch.ops.cuda_mxu_ntt import route
@@ -1316,7 +1328,7 @@ def round16_phase(card, device, profile_on):
     limbs, after = butterfly_tables_mib(fntt, device)
     print(f"[memory N=2^16] after the route check ran kernel 1b on the big-route limbs: "
           f"butterfly tables {after:.1f} MiB for limbs {limbs} (+{after - tables:.1f} MiB)")
-    return cases.take_launches(launches)
+    return cases.take_launches(launches), w
 
 
 # ---------------------------------------------------------------------------
@@ -1327,7 +1339,7 @@ def butterfly_phase(card, device, w, default_outs, profile_on):
     """The N=2^14 round with ntt_impl="pallas" (kernel 6 runs every NTT) on
     the default round's keys and ciphertexts: kernel checks at its shapes,
     main path in both schedules, bit-equal to the default round, decrypt,
-    ms/round."""
+    ms/round. Returns the kernels' rows and the butterfly scheme."""
     import dataclasses
 
     import torch
@@ -1374,7 +1386,7 @@ def butterfly_phase(card, device, w, default_outs, profile_on):
             times = median_ms(lambda: server_round(s, w.ct1, w.ct2, w.rk12, w.rk21, lazy), 3)
             turns.append(f"{name} {statistics.median(times):.3f}")
         print(f"[A/B round lazy={lazy}] ms/round in turns: {', '.join(turns)} ({card})")
-    return cases.take_launches(launches)
+    return cases.take_launches(launches), sch
 
 
 # ---------------------------------------------------------------------------
@@ -3042,6 +3054,107 @@ def small_rings_phase(card, device):
     return cases.take_launches(launches)
 
 
+# ---------------------------------------------------------------------------
+# Path 14: the compiled server round (one CUDA graph) against the eager round
+# ---------------------------------------------------------------------------
+
+COMPILED_CHAIN = 20     # chained replays per case, each held to the eager round
+
+
+def compiled_case(tag, sch, w, lazy, need, card):
+    """One schedule of a round world ``w`` as a :class:`CompiledRound`:
+    COMPILED_CHAIN replays, the first on the clients' stacks and each later
+    one after rewriting one residue of client 1's stack from the previous
+    replay's checksum, every replay's outputs poisoned before it and then
+    held with ``torch.equal`` to the eager round on the same inputs; the
+    first replay decrypts within the gate, and a replay on the restored
+    stacks gives it again. Then the eager and compiled wall (median of
+    ROUNDS per-call CUDA-event times), host enqueue, device ms and idle.
+    Returns the compiled round's launches per replay."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks.types import Ciphertext
+    from ppqsflhe_tpu_torch.fl.api import server_round
+    from ppqsflhe_tpu_torch.fl.compiled import CompiledRound
+
+    t0 = time.perf_counter()
+    cr = CompiledRound(sch, w.rk12, w.rk21, lazy, w.ct1.data.shape[:-3], w.ct1.scale)
+    t_capture = time.perf_counter() - t0
+    missing = [k for k in need if not cr.launches[k]]
+    if missing:
+        raise AssertionError(f"compiled {tag} lazy={lazy}: the graph holds no launch of {missing}")
+    x1 = w.ct1.data.clone()
+    flat = x1.view(-1)
+    base = flat[0].clone()
+    first = carry = None
+    for i in range(COMPILED_CHAIN):
+        if i:
+            flat[0] = (base >> 1) + (carry & 1)
+        for t in (cr.avg.data, cr.back.data):
+            t.fill_(-1)
+        eager = server_round(sch, Ciphertext(x1, w.ct1.scale), w.ct2, w.rk12, w.rk21, lazy)
+        got = cr(Ciphertext(x1, w.ct1.scale), w.ct2)
+        if not all(torch.equal(a.data, b.data) and a.scale == b.scale
+                   for a, b in zip(got, eager)):
+            raise AssertionError(f"compiled {tag} lazy={lazy}: replay {i + 1} of "
+                                 f"{COMPILED_CHAIN} differs from the eager round")
+        carry = sum(c.data.sum() for c in got)
+        if first is None:
+            first = [Ciphertext(c.data.clone(), c.scale) for c in got]
+    flat[0] = base
+    again = cr(Ciphertext(x1, w.ct1.scale), w.ct2)
+    if not all(torch.equal(a.data, b.data) for a, b in zip(again, first)):
+        raise AssertionError(f"compiled {tag} lazy={lazy}: a replay on the restored stacks "
+                             f"differs from the first replay")
+    e2, e1 = max_err(sch, w.sk2, first[0], w.want), max_err(sch, w.sk1, first[1], w.want)
+    if not (np.isfinite(e1) and np.isfinite(e2) and max(e1, e2) < ERR_GATE):
+        raise AssertionError(f"compiled {tag} lazy={lazy}: decrypt error {max(e1, e2)} over "
+                             f"the gate")
+    print(f"[compiled {tag} lazy={lazy}] capture {t_capture:.2f} s; {COMPILED_CHAIN} chained "
+          f"replays torch.equal to the eager round; decrypt max err: average under sk2 "
+          f"{e2:.3e}, re-encrypted under sk1 {e1:.3e} (gate {ERR_GATE}); "
+          f"{sum(cr.launches.values())} kernel launches a replay: "
+          f"{ {k: v for k, v in cr.launches.items() if v} }")
+    runs = (("eager", lambda: server_round(sch, w.ct1, w.ct2, w.rk12, w.rk21, lazy)),
+            ("compiled", cr.replay))
+    for name, run in runs:
+        wall = statistics.median(median_ms(run, 3))
+        dev = sum(us for _, us in device_events_once(run)) / 1e3
+        dev_s, idle = (("not measured (no device activity in the profile)", "not measured")
+                       if not dev else (f"{dev:.3f} ms", f"{max(0.0, 1 - dev / wall):.1%}"))
+        print(f"[timing compiled {tag} lazy={lazy}] {name}: wall {wall:.3f} ms/round (median of "
+              f"{ROUNDS}), host enqueue {host_ms(run):.3f} ms, device {dev_s}, idle {idle} "
+              f"({card})")
+    return cr.launches
+
+
+def compiled_phase(card, device, rounds):
+    """The compiled server round: for each (tag, scheme, world, schedules,
+    kernels) of ``rounds``, :func:`compiled_case` per schedule. The launch
+    counts are reset first; the kernels of each round must have launched
+    in its replays (``fl.compiled.replayed``: a replay runs the captured
+    launches, which the wrappers counted once, at the capture)."""
+    from ppqsflhe_tpu_torch.fl import compiled
+
+    t0 = time.perf_counter()
+    reset_counts()
+    compiled.reset_replayed()
+    for tag, sch, w, schedules, need in rounds:
+        before = dict(compiled.replayed)
+        for lazy in schedules:
+            compiled_case(tag, sch, w, lazy, need, card)
+        ran = {k: v - before[k] for k, v in compiled.replayed.items()}
+        missing = [k for k in need if not ran[k]]
+        if missing:
+            raise AssertionError(f"compiled {tag}: replays never launched {missing}")
+    wrappers = read_counts()
+    print(f"[compiled] kernel launches: replayed "
+          f"{ {k: v for k, v in compiled.replayed.items() if v} }; by the wrappers (warm-up, "
+          f"capture, eager references) { {k: v for k, v in wrappers.items() if v} }")
+    print(f"[compiled] phase 14: {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -3069,8 +3182,10 @@ def main() -> None:
     kernels, world, outs = round_phase(card, device, args.profile)
     kernels += rotation_phase(card, device, args.profile)
     kernels += ntt_phase(card, device)
-    kernels += round16_phase(card, device, args.profile)
-    kernels += butterfly_phase(card, device, world, outs, args.profile)
+    rows, world16 = round16_phase(card, device, args.profile)
+    kernels += rows
+    rows, butterfly = butterfly_phase(card, device, world, outs, args.profile)
+    kernels += rows
     kernels += files_phase(card, device, args.profile)
     kernels += multikey_phase(card, device)
     kernels += threshold_phase(card, device)
@@ -3079,6 +3194,14 @@ def main() -> None:
     kernels += twins_phase(card, device)
     kernels += sharded_phase(card, device, world, outs)
     kernels += small_rings_phase(card, device)
+    mxu_need = ("mxu_ntt", "base_extend", "ks_inner_product")
+    compiled_phase(card, device, (
+        ("round", world.sch, world, (4, 0, 1, 2, 3), mxu_need),
+        ("butterfly round", butterfly, world, (4, 0),
+         ("fourstep_ntt", "base_extend", "ks_inner_product")),
+        ("round N=2^16", world16.sch, world16, (4, 0),
+         ("mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b", "base_extend",
+          "ks_inner_product"))))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,16 +16,24 @@ Keys, Montgomery-form rekeys and the encryptions are made on the card.
 The round is timed as the marginal cost between 20 and 60 chained rounds
 (:mod:`.timing`), beside one round's device time, the host's enqueue time
 and the idle share on stderr: at N=2^14 the eager round is host-bound, so
-the number measures the host. The gate (``bench.py:283``): the average
-decrypts under client 2's key, and its re-encryption under client 1's, to
-the payload within 1e-3 in every slot. A failed gate raises after the JSON
+the number measures the host. The JAX bench times the jitted round, so the
+compiled round (:class:`..fl.compiled.CompiledRound`, one CUDA graph) is
+timed too, by the same chained marginal (each replay rewriting one residue
+of its static input), with its own device ms, enqueue ms and idle share,
+under ``compiled_*`` keys beside the eager ones; a replay on the clients'
+stacks must be bit-equal to the eager round. The gate (``bench.py:283``):
+the average decrypts under client 2's key, and its re-encryption under
+client 1's, to the payload within 1e-3 in every slot. A failed gate raises after the JSON
 line is printed. Run on the card::
 
     python -m ppqsflhe_tpu_torch.bench.server_round
 
 It prints one JSON line with ``bench.py``'s keys
 (``"metric": "server_encrypted_aggregation_ms_per_round"``, ``value``,
-``unit``, ``vs_baseline``) plus ``"card"`` and the timing's parts.
+``unit``, ``vs_baseline``: the eager round's) plus ``"card"`` and the
+timing's parts, the compiled round's with a ``compiled_`` prefix (None on
+the CPU, where no graph is captured). A compiled round that differs from
+the eager one raises after the line, as a failed gate does.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from ..ckks.params import CkksParams
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext
 from ..fl.api import LAZY_MODES, server_round
+from ..fl.compiled import CompiledRound
 from . import timing
 from .multikey import decrypt_err
 from .timing import card_line
@@ -54,6 +63,9 @@ BASELINE_SERVER_CRYPTO_MS = 8000.0     # the reference's window (bench.py:36)
 R_LO, R_HI = 20, 60
 ERR_GATE = 1e-3
 METRIC = "server_encrypted_aggregation_ms_per_round"
+COMPILED_KEYS = ("compiled_ms", "compiled_t_lo_ms", "compiled_t_hi_ms", "compiled_device_ms",
+                 "compiled_enqueue_ms", "compiled_idle_share", "compiled_capture_s",
+                 "compiled_equal")
 
 
 def settings(env=os.environ) -> tuple:
@@ -110,6 +122,25 @@ def measure(sch: CkksScheme, w, lazy: int, card: str, reps: int = 3) -> dict:
     return m
 
 
+def measure_compiled(sch: CkksScheme, w, lazy: int, card: str, reps: int = 3) -> dict:
+    """The compiled round: capture (seconds, warm-up included), one replay
+    on the clients' stacks against the eager round (``compiled_equal``),
+    then :func:`measure`'s chained marginal over replays, each first
+    rewriting one residue of the static input, and one replay's device ms,
+    enqueue ms and idle share (stderr)."""
+    t0 = time.perf_counter()
+    cr = CompiledRound(sch, w.rk12, w.rk21, lazy, w.ct1.data.shape[:-3], w.ct1.scale)
+    capture_s = time.perf_counter() - t0
+    eager = server_round(sch, w.ct1, w.ct2, w.rk12, w.rk21, lazy)
+    equal = all(torch.equal(a.data, b.data) and a.scale == b.scale
+                for a, b in zip(eager, cr(w.ct1, w.ct2)))
+    outs = lambda: [c.data for c in cr.replay()]
+    m = timing.marginal_carried_ms(outs, cr.stack1, R_LO, R_HI, reps)
+    m.update(timing.unit_report(f"compiled server_round lazy={lazy}", cr.replay, m["ms"], card))
+    m.update(capture_s=capture_s, equal=equal)
+    return {k: m[k.removeprefix("compiled_")] for k in COMPILED_KEYS}
+
+
 def bench(device="cuda", backend: str = "fourstep", impl: str = "pallas_mxu", lazy: int = 4,
           n: int = N, count: int = N_CTS, reps: int = 3, out=print) -> dict:
     """Set up, run the round once against the gate, time it (on the card),
@@ -127,16 +158,21 @@ def bench(device="cuda", backend: str = "fourstep", impl: str = "pallas_mxu", la
     err = max(errs.values())
     correct = bool(np.isfinite(err) and err < ERR_GATE)
     m = measure(sch, w, lazy, card, reps) if device.type == "cuda" else {"ms": None}
+    c = (measure_compiled(sch, w, lazy, card, reps) if device.type == "cuda"
+         else dict.fromkeys(COMPILED_KEYS))
     ms = m["ms"]
     result = {"metric": METRIC, "value": ms, "unit": "ms",
               "vs_baseline": None if ms is None else BASELINE_SERVER_CRYPTO_MS / ms,
               "lazy": lazy, "backend": backend, "impl": impl, "n": n, "ciphertexts": count,
               "correct": correct, "err": err, "out_scale": back.scale,
               "out_limbs": back.nlimbs, "setup_seconds": t_setup,
-              **{k: v for k, v in m.items() if k != "ms"}, "card": card}
+              **{k: v for k, v in m.items() if k != "ms"}, **c, "card": card}
     out(json.dumps(result))
     if not correct:
         raise AssertionError(f"server round lazy={lazy}: decrypt error {errs} over {ERR_GATE}")
+    if c["compiled_equal"] is False:
+        raise AssertionError(f"server round lazy={lazy}: the compiled round differs from the "
+                             "eager round")
     return result
 
 

@@ -282,9 +282,12 @@ class StreamedChain:
                         offs[i, fwd, name] = off
                         parts.append(a)
                         off += a.size
+            # a captured CUDA graph (fl/compiled.py) reads tables by address:
+            # the ones replaced here stay alive
             d = self._dev[key] = dict(
                 tabs=torch.as_tensor(np.concatenate(parts).view(np.int64), device=device),
-                offs=offs, limbs=set(limbs), info={})
+                offs=offs, limbs=set(limbs), info={},
+                retired=[*d["retired"], d["tabs"], d["info"]] if d else [])
         ikey = (tuple(sel), forward, mont)
         if ikey not in d["info"]:
             o = d["offs"]
