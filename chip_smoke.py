@@ -68,11 +68,12 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   equals the mean of the exported weights within 1e-3 (C: within the
   flood's σ, phase 8's gate) and the clients agree; round 2 of A starts
   from round 1's decrypt; round 1 lowers every client's validation MSE;
-  the GRU forward on the card is within 1e-4 of the CPU's; kernels 2 and 3
+  the GRU forward on the card is within 1e-4 of the CPU's (the clients
+  train through ``train_client``'s CUDA graphs); kernels 2 and 3
   (A, B) and 1 (C) launched and are bit-equal at the run's shapes. Then
-  each round's per-step table (the step log), ms per training step and
-  epoch, and the device's idle share over one epoch and one warm round
-  of B;
+  each round's per-step table (the step log), ms per eager training step
+  and epoch, and the device's idle share over one eager epoch and one warm
+  round of B;
 - **the bench twins** (``ppqsflhe_tpu_torch.bench``): ``server_round`` (the
   twin of ``bench.py``) in all five schedules, ``rotations``
   (``bench_rotations.py``), ``kernels`` (``bench_kernels.py``: the NTT north
@@ -135,7 +136,22 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   decrypting within 1e-3; the graph must hold every kernel of its round
   and its replays must run them (``fl.compiled.replayed``); then the
   eager and the compiled round's wall, host enqueue, device ms and idle.
-  The phase prints its seconds.
+  The phase prints its seconds;
+- **the compiled training step** (phase 15, ``train/compiled.py``): the
+  GRU (7 -> 64 -> 64 -> 1, 39,041 parameters), the LSTM (hidden 300), the
+  MLP and the transformer at their default widths on run A's client 1
+  data, each trained 2 epochs by ``train_client`` on the card (its step
+  and validation MSE as CUDA graphs: 2 eager warm-up steps, then replays)
+  and by the eager trainer from the same weights and seeds; every batch
+  MSE, validation MSE, the best epoch's weights and, after the last
+  epoch, the weights, Adam moments and count ``torch.equal``, the graphs
+  replayed at every later step and evaluation; then eager and compiled ms
+  a step and an epoch (synchronized host clock, median), device ms and
+  launches of a step and an epoch's device ms and idle share (one
+  CUDA-only profile each), capture seconds; last, the GRU at lr = 0 on
+  one batch: each replay's dropout mask differs from the last and equals
+  the eager step's from the same generator state. The path launches none
+  of the seven kernels. The phase prints its seconds.
 
 For each path:
 
@@ -3155,6 +3171,225 @@ def compiled_phase(card, device, rounds):
     print(f"[compiled] phase 14: {time.perf_counter() - t0:.1f} s ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Path 15: the compiled training step and validation MSE (CUDA graphs)
+# ---------------------------------------------------------------------------
+
+TRAIN_FAMILIES = ("gru", "lstm", "mlp", "transformer")
+TRAIN_EPOCHS = 2        # epochs of each trajectory held eager against compiled
+TRAIN_TIMED = 3         # timed epochs a path (median)
+STEP_TIMED = 10         # timed steps a path (median)
+
+
+def fresh_client(ccfg, seed, device):
+    """What ``train_client(ccfg, seed)`` starts from on ``device`` with no
+    warm start: the family's model from the seeded initializer, its
+    optimizer, the data and the shuffle and dropout generators."""
+    import torch
+
+    from ppqsflhe_tpu_torch.train import mlp
+    from ppqsflhe_tpu_torch.train import trainer as T
+
+    mdl = T.MODEL_FAMILIES[ccfg.get("model", "gru")]
+    data = validation(ccfg, device)
+    kw = {"lookback": int(ccfg.get("lookback", 72))} if mdl is mlp else {}
+    params = mdl.init_params(torch.Generator().manual_seed(seed), data[0].shape[-1], **kw)
+    model = mdl.Model(params).to(device)
+    opt = T.make_optimizer(model, float(ccfg.get("learning_rate", 1e-3)))
+    return (model, opt, data, torch.Generator().manual_seed(seed + 1),
+            torch.Generator(device=device).manual_seed(seed + 2))
+
+
+def eager_fit(ccfg, seed, device, epochs):
+    """``train_client``'s loop run eagerly (:func:`run_epoch` with
+    ``train_step``, ``eval_mse``) for ``epochs`` epochs, no early stop:
+    the model and optimizer after it, the batch MSEs by epoch, the
+    validation MSE before and after each epoch, the best epoch and its
+    weights, and the training windows' shape."""
+    from types import SimpleNamespace
+
+    import torch
+
+    from ppqsflhe_tpu_torch.train import trainer as T
+
+    model, opt, (Xt, yt, Xv, yv), shuffle, drop = fresh_client(ccfg, seed, device)
+    batch = int(ccfg.get("batch_size", ORCH_BATCH))
+    r = SimpleNamespace(model=model, opt=opt, mses=[], val0=T.eval_mse(model, Xv, yv), vals=[],
+                        best_epoch=-1, best_params=None, windows=tuple(Xt.shape))
+    best = float("inf")
+    for epoch in range(epochs):
+        r.mses.append([float(v) for v in torch.stack(
+            T.run_epoch(model, opt, Xt, yt, batch, shuffle, drop)).cpu()])
+        r.vals.append(T.eval_mse(model, Xv, yv))
+        if r.vals[-1] < best - 1e-12:
+            best, r.best_epoch = r.vals[-1], epoch
+            r.best_params = [p.detach().clone() for p in model.parameters()]
+    return r
+
+
+def trajectory_check(family, ccfg, seed, device):
+    """``train_client`` on the card (the compiled step and eval) against
+    :func:`eager_fit` from the same weights and seeds: every batch MSE,
+    validation MSE, the best epoch and its weights, and after the last
+    epoch the weights, Adam moments and count, ``torch.equal``; the graphs
+    replayed at every step after the warm-up and at every evaluation.
+    Returns the steps of an epoch."""
+    import torch
+
+    from ppqsflhe_tpu_torch.train import compiled
+    from ppqsflhe_tpu_torch.train import trainer as T
+
+    compiled.reset_replays()
+    res = T.train_client(ccfg, seed=seed, verbose=False, device=str(device))
+    replays = dict(compiled.replays)
+    e = eager_fit(ccfg, seed, device, TRAIN_EPOCHS)
+    steps = sum(map(len, e.mses))
+    want = {"step": steps - compiled.WARMUP, "eval": TRAIN_EPOCHS + 1}
+    if replays != want:
+        raise AssertionError(f"compiled train {family}: replays {replays}, want {want} (the "
+                             f"step and eval must run as graphs after the warm-up)")
+    diff = [(k, i, a, b) for k, (ra, rb) in enumerate(zip(res.batch_mse, e.mses))
+            for i, (a, b) in enumerate(zip(ra, rb)) if a != b]
+    if diff or [len(r) for r in res.batch_mse] != [len(r) for r in e.mses]:
+        raise AssertionError(f"compiled train {family}: batch MSEs differ from the eager "
+                             f"trajectory at (epoch, step, compiled, eager) {diff[:4]}")
+    copt = res.optimizer
+    cparams = copt.param_groups[0]["params"]
+    unequal = [i for i, (a, b) in enumerate(zip(cparams, e.model.parameters()))
+               if not torch.equal(a, b)]
+    state = lambda o: [t for p in o.param_groups[0]["params"] for t in o.state[p].values()]
+    unequal_state = [i for i, (a, b) in enumerate(zip(state(copt), state(e.opt)))
+                     if not torch.equal(a, b)]
+    if (unequal or unequal_state or res.val_mse_init != e.val0
+            or res.history["val_loss"] != e.vals or res.best_epoch != e.best_epoch
+            or not torch.equal(copt.param_groups[0]["count"], e.opt.param_groups[0]["count"])
+            or not all(torch.equal(a, b) for a, b in zip(res.params, e.best_params))):
+        raise AssertionError(
+            f"compiled train {family}: after {TRAIN_EPOCHS} epochs the weights {unequal} / "
+            f"moments {unequal_state} differ, or the val MSEs {res.val_mse_init} "
+            f"{res.history['val_loss']} vs {e.val0} {e.vals}, or the best epoch "
+            f"{res.best_epoch} vs {e.best_epoch} or its weights")
+    print(f"[compiled train {family}] {sum(p.numel() for p in cparams):,} params, {steps} steps "
+          f"in {TRAIN_EPOCHS} epochs on {e.windows} windows: train_client's graphs (replays "
+          f"{replays}) torch.equal to the eager trajectory: {steps} batch MSEs, "
+          f"{TRAIN_EPOCHS + 1} val MSEs ({e.val0:.6f} -> {e.vals[-1]:.6f}), best epoch "
+          f"{e.best_epoch} and its weights, last weights, Adam moments and count")
+    return len(e.mses[0])
+
+
+def dropout_replays_check(ccfg, device):
+    """The GRU's step at lr = 0 (the weights stay, the masks move) on one
+    batch, compiled and eager from generators with one seed: every call's
+    MSE equal, and the replays' MSEs pairwise different — each replay
+    draws its own mask, the one the eager step draws."""
+    import torch
+
+    from ppqsflhe_tpu_torch.train import compiled
+    from ppqsflhe_tpu_torch.train import trainer as T
+
+    cfg = dict(ccfg, model="gru", learning_rate=0.0)
+    (m1, o1, (Xt, yt, _, _), _, g1), (m2, o2, _, _, g2) = (fresh_client(cfg, SEED, device)
+                                                           for _ in range(2))
+    cs = compiled.CompiledStep(m1, o1, Xt, yt, ORCH_BATCH, g1)
+    sel = torch.arange(ORCH_BATCH, device=device)
+    got, want = [], []
+    for _ in range(compiled.WARMUP + 4):
+        got.append(float(cs(sel)))
+        want.append(float(T.train_step(m2, o2, Xt[sel], yt[sel], g2)))
+    replayed = got[compiled.WARMUP:]
+    if got != want or len(set(replayed)) != len(replayed):
+        raise AssertionError(f"compiled train: dropout at lr=0, compiled {got} vs eager {want}")
+    if not all(torch.equal(a, b) for a, b in zip(m1.parameters(), m2.parameters())):
+        raise AssertionError("compiled train: lr=0 moved the weights")
+    print(f"[compiled train] dropout: one batch at lr=0, {len(got)} steps ({compiled.WARMUP} "
+          f"eager warm-up, then replays): MSEs {[f'{v:.6f}' for v in got]}, each equal to the "
+          f"eager step's from the same generator state, the replays' pairwise different")
+
+
+def train_timing(family, ccfg, device, card, n_steps):
+    """Eager vs compiled on one fresh model each: ms a step (median of
+    STEP_TIMED) and an epoch (median of TRAIN_TIMED), synchronized host
+    clock; device ms and launches of one step and device ms of one epoch
+    from one CUDA-only profile each, the epoch's idle share; the capture's
+    seconds; ms of a validation MSE."""
+    import torch
+
+    from ppqsflhe_tpu_torch.train import compiled
+    from ppqsflhe_tpu_torch.train import trainer as T
+
+    out = {}
+    for name in ("eager", "compiled"):
+        model, opt, (Xt, yt, Xv, yv), shuffle, drop = fresh_client(ccfg, SEED, device)
+        sel = torch.arange(ORCH_BATCH, device=device)
+        if name == "eager":
+            step = lambda: T.train_step(model, opt, Xt[sel], yt[sel], drop)
+            epoch = lambda: T.run_epoch(model, opt, Xt, yt, ORCH_BATCH, shuffle, drop)
+            evaluate = lambda: T.eval_mse(model, Xv, yv)
+            capture = ""
+        else:
+            cs = compiled.CompiledStep(model, opt, Xt, yt, ORCH_BATCH, drop)
+            for _ in range(compiled.WARMUP + 1):
+                cs(sel)
+            t0 = time.perf_counter()
+            ce = compiled.CompiledEval(model, Xv, yv)
+            t_eval = time.perf_counter() - t0
+            step = lambda: cs(sel)
+            epoch = lambda: T.run_epoch(model, opt, Xt, yt, ORCH_BATCH, shuffle, drop, cs)
+            evaluate = ce
+            capture = f"; capture: step {cs.capture_s:.3f} s, eval {t_eval:.3f} s"
+        step()
+        step_ms = statistics.median(host_ms_once(step) for _ in range(STEP_TIMED))
+        epoch()
+        epoch_ms = statistics.median(host_ms_once(epoch) for _ in range(TRAIN_TIMED))
+        eval_ms = statistics.median(host_ms_once(evaluate) for _ in range(STEP_TIMED))
+        evs = device_events_once(step)
+        step_dev = sum(us for _, us in evs) / 1e3
+        epoch_dev = sum(us for _, us in device_events_once(epoch)) / 1e3
+        idle = (f"{max(0.0, 1 - epoch_dev / epoch_ms):.1%}" if epoch_dev else "not measured")
+        out[name] = step_ms
+        print(f"[timing compiled train {family}] {name}: {step_ms:.3f} ms a step (median of "
+              f"{STEP_TIMED}), {epoch_ms:.2f} ms an epoch of {n_steps} steps (median of "
+              f"{TRAIN_TIMED}), synchronized host clock; one step on the device {step_dev:.3f} "
+              f"ms in {len(evs)} launches; one epoch on the device {epoch_dev:.2f} ms, idle "
+              f"{idle}; validation MSE {eval_ms:.3f} ms{capture} ({card})")
+    return out
+
+
+def compiled_train_phase(card, device):
+    """The compiled training step and validation MSE for the four model
+    families at their default widths (the GRU 7 -> 64 -> 64 -> 1) on run
+    A's client 1 data: :func:`trajectory_check`, :func:`train_timing`,
+    then :func:`dropout_replays_check`. The launch counts are reset
+    first: this path launches none of the port's hand-written kernels
+    (its float GEMMs are cuBLAS, its pointwise ops torch's)."""
+    import tempfile
+
+    import torch
+
+    from ppqsflhe_tpu_torch.fl import compiled as fl_compiled
+
+    t0 = time.perf_counter()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the trainer's matmuls must stay float32")
+    reset_counts()
+    fl_compiled.reset_replayed()
+    with tempfile.TemporaryDirectory() as tmp:
+        base = oconfig("oConfig.example.json", tmp, "A", rounds=1)["CLIENT_CONFIGS"][0]
+        base = dict(base, epochs=TRAIN_EPOCHS, patience=TRAIN_EPOCHS)
+        for family in TRAIN_FAMILIES:
+            ccfg = dict(base, model=family)
+            n_steps = trajectory_check(family, ccfg, SEED, device)
+            train_timing(family, ccfg, device, card, n_steps)
+        dropout_replays_check(base, device)
+    counts, replayed = read_counts(), dict(fl_compiled.replayed)
+    if any(counts.values()) or any(replayed.values()):
+        raise AssertionError(f"compiled train: the training path launched the port's kernels "
+                             f"{counts} / {replayed}")
+    print(f"[compiled train] kernel launches: none of the seven kernels (wrappers {counts}, "
+          f"replayed {replayed})")
+    print(f"[compiled train] phase 15: {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -3202,6 +3437,7 @@ def main() -> None:
         ("round N=2^16", world16.sch, world16, (4, 0),
          ("mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b", "base_extend",
           "ks_inner_product"))))
+    compiled_train_phase(card, device)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

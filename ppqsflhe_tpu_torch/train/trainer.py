@@ -3,20 +3,25 @@
 Twin of ``ppqsflhe_tpu.train.trainer`` (the reference's Keras fit pipeline,
 client/src/c_trainAndUpdate.py main():84-208):
 - warm start from the decrypted global weights JSON when present (:128-133);
-- Adam (``torch.optim.Adam`` with optax's defaults: betas (0.9, 0.999),
-  eps 1e-8), mse + l2(0.01) on the first kernel only, added to the loss
-  (Keras' kernel_regularizer, not weight decay); full batches of 32 in a
-  ``torch.randperm`` order; ≤100 epochs; early stopping on the validation
-  MSE with patience 4, restoring the best epoch's weights (:139-149);
+- Adam (:class:`.optim.OptaxAdam`, optax.adam's update: betas (0.9,
+  0.999), eps 1e-8), mse + l2(0.01) on the first kernel only, added to the
+  loss (Keras' kernel_regularizer, not weight decay); full batches of 32
+  in a ``torch.randperm`` order; ≤100 epochs; early stopping on the
+  validation MSE with patience 4, restoring the best epoch's weights
+  (:139-149);
 - weight export to the weights_summary JSON schema (:175-190);
 - MAE/RMSE/R2/PMAE metrics on train/val in float64 (:58-63,195-199);
 - ``.npz`` checkpoints tagged with the model family, and the loss-curve PNG
   when matplotlib imports (:153-166).
 
 The model runs in float32 on ``device`` (the card unless the caller names
-another); TF32 stays off. Randomness: the initializer draws from a CPU
-generator seeded with ``seed``, the shuffle from one seeded ``seed + 1``,
-dropout from one on ``device`` seeded ``seed + 2``.
+another); TF32 stays off. On the card, as the JAX trainer jits its step and
+validation MSE, :func:`train_client` runs both as CUDA graphs
+(:mod:`.compiled`: each captured once, replayed every step and epoch); on
+the CPU it runs the eager :func:`train_step` and :func:`eval_mse`, which
+stay the reference the graphs are held to. Randomness: the initializer
+draws from a CPU generator seeded with ``seed``, the shuffle from one
+seeded ``seed + 1``, dropout from one on ``device`` seeded ``seed + 2``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 
 from . import data as D
 from . import gru, lstm, mlp, transformer
+from .optim import OptaxAdam
 
 #: selectable model families (cfg key "model"); all share the generic
 #: weights_summary export (param_{idx} records) and the Keras weight layout.
@@ -50,6 +56,11 @@ class TrainResult:
     val_mse_init: float | None = None
     #: the decrypted-weights JSON this run started from (None: fresh init)
     warm_start: str | None = None
+    #: each epoch's batch MSEs, in step order
+    batch_mse: List[List[float]] | None = None
+    #: the optimizer after the last epoch: its parameters are the last
+    #: epoch's weights (``params`` are the best epoch's), its state the moments
+    optimizer: OptaxAdam | None = None
 
 
 def calc_metrics(y_true, y_pred, y_mean) -> Dict[str, float]:
@@ -70,10 +81,10 @@ def loss_fn(model, x, y, train: bool, generator=None, l2: float = 0.01):
     return mse + reg, mse
 
 
-def make_optimizer(model, lr: float = 1e-3) -> torch.optim.Adam:
+def make_optimizer(model, lr: float = 1e-3) -> OptaxAdam:
     """optax.adam(lr)'s update: betas (0.9, 0.999), eps 1e-8 outside the
     square root, bias-corrected moments."""
-    return torch.optim.Adam(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    return OptaxAdam(model.parameters(), lr=lr, b1=0.9, b2=0.999, eps=1e-8)
 
 
 def train_step(model, opt, x, y, generator) -> torch.Tensor:
@@ -86,22 +97,32 @@ def train_step(model, opt, x, y, generator) -> torch.Tensor:
     return mse.detach()
 
 
-def run_epoch(model, opt, X, y, batch: int, shuffle_gen, drop_gen) -> List[torch.Tensor]:
+def run_epoch(model, opt, X, y, batch: int, shuffle_gen, drop_gen,
+              step=None) -> List[torch.Tensor]:
     """One epoch of full batches in a fresh random order; the partial last
-    batch is skipped. Returns the batch MSEs (device tensors)."""
+    batch is skipped. Returns the batch MSEs (device tensors). ``step``, a
+    :class:`.compiled.CompiledStep` over the same model, optimizer, data
+    and generator, takes each batch's indices in place of
+    :func:`train_step`."""
     order = torch.randperm(len(X), generator=shuffle_gen).to(X.device)
     losses = []
     for b in range(max(1, len(X) // batch)):
         sel = order[b * batch : (b + 1) * batch]
         if len(sel) < batch:
             continue
-        losses.append(train_step(model, opt, X[sel], y[sel], drop_gen))
+        losses.append(train_step(model, opt, X[sel], y[sel], drop_gen) if step is None
+                      else step(sel))
     return losses
 
 
 @torch.no_grad()
+def val_mse(model, X, y) -> torch.Tensor:
+    """The model's MSE on (X, y), no dropout, on the device."""
+    return torch.mean((model(X) - y) ** 2)
+
+
 def eval_mse(model, X, y) -> float:
-    return float(torch.mean((model(X) - y) ** 2))
+    return float(val_mse(model, X, y))
 
 
 @torch.no_grad()
@@ -174,15 +195,24 @@ def train_client(cfg: Dict, seed: int = 0, verbose: bool = True, device="cuda") 
     patience = int(cfg.get("patience", 4))
     shuffle_gen = torch.Generator().manual_seed(seed + 1)
     drop_gen = torch.Generator(device=device).manual_seed(seed + 2)
-    val_mse_init = eval_mse(model, Xv, yv) if len(X_val) else None
+    step, evaluate = None, (lambda: eval_mse(model, Xv, yv))
+    if Xt.is_cuda:
+        from .compiled import CompiledEval, CompiledStep
+
+        step = CompiledStep(model, opt, Xt, yt, batch, drop_gen)
+        if len(X_val):
+            evaluate = CompiledEval(model, Xv, yv)
+    val_mse_init = evaluate() if len(X_val) else None
 
     history = {"loss": [], "val_loss": []}
+    batch_mse = []
     best_val, best_epoch = np.inf, -1
     best_params = [p.detach().clone() for p in model.parameters()]
     for epoch in range(epochs):
-        losses = run_epoch(model, opt, Xt, yt, batch, shuffle_gen, drop_gen)
+        losses = run_epoch(model, opt, Xt, yt, batch, shuffle_gen, drop_gen, step)
         ep_losses = [float(v) for v in torch.stack(losses).cpu()] if losses else []
-        vl = eval_mse(model, Xv, yv) if len(X_val) else float(np.mean(ep_losses))
+        batch_mse.append(ep_losses)
+        vl = evaluate() if len(X_val) else float(np.mean(ep_losses))
         history["loss"].append(float(np.mean(ep_losses)))
         history["val_loss"].append(vl)
         if vl < best_val - 1e-12:
@@ -219,7 +249,8 @@ def train_client(cfg: Dict, seed: int = 0, verbose: bool = True, device="cuda") 
         _plot_loss(history, client_id, os.path.join(log_dir, f"{client_id}_loss_curve_{ts_tag}.png"))
     return TrainResult(params=params, history=history, metrics=metrics,
                        weights_path=weights_path, best_epoch=best_epoch,
-                       val_mse_init=val_mse_init, warm_start=warm_start)
+                       val_mse_init=val_mse_init, warm_start=warm_start,
+                       batch_mse=batch_mse, optimizer=opt)
 
 
 def _save_ckpt(params, path: str, model: str = "gru") -> None:

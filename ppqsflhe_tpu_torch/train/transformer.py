@@ -9,6 +9,7 @@ the plain matmul and softmax of the JAX ``_mha``.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import List
 
 import numpy as np
@@ -50,7 +51,11 @@ def init_params(gen: torch.Generator, n_features: int, hidden: int = HIDDEN,
     return params
 
 
-def _positions(t: int, d: int, device) -> torch.Tensor:
+@lru_cache(maxsize=None)
+def _positions(t: int, d: int, device: torch.device) -> torch.Tensor:
+    """The (t, d) sinusoidal table, uploaded once per device and kept: a
+    step on the card must not copy from the host (a CUDA graph reads the
+    table by address)."""
     pos = np.arange(t)[:, None]
     i = np.arange(d // 2)[None, :]
     ang = pos / np.power(10000.0, 2 * i / d)

@@ -70,6 +70,8 @@ MODULES = [
     "ppqsflhe_tpu_torch.train.mlp",
     "ppqsflhe_tpu_torch.train.transformer",
     "ppqsflhe_tpu_torch.train.trainer",
+    "ppqsflhe_tpu_torch.train.optim",
+    "ppqsflhe_tpu_torch.train.compiled",
     "ppqsflhe_tpu_torch.train.evaluate",
     "ppqsflhe_tpu_torch.orchestration",
     "ppqsflhe_tpu_torch.orchestration.orchestrator",
