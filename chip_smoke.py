@@ -128,8 +128,9 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   to ``SCALING_MODEL.json``'s D = 1 row. The phase prints its seconds;
 - **the compiled server round** (phase 14, ``fl/compiled.py``): the round
   captured once as a CUDA graph (``CompiledRound``) for the N=2^14 round in
-  all five schedules, the butterfly configuration and the N=2^16 round
-  at lazy-4 and full level, on the earlier phases' worlds; each case 20
+  all five schedules, the same round on the radix-2 order (plain-torch
+  NTTs, a world of its own), the butterfly configuration and the N=2^16
+  round at lazy-4 and full level, on the earlier phases' worlds; each case 20
   chained replays (each rewriting one residue of client 1's stack from
   the previous replay's checksum, its outputs poisoned before it) held
   with ``torch.equal`` to the eager round on the same inputs, the first
@@ -151,7 +152,31 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   CUDA-only profile each), capture seconds; last, the GRU at lr = 0 on
   one batch: each replay's dropout mask differs from the last and equals
   the eager step's from the same generator state. The path launches none
-  of the seven kernels. The phase prints its seconds.
+  of the seven kernels. The phase prints its seconds;
+- **the compiled scheme** (phase 16, ``CkksScheme``'s per-op CUDA graphs,
+  the counterpart of the JAX scheme's ``_jit``): on phase 2's N=2^15
+  world, every cached operation (add, sub, add_plain, mult_plain,
+  mult_scalar, mult, rescale, rotate by 1 and 2, conjugate, INDCPA
+  re_encrypt, decrypt) called WARMUP + 3 times on fresh inputs, each
+  result ``torch.equal`` to the eager body on the same inputs; an
+  interleaving of twelve cached calls whose results are all held at the
+  end (no replay may change an earlier result); the inner product through
+  the cached ops within 1e-3 of np.dot; µs per operation eager -> cached.
+  Then the rotation bench's three units captured whole
+  (``bench.rotations.CompiledUnit``) and phase 7's multikey round in both
+  schedules (``bench.multikey.CompiledMultikeyRound``), each
+  ``torch.equal`` to its eager counterpart (the round decrypting within
+  1e-3), eager -> compiled µs per rotation and ms per round with device
+  time, idle and capture seconds; the replays' kernel launches, the keys
+  cached and the reserved device memory's growth. The phase prints its
+  seconds and the script's.
+
+The scheme's operations cache a CUDA graph per operation and shape on the
+card (``ckks/scheme.py``), so a phase's eager timings run inside
+``utils.graphs.eager()`` (:func:`eager_ops`), which phases 1, 2, 4, 5, 13
+and 14 measured before the cache existed; the main paths run as a user
+calls them, through the cache. The launch counts a phase reads are the
+wrappers' plus the launches that graph replays ran (:func:`read_counts`).
 
 For each path:
 
@@ -209,6 +234,7 @@ round of each schedule and one hoisted rotation pass.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -416,10 +442,24 @@ def _module(name):
 def reset_counts() -> None:
     for mod, attr, _ in COUNTERS.values():
         setattr(_module(mod), attr, 0)
+    _module("utils.graphs").reset_replayed()
 
 
 def read_counts() -> dict:
-    return {k: getattr(_module(mod), attr) for k, (mod, attr, _) in COUNTERS.items()}
+    """Each kernel's launches since :func:`reset_counts`: those its wrapper
+    enqueued plus those that CUDA-graph replays ran (``utils.graphs.replayed``:
+    the scheme's per-op graphs replay their captured launches, and a capture
+    launches nothing)."""
+    replayed = _module("utils.graphs").replayed
+    return {k: getattr(_module(mod), attr) + replayed.get(k, 0)
+            for k, (mod, attr, _) in COUNTERS.items()}
+
+
+def eager_ops():
+    """The scheme's operations run eagerly inside (no per-op CUDA graph is
+    warmed, captured or replayed): the phases' timings of eager paths keep
+    measuring them; phase 16 measures the per-op graphs."""
+    return _module("utils.graphs").eager()
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2):
@@ -671,10 +711,11 @@ def max_err(sch, sk, cts, want):
     return err
 
 
-def round_world(n, device, slots=0):
+def round_world(n, device, slots=0, backend="fourstep"):
     """Seeded keys, rekeys (Montgomery form) and 2 × N_CTS encryptions of
     uniform(-1, 1) payloads for the server round on the
-    ``CkksParams.generate(n, mult_depth=2, scale_bits=40, dnum=2)`` chain."""
+    ``CkksParams.generate(n, mult_depth=2, scale_bits=40, dnum=2)`` chain in
+    the ``backend``'s evaluation order."""
     import types
 
     import numpy as np
@@ -685,7 +726,8 @@ def round_world(n, device, slots=0):
     from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
 
     t0 = time.perf_counter()
-    params = CkksParams.generate(n=n, mult_depth=2, scale_bits=40, dnum=2, slots=slots)
+    params = CkksParams.generate(n=n, mult_depth=2, scale_bits=40, dnum=2, slots=slots,
+                                 ntt_backend=backend)
     sch = CkksScheme(params, device=device)
     t_ctx = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(SEED)
@@ -702,7 +744,7 @@ def round_world(n, device, slots=0):
     torch.cuda.synchronize()
     print(f"[setup] N={n}, Q={[q.bit_length() for q in params.q_moduli]} bits, "
           f"P={[p.bit_length() for p in params.p_moduli]} bits, dnum={params.dnum}, "
-          f"{slots} slots; context {t_ctx:.1f} s, then keys, rekeys and 2x{N_CTS} "
+          f"{slots} slots, {backend}; context {t_ctx:.1f} s, then keys, rekeys and 2x{N_CTS} "
           f"encryptions in {time.perf_counter() - t0 - t_ctx:.1f} s")
     return types.SimpleNamespace(sch=sch, gen=gen, sk1=sk1, sk2=sk2, rk12=rk12, rk21=rk21,
                                  ct1=ct1, ct2=ct2, want=(np.array(v1) + np.array(v2)) / 2)
@@ -764,18 +806,21 @@ def host_ms(fn):
 
 def time_round(tag, sch, w, card, profile_on):
     """ms/round per schedule (median of per-round CUDA-event times), the
-    host's enqueue time, and the device time by kernel of one round."""
+    host's enqueue time, and the device time by kernel of one round; the
+    scheme's operations eagerly (:func:`eager_ops`)."""
     from ppqsflhe_tpu_torch.fl.api import server_round
 
     for lazy in (4, 0):
         run = lambda: server_round(sch, w.ct1, w.ct2, w.rk12, w.rk21, lazy)
-        times = median_ms(run, 3)
-        print(f"[timing {tag} lazy={lazy}] server round {statistics.median(times):.3f} ms/round "
-              f"(median of {len(times)}, min {min(times):.3f}, max {max(times):.3f}; host "
-              f"enqueue {host_ms(run):.3f} ms; 2x{N_CTS} ciphertexts, N={sch.params.n}; {card})")
-        busy_line(f"{tag} lazy={lazy}", run, statistics.median(times))
-        if profile_on:
-            profile_table(f"{tag} lazy={lazy}", run)
+        with eager_ops():
+            times = median_ms(run, 3)
+            print(f"[timing {tag} lazy={lazy}] server round {statistics.median(times):.3f} "
+                  f"ms/round (median of {len(times)}, min {min(times):.3f}, max "
+                  f"{max(times):.3f}; host enqueue {host_ms(run):.3f} ms; 2x{N_CTS} "
+                  f"ciphertexts, N={sch.params.n}; {card})")
+            busy_line(f"{tag} lazy={lazy}", run, statistics.median(times))
+            if profile_on:
+                profile_table(f"{tag} lazy={lazy}", run)
 
 
 def round_phase(card, device, profile_on):
@@ -973,13 +1018,16 @@ def rotation_kernel_checks(cases, sch, rot_keys, gen, device):
 
 def rotation_phase(card, device, profile_on):
     """Rotations at N=2^15: set-up, kernel checks, main path, decrypt,
-    timing. Returns the kernels' JSON rows."""
+    timing (eagerly). Returns the kernels' JSON rows and the phase's world
+    (phase 16 runs the scheme's per-op graphs on it)."""
     import numpy as np
     import torch
 
     from ppqsflhe_tpu_torch.ckks import eval as ev
     from ppqsflhe_tpu_torch.ckks.params import CkksParams
     from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
+
+    import types
 
     t0 = time.perf_counter()
     params = CkksParams.generate(n=N_ROT, mult_depth=2, scale_bits=40, dnum=2)
@@ -1037,17 +1085,21 @@ def rotation_phase(card, device, profile_on):
 
     us = {}
     for name, fn in (("plain", plain), ("hoisted", hoisted), ("rot_sum", rot_sum)):
-        times = median_ms(fn, 3)
-        us[name] = statistics.median(times) * 1e3 / len(ROTS)
-        print(f"[timing rotations] {name}: {us[name]:.1f} us/rotation (median of {len(times)} "
-              f"passes of R={len(ROTS)}, min {min(times) * 1e3 / len(ROTS):.1f}, max "
-              f"{max(times) * 1e3 / len(ROTS):.1f}; N={N_ROT}; {card})")
-        busy_line(f"rotations {name}", fn, statistics.median(times))
+        with eager_ops():
+            times = median_ms(fn, 3)
+            us[name] = statistics.median(times) * 1e3 / len(ROTS)
+            print(f"[timing rotations] {name}: {us[name]:.1f} us/rotation (median of "
+                  f"{len(times)} passes of R={len(ROTS)}, min "
+                  f"{min(times) * 1e3 / len(ROTS):.1f}, max {max(times) * 1e3 / len(ROTS):.1f}; "
+                  f"N={N_ROT}; eager; {card})")
+            busy_line(f"rotations {name}", fn, statistics.median(times))
     print(f"[timing rotations] hoisting speed-up {us['plain'] / us['hoisted']:.2f}x, "
           f"rotation sum speed-up {us['plain'] / us['rot_sum']:.2f}x over plain rotations")
     if profile_on:
         profile_table("rotations hoisted", hoisted)
-    return cases.take_launches(launches)
+    world = types.SimpleNamespace(sch=sch, sk=sk, pk=pk, gen=gen, rot_keys=rot_keys, relin=relin,
+                                  ct=ct, v=v, cu1=cu1, cu2=cu2, u1=u1, u2=u2)
+    return cases.take_launches(launches), world
 
 
 # ---------------------------------------------------------------------------
@@ -1399,7 +1451,9 @@ def butterfly_phase(card, device, w, default_outs, profile_on):
         turns = []
         for name, s in (("default", w.sch), ("butterfly", sch), ("butterfly", sch),
                         ("default", w.sch)):
-            times = median_ms(lambda: server_round(s, w.ct1, w.ct2, w.rk12, w.rk21, lazy), 3)
+            with eager_ops():
+                times = median_ms(lambda: server_round(s, w.ct1, w.ct2, w.rk12, w.rk21, lazy),
+                                  3)
             turns.append(f"{name} {statistics.median(times):.3f}")
         print(f"[A/B round lazy={lazy}] ms/round in turns: {', '.join(turns)} ({card})")
     return cases.take_launches(launches), sch
@@ -1685,9 +1739,12 @@ def multikey_phase(card, device):
     with fresh launch counters (decrypt gates: the whole average under the
     hub's key, the outbound ciphertexts of clients 0 and 14 under theirs),
     then ms per round, rounds/s and the device's busy share. Returns the
-    kernels' rows."""
+    kernels' rows and the phase's world (phase 16 compiles the round on
+    it)."""
     import numpy as np
     import torch
+
+    import types
 
     from ppqsflhe_tpu_torch.bench import multikey as mk
     from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
@@ -1742,7 +1799,8 @@ def multikey_phase(card, device):
         idle = "not measured" if m["idle_share"] is None else f"{m['idle_share']:.1%}"
         print(f"[busy multikey lazy={lazy}] device {dev} per round ({parts}); host enqueue "
               f"{m['enqueue_ms']:.3f} ms; idle share {idle} of {m['ms']:.3f} ms ({card})")
-    return cases.take_launches(launches)
+    del staged
+    return cases.take_launches(launches), types.SimpleNamespace(sch=sch, w=w, vecs=vecs)
 
 
 # ---------------------------------------------------------------------------
@@ -3061,7 +3119,8 @@ def small_rings_phase(card, device):
                 raise AssertionError(f"the N={n} round lazy={lazy} on the card differs from the "
                                      f"same round run on the CPU")
             run = lambda: server_round(w.sch, w.ct1, w.ct2, w.rk12, w.rk21, lazy)
-            times = median_ms(run, 3)
+            with eager_ops():
+                times = median_ms(run, 3)
             print(f"[timing small round N=2^{n.bit_length() - 1} lazy={lazy}] bit-equal to the "
                   f"CPU run; {statistics.median(times):.3f} ms/round (median of {len(times)}; "
                   f"2x{N_CTS} ciphertexts) ({card})")
@@ -3109,7 +3168,8 @@ def compiled_case(tag, sch, w, lazy, need, card):
             flat[0] = (base >> 1) + (carry & 1)
         for t in (cr.avg.data, cr.back.data):
             t.fill_(-1)
-        eager = server_round(sch, Ciphertext(x1, w.ct1.scale), w.ct2, w.rk12, w.rk21, lazy)
+        with eager_ops():
+            eager = server_round(sch, Ciphertext(x1, w.ct1.scale), w.ct2, w.rk12, w.rk21, lazy)
         got = cr(Ciphertext(x1, w.ct1.scale), w.ct2)
         if not all(torch.equal(a.data, b.data) and a.scale == b.scale
                    for a, b in zip(got, eager)):
@@ -3135,12 +3195,14 @@ def compiled_case(tag, sch, w, lazy, need, card):
     runs = (("eager", lambda: server_round(sch, w.ct1, w.ct2, w.rk12, w.rk21, lazy)),
             ("compiled", cr.replay))
     for name, run in runs:
-        wall = statistics.median(median_ms(run, 3))
-        dev = sum(us for _, us in device_events_once(run)) / 1e3
+        with eager_ops():
+            wall = statistics.median(median_ms(run, 3))
+            dev = sum(us for _, us in device_events_once(run)) / 1e3
+            enqueue = host_ms(run)
         dev_s, idle = (("not measured (no device activity in the profile)", "not measured")
                        if not dev else (f"{dev:.3f} ms", f"{max(0.0, 1 - dev / wall):.1%}"))
         print(f"[timing compiled {tag} lazy={lazy}] {name}: wall {wall:.3f} ms/round (median of "
-              f"{ROUNDS}), host enqueue {host_ms(run):.3f} ms, device {dev_s}, idle {idle} "
+              f"{ROUNDS}), host enqueue {enqueue:.3f} ms, device {dev_s}, idle {idle} "
               f"({card})")
     return cr.launches
 
@@ -3150,7 +3212,8 @@ def compiled_phase(card, device, rounds):
     kernels) of ``rounds``, :func:`compiled_case` per schedule. The launch
     counts are reset first; the kernels of each round must have launched
     in its replays (``fl.compiled.replayed``: a replay runs the captured
-    launches, which the wrappers counted once, at the capture)."""
+    launches; a capture launches nothing, so the wrappers do not count
+    them)."""
     from ppqsflhe_tpu_torch.fl import compiled
 
     t0 = time.perf_counter()
@@ -3164,10 +3227,10 @@ def compiled_phase(card, device, rounds):
         missing = [k for k in need if not ran[k]]
         if missing:
             raise AssertionError(f"compiled {tag}: replays never launched {missing}")
-    wrappers = read_counts()
+    wrappers = compiled.wrapper_counts()
     print(f"[compiled] kernel launches: replayed "
           f"{ {k: v for k, v in compiled.replayed.items() if v} }; by the wrappers (warm-up, "
-          f"capture, eager references) { {k: v for k, v in wrappers.items() if v} }")
+          f"eager references) { {k: v for k, v in wrappers.items() if v} }")
     print(f"[compiled] phase 14: {time.perf_counter() - t0:.1f} s ({card})")
 
 
@@ -3390,6 +3453,240 @@ def compiled_train_phase(card, device):
     print(f"[compiled train] phase 15: {time.perf_counter() - t0:.1f} s ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Path 16: the compiled scheme (per-op CUDA graphs), the rotation units and
+# the multikey round as CUDA graphs
+# ---------------------------------------------------------------------------
+
+SCHEME_SCALAR = 0.37     # the mult_scalar constant of phase 16
+# phase 16's interleaving of cached operations, each result kept and held to
+# its eager reference only at the end (a later replay must change none)
+INTERLEAVE = ("rotate 1", "mult", "rotate 2", "re_encrypt", "rotate 1", "add", "conjugate",
+              "rotate 2", "mult_scalar", "rotate 1", "sub", "decrypt")
+
+
+def scheme_ops(rw, conj, rekey):
+    """Each cached operation of phase 2's scheme as (the scheme's call, its
+    eager body through ``ckks.eval`` / ``ckks.rlwe``), both on (a, b, pt)."""
+    from ppqsflhe_tpu_torch.ckks import eval as ev
+    from ppqsflhe_tpu_torch.ckks import rlwe
+
+    sch, ctx, keys, relin = rw.sch, rw.sch.ctx, rw.rot_keys, rw.relin
+    c = SCHEME_SCALAR
+    return {
+        "add": (lambda a, b, p: sch.add(a, b), lambda a, b, p: ev.add(ctx, a, b)),
+        "sub": (lambda a, b, p: sch.sub(a, b), lambda a, b, p: ev.sub(ctx, a, b)),
+        "add_plain": (lambda a, b, p: sch.add_plain(a, p),
+                      lambda a, b, p: ev.add_plain(ctx, a, p)),
+        "mult_plain": (lambda a, b, p: sch.mult_plain(a, p),
+                       lambda a, b, p: ev.rescale(ctx, ev.mult_plain(ctx, a, p))),
+        "mult_scalar": (lambda a, b, p: sch.mult_scalar(a, c),
+                        lambda a, b, p: ev.mult_scalar(ctx, a, c)),
+        "mult": (lambda a, b, p: sch.mult(a, b, relin), lambda a, b, p: ev.mult(ctx, a, b, relin)),
+        "rescale": (lambda a, b, p: sch.rescale(a), lambda a, b, p: ev.rescale(ctx, a)),
+        "rotate 1": (lambda a, b, p: sch.rotate(a, 1, keys),
+                     lambda a, b, p: ev.rotate(ctx, a, 1, keys[1])),
+        "rotate 2": (lambda a, b, p: sch.rotate(a, 2, keys),
+                     lambda a, b, p: ev.rotate(ctx, a, 2, keys[2])),
+        "conjugate": (lambda a, b, p: sch.conjugate(a, conj),
+                      lambda a, b, p: ev.conjugate(ctx, a, conj)),
+        "re_encrypt": (lambda a, b, p: sch.re_encrypt(a, rekey),
+                       lambda a, b, p: ev.re_encrypt(ctx, a, rekey)),
+        "decrypt": (lambda a, b, p: sch.decrypt(rw.sk, a),
+                    lambda a, b, p: rlwe.decrypt(ctx, rw.sk, a, sch.encoder)),
+    }
+
+
+def same_result(x, y) -> bool:
+    """Ciphertexts: ``torch.equal`` residues and equal scales; decrypted
+    slots: equal arrays."""
+    import numpy as np
+    import torch
+
+    if isinstance(x, np.ndarray):
+        return np.array_equal(x, y)
+    return torch.equal(x.data, y.data) and x.scale == y.scale
+
+
+def timed_pair(fn, eager_fn, per=1):
+    """(wall ms, device ms, idle) of ``eager_fn`` under :func:`eager_ops` and
+    of ``fn``: median of ROUNDS CUDA-event times after 3 warm-up calls, the
+    device time from one CUDA-only profile; each divided by ``per``."""
+    out = []
+    for f, scope in ((eager_fn, eager_ops), (fn, contextlib.nullcontext)):
+        with scope():
+            wall = statistics.median(median_ms(f, 3))
+            dev = sum(us for _, us in device_events_once(f)) / 1e3
+        out.append((wall / per, dev / per if dev else None,
+                    max(0.0, 1 - dev / wall) if dev else None))
+    return out
+
+
+def show_pair(pair, names=("eager", "cached")):
+    """:func:`timed_pair`'s numbers in µs."""
+    return ", ".join(
+        f"{name} {w * 1e3:.1f} us (device "
+        + ("not measured" if d is None else f"{d * 1e3:.1f} us")
+        + ", idle " + ("not measured" if i is None else f"{i:.1%}") + ")"
+        for name, (w, d, i) in zip(names, pair))
+
+
+def compiled_scheme_phase(card, device, rw, mw, t_script):
+    """The compiled scheme on phase 2's N=2^15 world ``rw``: every cached
+    operation called WARMUP + 3 times on fresh uniform residues, each
+    result ``torch.equal`` to the eager body on the same inputs (every
+    key then holds one graph); one interleaving of cached operations, all
+    results held at the end; the inner product (its cached mult, rotations
+    and adds) within 1e-3 of np.dot, WARMUP + 1 times; µs per operation
+    eager -> cached. Then the rotation bench's units captured whole
+    (``bench.rotations.CompiledUnit``) ``torch.equal`` to the eager units,
+    µs per rotation; then phase 7's multikey world ``mw`` as
+    ``bench.multikey.CompiledMultikeyRound`` in both schedules,
+    ``torch.equal`` to the eager round and decrypting within 1e-3, ms per
+    round eager -> compiled. Last, the replays' kernel launches, the graphs
+    cached, the growth of the reserved device memory and the seconds."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.bench import multikey as mk
+    from ppqsflhe_tpu_torch.bench import rotations
+    from ppqsflhe_tpu_torch.ckks import eval as ev
+    from ppqsflhe_tpu_torch.ckks import scheme as scheme_mod
+    from ppqsflhe_tpu_torch.ckks.types import Ciphertext, Plaintext
+    from ppqsflhe_tpu_torch.utils import graphs
+
+    def reserved():
+        """Reserved device memory once the allocator's free blocks are
+        released (a capture releases them too)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(device)
+
+    t0 = time.perf_counter()
+    reserved0 = reserved()
+    torch.cuda.reset_peak_memory_stats(device)
+    reset_counts()
+    sch, ctx = rw.sch, rw.sch.ctx
+    gen = torch.Generator().manual_seed(SEED + 16)
+    conj = ev.ksk_to_mont(ctx, sch.conjugation_key_gen(rw.sk, gen))
+    _, pk2 = sch.keygen(gen)
+    rekey = ev.ksk_to_mont(ctx, sch.rekey_gen(rw.sk, pk2, gen))
+    ops = scheme_ops(rw, conj, rekey)
+    moduli = ctx.moduli_qp[: sch.params.num_q]
+    scale = rw.ct.scale
+
+    def fresh():
+        a, b = (Ciphertext(rand_residues(moduli, (2,), N_ROT, gen, device), scale)
+                for _ in range(2))
+        return a, b, Plaintext(rand_residues(moduli, (), N_ROT, gen, device), scale)
+
+    graphs_before = {k for k, op in sch._graphs.items() if op.graph is not None}
+    calls = scheme_mod.WARMUP + 3
+    for name, (cached, eager) in ops.items():
+        for i in range(calls):
+            args = fresh()
+            if not same_result(cached(*args), eager(*args)):
+                raise AssertionError(f"compiled scheme: {name}, call {i + 1} of {calls}, "
+                                     f"differs from the eager operation")
+    captured = {k for k, op in sch._graphs.items() if op.graph is not None}
+    print(f"[compiled scheme] {len(ops)} cached operations x {calls} calls on fresh inputs "
+          f"(N=2^15, {scheme_mod.WARMUP} eager warm-ups a key, then the capture and replays), "
+          f"each torch.equal to its eager body; {len(captured)} keys captured "
+          f"({len(captured - graphs_before)} in this phase), "
+          f"{len(sch._graphs)} keys cached on the scheme ({card})")
+    kept = []
+    for name in INTERLEAVE:
+        args = fresh()
+        kept.append((name, ops[name][0](*args), ops[name][1](*args)))
+    bad = [i for i, (_, got, want) in enumerate(kept) if not same_result(got, want)]
+    if bad:
+        raise AssertionError(f"compiled scheme: interleaved results {bad} "
+                             f"({[kept[i][0] for i in bad]}) changed or differ")
+    print(f"[compiled scheme] interleaving of {len(INTERLEAVE)} cached operations "
+          f"({', '.join(INTERLEAVE)}), every result kept and held at the end: all "
+          f"torch.equal to the eager ones")
+    ips = []
+    for _ in range(scheme_mod.WARMUP + 1):
+        ips.append(sch.inner_product(rw.cu1, rw.cu2, rw.relin, rw.rot_keys))
+    err_ip = max(float(np.abs(sch.decrypt(rw.sk, ip) - np.dot(rw.u1, rw.u2)).max())
+                 for ip in ips)
+    if not (np.isfinite(err_ip) and err_ip < ERR_GATE
+            and all(same_result(ip, ips[0]) for ip in ips)):
+        raise AssertionError(f"compiled scheme: inner product err {err_ip} or its calls differ")
+    print(f"[compiled scheme] inner product of {sch.encoder.slots} slots through the cached "
+          f"mult, rotations and adds, {len(ips)} calls: err {err_ip:.3e} (gate {ERR_GATE}), "
+          f"the calls equal")
+    for name, (cached, eager) in ops.items():
+        args = fresh()
+        pair = timed_pair(lambda: cached(*args), lambda: eager(*args))
+        print(f"[timing compiled scheme] {name}: {show_pair(pair)}; eager/cached "
+              f"{pair[0][0] / pair[1][0]:.2f}x (N=2^15; {card})")
+    reserved_ops = reserved()
+
+    for name in ("plain", "hoisted", "rot_sum"):
+        eager = rotations.units(sch, rw.ct, rw.rot_keys, ROTS)[name]
+        cu = rotations.CompiledUnit(sch, name, rw.ct, rw.rot_keys, ROTS)
+        if not all(same_result(a, b) for a, b in zip(cu.replay(), eager())):
+            raise AssertionError(f"compiled rotations {name}: differs from the eager unit")
+        pair = timed_pair(lambda: [o.data for o in cu.replay()], eager, per=len(ROTS))
+        print(f"[timing compiled rotations] {name}: torch.equal to the eager unit; per rotation "
+              f"(R={len(ROTS)}) {show_pair(pair, ('eager', 'compiled'))}; "
+              f"eager/compiled {pair[0][0] / pair[1][0]:.2f}x; capture {cu.capture_s:.3f} s "
+              f"(N=2^15; {card})")
+        del cu
+
+    msch, w = mw.sch, mw.w
+    mk_graph = {}
+    for lazy in (4, 0):
+        staged = mk.stage(w.stacks, mk.inbound_level(msch, lazy))
+        eager = mk.server_round(msch, staged, w.rk_to, w.rk_from, lazy)
+        before = reserved()
+        cr = mk.CompiledMultikeyRound(msch, w.rk_to, w.rk_from, lazy, staged.data.shape,
+                                      staged.scale)
+        mk_graph[lazy] = reserved() - before
+        got = cr(staged)
+        if not all(same_result(a, b) for a, b in zip(got, eager)):
+            raise AssertionError(f"compiled multikey lazy={lazy}: differs from the eager round")
+        errs = mk.check(msch, w, mw.vecs, *got)
+        if not all(np.isfinite(e) and e < ERR_GATE for e in errs.values()):
+            raise AssertionError(f"compiled multikey lazy={lazy}: decrypt error {errs}")
+        del eager, got
+        e, c = mk.measure(msch, staged, w.rk_to, w.rk_from, lazy), mk.measure_replays(cr)
+        print(f"[compiled multikey lazy={lazy}] torch.equal to the eager round; decrypt max err "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (gate {ERR_GATE}); {sum(cr.launches.values())} kernel launches a replay; "
+              f"capture {cr.capture_s:.2f} s (2 warm-up rounds included)")
+        for name, m in (("eager", e), ("compiled", c)):
+            dev = "not measured" if m["device_ms"] is None else f"{m['device_ms']:.3f} ms"
+            idle = "not measured" if m["idle_share"] is None else f"{m['idle_share']:.1%}"
+            print(f"[timing compiled multikey lazy={lazy}] {name}: {m['ms']:.3f} ms/round, "
+                  f"{m['rounds_per_sec']:.3f} rounds/s ((t3 - t1)/2), device {dev}, host "
+                  f"enqueue {m['enqueue_ms']:.3f} ms, idle {idle} ({MK_CLIENTS} clients x "
+                  f"{staged.data.shape[1]} ciphertexts, N=2^14; {card})")
+        del cr, staged
+    torch.cuda.synchronize()
+    replayed = {k: v for k, v in graphs.replayed.items() if v}
+    missing = [k for k in ("mxu_ntt", "streamed_stage_a", "streamed_stage_b", "base_extend",
+                           "ks_inner_product") if not replayed.get(k)]
+    if missing:
+        raise AssertionError(f"compiled scheme: replays never launched {missing}")
+    mib = lambda b: b / 2**20
+    print(f"[compiled scheme] kernel launches by replays: {replayed}; by the wrappers (warm-ups, "
+          f"eager references) { {k: v for k, v in graphs.wrapper_counts().items() if v} }")
+    n_captured = sum(op.graph is not None for op in sch._graphs.values())
+    print(f"[memory compiled scheme] {len(sch._graphs)} keys cached on the N=2^15 scheme, "
+          f"{n_captured} of them captured; reserved device memory (free blocks released "
+          f"before each read): {mib(reserved0):.1f} MiB at the phase's start, "
+          f"{mib(reserved_ops):.1f} MiB after the cached operations (+"
+          f"{mib(reserved_ops - reserved0):.1f}); a multikey round's graph, its static stacks "
+          f"included: lazy-4 +{mib(mk_graph[4]):.1f} MiB, full +{mib(mk_graph[0]):.1f} MiB; "
+          f"{mib(reserved()):.1f} MiB at the end, peak "
+          f"{mib(torch.cuda.max_memory_reserved(device)):.1f} MiB ({card})")
+    now = time.perf_counter()
+    print(f"[compiled scheme] phase 16: {now - t0:.1f} s; the script so far "
+          f"{now - t_script:.1f} s ({card})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -3401,6 +3698,7 @@ def main() -> None:
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — needs a CUDA GPU")
     from ppqsflhe_tpu_torch.ops import cuda_lib
 
+    t_script = time.perf_counter()
     device = torch.device("cuda", 0)
     card = sh(["nvidia-smi", "--query-gpu=name,power.limit",
                "--format=csv,noheader"]).splitlines()[0]
@@ -3415,14 +3713,16 @@ def main() -> None:
           f"(load {time.perf_counter() - t0:.1f} s) -> {cuda_lib.build()}")
 
     kernels, world, outs = round_phase(card, device, args.profile)
-    kernels += rotation_phase(card, device, args.profile)
+    rows, rot_world = rotation_phase(card, device, args.profile)
+    kernels += rows
     kernels += ntt_phase(card, device)
     rows, world16 = round16_phase(card, device, args.profile)
     kernels += rows
     rows, butterfly = butterfly_phase(card, device, world, outs, args.profile)
     kernels += rows
     kernels += files_phase(card, device, args.profile)
-    kernels += multikey_phase(card, device)
+    rows, mk_world = multikey_phase(card, device)
+    kernels += rows
     kernels += threshold_phase(card, device)
     kernels += probe_phase(card, device)
     kernels += orchestrated_phase(card, device)
@@ -3430,14 +3730,18 @@ def main() -> None:
     kernels += sharded_phase(card, device, world, outs)
     kernels += small_rings_phase(card, device)
     mxu_need = ("mxu_ntt", "base_extend", "ks_inner_product")
+    radix2 = round_world(N_ROUND, device, backend="radix2")
     compiled_phase(card, device, (
         ("round", world.sch, world, (4, 0, 1, 2, 3), mxu_need),
+        ("radix-2 round", radix2.sch, radix2, (4, 0), ("base_extend", "ks_inner_product")),
         ("butterfly round", butterfly, world, (4, 0),
          ("fourstep_ntt", "base_extend", "ks_inner_product")),
         ("round N=2^16", world16.sch, world16, (4, 0),
          ("mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b", "base_extend",
           "ks_inner_product"))))
+    del radix2
     compiled_train_phase(card, device)
+    compiled_scheme_phase(card, device, rot_world, mk_world, t_script)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

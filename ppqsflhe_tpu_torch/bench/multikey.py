@@ -20,13 +20,20 @@ made on the card; everything stays there (≈1.3 GB of stacks at the lazy
 level, 1.9 GB at full level). :func:`measure` times the round as the JAX
 bench does, the marginal cost between chained round counts ((t3 − t1)/2,
 CUDA events, a data-dependent carry between rounds), beside the profiler's
-device time, the host's enqueue time and the device's idle share. Run on
-the card::
+device time, the host's enqueue time and the device's idle share. The
+round calls ``ckks.eval`` directly, so it runs eagerly (the scheme caches a
+CUDA graph per operation). The JAX bench times the round jitted whole
+(``bench_multikey.py:237``), so :class:`CompiledMultikeyRound` captures it
+as one CUDA graph over static stacks and the 30 rekeys, held ``torch.equal``
+to the eager round and timed the same way under ``compiled_*`` keys (None
+on the CPU). Run on the card::
 
     python -m ppqsflhe_tpu_torch.bench.multikey [--lazy 4|0] [--seed S]
 
 It prints one JSON line with the JAX bench's keys
-(``"metric": "multikey_fl_rounds_per_sec"``) plus ``"card"``.
+(``"metric": "multikey_fl_rounds_per_sec"``; ``value`` is the eager round's)
+plus the compiled round's keys and ``"card"``. A failed gate, or a compiled
+round that differs from the eager one, raises after the line.
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from ..ckks import rlwe
 from ..ckks.params import CkksParams
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext
+from ..utils import graphs
 from . import timing
 from .timing import card_line
 
@@ -53,32 +61,35 @@ N_CLIENTS = 16
 LSTM_SHAPES = ((7, 1200), (300, 1200), (1200,), (300, 1200), (300, 1200), (1200,), (300, 1),
                (1,))
 ERR_GATE = 1e-3
+COMPILED_KEYS = ("compiled_rounds_per_sec", "compiled_device_ms", "compiled_idle_share",
+                 "compiled_capture_s", "compiled_equal")
 # device kernels of the round, by symbol
 KERNELS = {"kernel 1": "mxu_ntt_stage_kernel", "kernel 2": "base_extend_kernel",
            "kernel 3": "ks_ip_kernel"}
 
 
-def params() -> CkksParams:
+def params(n: int = 1 << 14) -> CkksParams:
     """The bench's chain: ``CkksParams.generate(n=2^14, mult_depth=2,
     scale_bits=40, dnum=2)``, four-step order."""
-    return CkksParams.generate(n=1 << 14, mult_depth=2, scale_bits=40, dnum=2)
+    return CkksParams.generate(n=n, mult_depth=2, scale_bits=40, dnum=2)
 
 
-def payloads(seed: int, n_clients: int = N_CLIENTS, slots: int = 8192):
+def payloads(seed: int, n_clients: int = N_CLIENTS, slots: int = 8192, shapes=LSTM_SHAPES):
     """Per client, the plaintext vectors of its encrypted-weights document
-    in the LSTM layout: per layer [mean], [std_dev] and the values in
-    slot-sized chunks, uniform(−1, 1) from ``numpy.random.default_rng(seed)``.
-    Returns (vectors per client, parameter count)."""
+    in the LSTM layout (``shapes``): per layer [mean], [std_dev] and the
+    values in slot-sized chunks, uniform(−1, 1) from
+    ``numpy.random.default_rng(seed)``. Returns (vectors per client,
+    parameter count)."""
     rng = np.random.default_rng(seed)
     out = []
     for _ in range(n_clients):
         vecs = []
-        for shape in LSTM_SHAPES:
+        for shape in shapes:
             v = rng.uniform(-1, 1, math.prod(shape))
             vecs += [np.array([v.mean()]), np.array([v.std()])]
             vecs += [v[c * slots : (c + 1) * slots] for c in range(-(-v.size // slots))]
         out.append(vecs)
-    return out, sum(math.prod(s) for s in LSTM_SHAPES)
+    return out, sum(math.prod(s) for s in shapes)
 
 
 def prep(sch: CkksScheme, vecs, gen: torch.Generator):
@@ -123,17 +134,63 @@ def server_round(sch: CkksScheme, stacks: Ciphertext, rk_to, rk_from, lazy: int 
     hub's domain, (C−1, B, 2, l', N) of it re-encrypted to clients 0 … C−2)."""
     C = stacks.data.shape[0]
     scale = stacks.scale
+    ctx = sch.ctx
     acc = Ciphertext(stacks.data[C - 1], scale)
     for i in range(C - 1):
-        acc = ev.add(sch.ctx, acc, sch.re_encrypt(Ciphertext(stacks.data[i], scale), rk_to[i]))
+        acc = ev.add(ctx, acc, ev.re_encrypt(ctx, Ciphertext(stacks.data[i], scale), rk_to[i]))
     if lazy >= 2 and (C & (C - 1)) == 0:
         avg = Ciphertext(acc.data, scale * C)          # ÷C is scale metadata
     else:
-        avg = sch.mult_scalar(acc, 1.0 / C)
+        avg = ev.mult_scalar(ctx, acc, 1.0 / C)
     if lazy >= 4 and avg.nlimbs > 1:
-        avg = ev.level_reduce(sch.ctx, avg, avg.nlimbs - 1)
-    outs = torch.stack([sch.re_encrypt(avg, rk).data for rk in rk_from])
+        avg = ev.level_reduce(ctx, avg, avg.nlimbs - 1)
+    outs = torch.stack([ev.re_encrypt(ctx, avg, rk).data for rk in rk_from])
     return avg, Ciphertext(outs, avg.scale)
+
+
+class CompiledMultikeyRound:
+    """:func:`server_round` over static stacks of ``shape`` (C, B, 2, l_in,
+    N) at ``scale`` as one CUDA graph, the counterpart of
+    ``jax.jit(server_round)`` (``bench_multikey.py:237``): :data:`..utils.graphs.WARMUP`
+    eager rounds on a side stream, then the capture. The graph reads the
+    2(C−1) rekeys by address (kept here, in Montgomery form). A call copies
+    the stacks in (skipped when they are the static stacks), replays and
+    returns the graph's outputs, overwritten by the next call."""
+
+    def __init__(self, sch: CkksScheme, rk_to, rk_from, lazy: int, shape, scale: float):
+        device = torch.device(sch.device)
+        if device.type != "cuda":
+            raise RuntimeError(f"CompiledMultikeyRound captures a CUDA graph; the scheme is on "
+                               f"{device} (run server_round there)")
+        self.sch, self.lazy, self.scale = sch, lazy, float(scale)
+        self.rk_to = [ev.ksk_to_mont(sch.ctx, k) for k in rk_to]
+        self.rk_from = [ev.ksk_to_mont(sch.ctx, k) for k in rk_from]
+        self.stacks = torch.zeros(tuple(shape), dtype=torch.int64, device=device)
+        t0 = time.perf_counter()
+        graphs.warm_up(self._round, device, graphs.WARMUP)
+        torch.cuda.synchronize(device)
+        self.graph = graphs.Graph(self._round, f"the multikey round ({tuple(shape)}, "
+                                               f"lazy={lazy})")
+        self.capture_s = time.perf_counter() - t0
+        self.launches = self.graph.launches
+
+    def _round(self):
+        return server_round(self.sch, Ciphertext(self.stacks, self.scale), self.rk_to,
+                            self.rk_from, self.lazy)
+
+    def replay(self):
+        """Run the graph on the static stacks as they stand → (average,
+        outbound stack)."""
+        return self.graph.replay()
+
+    def __call__(self, stacks: Ciphertext):
+        if stacks.scale != self.scale or stacks.data.shape != self.stacks.shape:
+            raise ValueError(f"stacks {tuple(stacks.data.shape)} at scale {stacks.scale}; the "
+                             f"graph was captured for {tuple(self.stacks.shape)} at scale "
+                             f"{self.scale}")
+        if stacks.data is not self.stacks:
+            self.stacks.copy_(stacks.data)
+        return self.replay()
 
 
 def slot_diffs(sch: CkksScheme, coeffs: torch.Tensor, cts: Ciphertext, want) -> np.ndarray:
@@ -207,6 +264,76 @@ def measure(sch: CkksScheme, stacks: Ciphertext, rk_to, rk_from, lazy: int,
             "idle_share": None if dev is None else max(0.0, 1 - dev / ms)}
 
 
+def measure_compiled(sch: CkksScheme, stacks: Ciphertext, rk_to, rk_from, lazy: int,
+                     reps: int = 2) -> dict:
+    """The compiled round: capture (seconds, warm-up included), one replay
+    on ``stacks`` against the eager round (``equal``), then :func:`measure`'s
+    numbers over replays (each first rewriting one residue of the static
+    stacks)."""
+    cr = CompiledMultikeyRound(sch, rk_to, rk_from, lazy, stacks.data.shape, stacks.scale)
+    eager = server_round(sch, stacks, rk_to, rk_from, lazy)
+    equal = all(torch.equal(a.data, b.data) and a.scale == b.scale
+                for a, b in zip(eager, cr(stacks)))
+    del eager
+    return dict(measure_replays(cr, reps), equal=equal)
+
+
+def measure_replays(cr: CompiledMultikeyRound, reps: int = 2) -> dict:
+    """:func:`measure`'s numbers for the replays of ``cr`` (each first
+    rewriting one residue of its static stacks, restored after), with its
+    capture seconds."""
+    m = timing.marginal_carried_ms(lambda: [c.data for c in cr.replay()], cr.stacks, 1, 3, reps)
+    ms = m["ms"]
+    dev, by = device_breakdown(cr.replay)
+    return {"ms": ms, "rounds_per_sec": 1e3 / ms, "t1_ms": m["t_lo_ms"], "t3_ms": m["t_hi_ms"],
+            "device_ms": dev, "by_kernel": by, "enqueue_ms": timing.enqueue_ms(cr.replay),
+            "idle_share": None if dev is None else max(0.0, 1 - dev / ms),
+            "capture_s": cr.capture_s}
+
+
+def bench(device="cuda", lazy: int = 4, seed: int = 0, n: int = 1 << 14,
+          clients: int = N_CLIENTS, shapes=LSTM_SHAPES, out=print) -> dict:
+    """Set up, run the round once against the gate, time it eagerly and
+    compiled (on the card), print the JSON line with ``out`` and return it;
+    raises after printing when the gate fails or the compiled round
+    differs. On the CPU nothing is timed (``value`` None)."""
+    device = torch.device(device)
+    on_card = device.type == "cuda"
+    card = card_line() if on_card else None
+    sch = CkksScheme(params(n), device=device)
+    vecs, n_params = payloads(seed, clients, sch.encoder.slots, shapes)
+    t0 = time.perf_counter()
+    w = prep(sch, vecs, torch.Generator(device=device).manual_seed(seed))
+    t_prep = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    staged = stage(w.stacks, inbound_level(sch, lazy))
+    if on_card:
+        torch.cuda.synchronize()
+    t_stage = time.perf_counter() - t0
+    avg, outs = server_round(sch, staged, w.rk_to, w.rk_from, lazy)
+    errs = check(sch, w, vecs, avg, outs)
+    del avg, outs
+    err = max(errs.values())
+    m = (measure(sch, staged, w.rk_to, w.rk_from, lazy) if on_card
+         else dict.fromkeys(("ms", "rounds_per_sec", "device_ms", "enqueue_ms", "idle_share")))
+    c = measure_compiled(sch, staged, w.rk_to, w.rk_from, lazy) if on_card else {}
+    compiled = {k: c.get(k.removeprefix("compiled_")) for k in COMPILED_KEYS}
+    result = {
+        "metric": "multikey_fl_rounds_per_sec", "value": m["rounds_per_sec"],
+        "unit": "rounds/s", "clients": clients, "params": n_params,
+        "round_seconds": None if m["ms"] is None else m["ms"] / 1e3,
+        "staging_seconds": t_stage, "correct": bool(np.isfinite(err) and err < ERR_GATE),
+        "err": err, "lazy": lazy, "prep_seconds": t_prep, "device_ms": m["device_ms"],
+        "enqueue_ms": m["enqueue_ms"], "idle_share": m["idle_share"], **compiled, "card": card}
+    out(json.dumps(result))
+    if not result["correct"]:
+        raise AssertionError(f"multikey lazy={lazy}: decrypt error {errs} over {ERR_GATE}")
+    if compiled["compiled_equal"] is False:
+        raise AssertionError(f"multikey lazy={lazy}: the compiled round differs from the eager "
+                             "round")
+    return result
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--lazy", type=int, choices=(4, 0), default=4,
@@ -215,27 +342,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("multikey bench: needs a CUDA GPU")
-    card = card_line()
-    sch = CkksScheme(params(), device="cuda")
-    vecs, n_params = payloads(args.seed, N_CLIENTS, sch.encoder.slots)
-    t0 = time.perf_counter()
-    w = prep(sch, vecs, torch.Generator(device="cuda").manual_seed(args.seed))
-    t_prep = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    staged = stage(w.stacks, inbound_level(sch, args.lazy))
-    torch.cuda.synchronize()
-    t_stage = time.perf_counter() - t0
-    avg, outs = server_round(sch, staged, w.rk_to, w.rk_from, args.lazy)
-    errs = check(sch, w, vecs, avg, outs)
-    m = measure(sch, staged, w.rk_to, w.rk_from, args.lazy)
-    err = max(errs.values())
-    print(json.dumps({
-        "metric": "multikey_fl_rounds_per_sec", "value": m["rounds_per_sec"],
-        "unit": "rounds/s", "clients": N_CLIENTS, "params": n_params,
-        "round_seconds": m["ms"] / 1e3, "staging_seconds": t_stage,
-        "correct": bool(np.isfinite(err) and err < ERR_GATE), "err": err,
-        "lazy": args.lazy, "prep_seconds": t_prep, "device_ms": m["device_ms"],
-        "enqueue_ms": m["enqueue_ms"], "idle_share": m["idle_share"], "card": card}))
+    bench("cuda", args.lazy, args.seed)
 
 
 if __name__ == "__main__":

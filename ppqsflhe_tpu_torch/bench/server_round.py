@@ -13,9 +13,10 @@ schedule ``PPQSFLHE_BENCH_LAZY`` names (0 … 4, default 4;
 :mod:`..convert` maps it) pick the NTT, as ``bench.py:37-40`` reads them.
 Keys, Montgomery-form rekeys and the encryptions are made on the card.
 
-The round is timed as the marginal cost between 20 and 60 chained rounds
-(:mod:`.timing`), beside one round's device time, the host's enqueue time
-and the idle share on stderr: at N=2^14 the eager round is host-bound, so
+The round is timed eagerly (the scheme's per-op CUDA graphs bypassed) as
+the marginal cost between 20 and 60 chained rounds (:mod:`.timing`),
+beside one round's device time, the host's enqueue time and the idle
+share on stderr: at N=2^14 the eager round is host-bound, so
 the number measures the host. The JAX bench times the jitted round, so the
 compiled round (:class:`..fl.compiled.CompiledRound`, one CUDA graph) is
 timed too, by the same chained marginal (each replay rewriting one residue
@@ -53,6 +54,7 @@ from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext
 from ..fl.api import LAZY_MODES, server_round
 from ..fl.compiled import CompiledRound
+from ..utils import graphs
 from . import timing
 from .multikey import decrypt_err
 from .timing import card_line
@@ -110,15 +112,18 @@ def check(sch: CkksScheme, w, vecs, avg: Ciphertext, back: Ciphertext) -> dict:
 
 
 def measure(sch: CkksScheme, w, lazy: int, card: str, reps: int = 3) -> dict:
-    """The marginal ms of a round between 20 and 60 chained rounds (each rewrites one residue of client 1's stack from the previous
+    """The marginal ms of an eager round (the scheme's operations inside
+    ``graphs.eager()``, no per-op graph) between 20 and 60 chained rounds
+    (each rewrites one residue of client 1's stack from the previous
     round's checksum), then one round's device ms, enqueue ms and idle
     share (stderr)."""
     work = w.ct1.data.clone()
     unit = lambda: server_round(sch, Ciphertext(work, w.ct1.scale), w.ct2, w.rk12, w.rk21,
                                 lazy)
     outs = lambda: [c.data for c in unit()]
-    m = timing.marginal_carried_ms(outs, work, R_LO, R_HI, reps)
-    m.update(timing.unit_report(f"server_round lazy={lazy}", unit, m["ms"], card))
+    with graphs.eager():
+        m = timing.marginal_carried_ms(outs, work, R_LO, R_HI, reps)
+        m.update(timing.unit_report(f"server_round lazy={lazy}", unit, m["ms"], card))
     return m
 
 

@@ -1,7 +1,8 @@
 """Homomorphic evaluation.
 
 Twin of :mod:`ppqsflhe_tpu.ckks.eval`: add, sub, negate, add_plain,
-mult_plain, mult_scalar, rescale, level_reduce, HYBRID key switching,
+mult_plain, mult_scalar, rescale, level_reduce, HYBRID key switching, the
+INDCPA re-encryption (the JAX scheme's ``re_encrypt`` body),
 key-switch key generation (PRE rekeys from a public key, relinearization
 and Galois keys from a secret key, with a fresh or a seed-expanded mask),
 ct×ct mult with relinearization, and Galois rotations (plain, hoisted,
@@ -246,6 +247,17 @@ def keyswitch_apply(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int):
 
 def keyswitch(ctx: CkksContext, c_eval: torch.Tensor, ksk: KeySwitchKey, nlimbs: int):
     return keyswitch_apply(ctx, keyswitch_core(ctx, c_eval, nlimbs), ksk, nlimbs)
+
+
+def re_encrypt(ctx: CkksContext, ct: Ciphertext, rekey: KeySwitchKey) -> Ciphertext:
+    """INDCPA proxy re-encryption (changeCipherDomain): c1 key-switched
+    under ``rekey``, its d0 added to c0; leading batch dimensions ride
+    through."""
+    l = ct.nlimbs
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
+    d0, d1 = keyswitch(ctx, ct.data[..., 1, :, :], rekey, l)
+    return Ciphertext(data=torch.stack([modadd(ct.data[..., 0, :, :], d0, q), d1], dim=-3),
+                      scale=ct.scale)
 
 
 # ---------------------------------------------------------------------------

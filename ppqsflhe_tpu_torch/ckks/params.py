@@ -160,6 +160,10 @@ class SecurityWarning(UserWarning):
 class CkksContext:
     """Derived tables + lazily cached per-level precomputes."""
 
+    # whether CkksScheme may cache a CUDA graph per operation on this
+    # context (a context whose transforms run collectives may not)
+    per_op_graphs = True
+
     def __init__(self, params: CkksParams):
         self.params = params
         # parameters are taken as given (HEStd_NotSet), but a sub-128-bit

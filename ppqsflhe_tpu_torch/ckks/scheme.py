@@ -4,14 +4,36 @@ whose extension limb is dropped before any multiplication), keygen,
 rekey_gen, relinearization, rotation and conjugation keys, encrypt_values,
 decrypt, add, sub, add_plain, mult_plain, mult_scalar, ct×ct mult,
 rescale, rotations (plain, hoisted, rotation sums), conjugation, the packed
-inner product, and re_encrypt in both PRE modes. Operations run eagerly on
-the device their tensors live on; the scheme's ``device`` is where it
-creates new ones: the card unless the caller asks for another
+inner product, and re_encrypt in both PRE modes. The scheme's ``device`` is
+where it creates new tensors: the card unless the caller asks for another
 (``device="cpu"`` runs the plain versions). Randomness comes from explicit
 ``torch.Generator``s.
+
+The JAX scheme jits each deterministic operation once per (operation,
+static configuration) (``_jit``). Here :meth:`CkksScheme._graph` caches a
+CUDA graph per operation, keyed by the JAX key plus the inputs' shapes,
+dtypes and devices, every ciphertext's and plaintext's scale and the key's
+``mont`` flag: add, sub, add_plain, mult_plain, mult_scalar, mult,
+rescale, rotate, conjugate, INDCPA re_encrypt and decrypt's device half
+(``"decrypt_core"``). A key's first :data:`WARMUP` calls run the eager body
+on a side stream, the next captures it over static input buffers the cache
+owns (ciphertexts, plaintexts and key-switch keys are copied in, so keys of
+one shape share a graph and none is kept alive by one), and every later
+call copies its inputs in and replays. Each call returns clones of the
+graph's outputs, so no later call changes an earlier result. The body runs
+eagerly on the CPU, inside :func:`..utils.graphs.eager` (every whole-program
+warm-up), while the current stream captures (a whole-program graph then
+holds the operation's kernels) and on a context that runs collectives
+(``CkksContext.per_op_graphs`` False). On the card a failed capture raises
+``RuntimeError`` naming the operation and its key; there is no eager
+fallback. The randomized operations (key generation, encryption, INDCCA
+re-encryption) and the hoisted rotations stay eager, as the JAX scheme
+leaves the latter unjitted.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -19,9 +41,69 @@ import torch
 from . import eval as ev
 from . import rlwe
 from ..core.modarith import modadd
+from ..utils import graphs
+from ..utils.graphs import WARMUP
 from .encoding import Encoder
 from .params import CkksContext, CkksParams
 from .types import Ciphertext, KeySwitchKey, Plaintext, PublicKey, SecretKey
+
+
+def _leaf(x) -> torch.Tensor:
+    return x if isinstance(x, torch.Tensor) else x.data
+
+
+def _with_leaf(x, t: torch.Tensor):
+    """``x`` with its tensor replaced by ``t``."""
+    return t if isinstance(x, torch.Tensor) else dataclasses.replace(x, data=t)
+
+
+def _signature(x) -> tuple:
+    """An input's part of a cache key: its type, shape, dtype, device and
+    the host metadata a body reads (a scale, a key's ``mont`` flag)."""
+    t = _leaf(x)
+    meta = (x.scale if isinstance(x, (Ciphertext, Plaintext))
+            else x.mont if isinstance(x, KeySwitchKey) else None)
+    return (type(x).__name__, tuple(t.shape), t.dtype, str(t.device), meta)
+
+
+def _clone(out):
+    return (out.clone() if isinstance(out, torch.Tensor)
+            else dataclasses.replace(out, data=out.data.clone()))
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+class _OpGraph:
+    """One cached operation at one key: :data:`WARMUP` eager calls on a side
+    stream, then one capture over static copies of the inputs, then
+    replays; every call's result is the caller's own."""
+
+    def __init__(self, what: str, body):
+        self.what, self.body = what, body
+        self.calls = 0              # eager warm-up calls so far
+        self.static = None          # the inputs' static buffers
+        self.graph = None
+
+    def _load(self, leaves) -> None:
+        for dst, t in zip(self.static, leaves):
+            if t is not dst:
+                dst.copy_(t)
+
+    def __call__(self, inputs):
+        leaves = [_leaf(x) for x in inputs]
+        if self.graph is None and self.calls < WARMUP:
+            self.calls += 1
+            return graphs.warm_up(lambda: self.body(*inputs), leaves[0].device)
+        if self.graph is None:
+            self.static = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in leaves]
+            args = [_with_leaf(x, t) for x, t in zip(inputs, self.static)]
+            self._load(leaves)
+            self.graph = graphs.Graph(lambda: self.body(*args), self.what)
+        else:
+            self._load(leaves)
+        return _clone(self.graph.replay())
 
 
 class CkksScheme:
@@ -30,6 +112,23 @@ class CkksScheme:
         self.device = torch.device(device)
         self.ctx = CkksContext(params)
         self.encoder = Encoder(params.n, params.slots or params.n // 2)
+        self._graphs: dict = {}
+
+    def _graph(self, key, body, *inputs):
+        """``body(*inputs)`` through the per-op graph cache, the
+        counterpart of the JAX scheme's ``_jit``: ``key`` is the JAX key
+        (the operation and its static configuration); the inputs
+        (ciphertexts, plaintexts, key-switch keys, tensors) add their
+        signatures. Eager on the CPU, inside :func:`..utils.graphs.eager`,
+        during another capture and on a context that runs collectives."""
+        if (not _on_card(_leaf(inputs[0])) or not self.ctx.per_op_graphs
+                or graphs.bypass()):
+            return body(*inputs)
+        full = (key,) + tuple(_signature(x) for x in inputs)
+        op = self._graphs.get(full)
+        if op is None:
+            op = self._graphs[full] = _OpGraph(f"the CkksScheme operation {full}", body)
+        return op(inputs)
 
     # -- encoding -----------------------------------------------------------
 
@@ -96,7 +195,11 @@ class CkksScheme:
         return self.encrypt(pk, self.make_plaintext(values, nlimbs), gen)
 
     def decrypt(self, sk: SecretKey, ct: Ciphertext, num: int | None = None) -> np.ndarray:
-        return rlwe.decrypt(self.ctx, sk, ct, self.encoder, num)
+        """The device half (``"decrypt_core"``) through the graph cache,
+        the decoding on the host."""
+        coeffs = self._graph("decrypt_core",
+                             lambda s, c: rlwe.decrypt_to_coeffs(self.ctx, s, c), sk.s_eval, ct)
+        return rlwe.decode_coeffs(self.ctx, coeffs, ct, self.encoder, num)
 
     def _maybe_drop_ext(self, ct: Ciphertext) -> Ciphertext:
         """FLEXIBLEAUTOEXT: drop the extension limb before any mult."""
@@ -107,34 +210,39 @@ class CkksScheme:
     # -- homomorphic ops ----------------------------------------------------
 
     def add(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
-        return ev.add(self.ctx, ct1, ct2)
+        return self._graph("add", lambda a, b: ev.add(self.ctx, a, b), ct1, ct2)
 
     def sub(self, ct1: Ciphertext, ct2: Ciphertext) -> Ciphertext:
-        return ev.sub(self.ctx, ct1, ct2)
+        return self._graph("sub", lambda a, b: ev.sub(self.ctx, a, b), ct1, ct2)
 
     def add_plain(self, ct: Ciphertext, pt: Plaintext) -> Ciphertext:
-        return ev.add_plain(self.ctx, ct, pt)
+        return self._graph("add_plain", lambda a, p: ev.add_plain(self.ctx, a, p), ct, pt)
 
     def mult_plain(self, ct: Ciphertext, pt: Plaintext, rescale_after: bool = True) -> Ciphertext:
-        out = ev.mult_plain(self.ctx, self._maybe_drop_ext(ct), pt)
-        return ev.rescale(self.ctx, out) if rescale_after else out
+        def body(a, p):
+            out = ev.mult_plain(self.ctx, a, p)
+            return ev.rescale(self.ctx, out) if rescale_after else out
+        return self._graph(("mult_plain", rescale_after), body, self._maybe_drop_ext(ct), pt)
 
     def mult_scalar(self, ct: Ciphertext, c: float, rescale_after: bool = True) -> Ciphertext:
-        return ev.mult_scalar(self.ctx, self._maybe_drop_ext(ct), c, rescale_after)
+        return self._graph(("mult_scalar", float(c), rescale_after),
+                           lambda a: ev.mult_scalar(self.ctx, a, c, rescale_after),
+                           self._maybe_drop_ext(ct))
 
     def mult(self, ct1: Ciphertext, ct2: Ciphertext, relin_key: KeySwitchKey,
              rescale_after: bool = True) -> Ciphertext:
-        return ev.mult(self.ctx, self._maybe_drop_ext(ct1), self._maybe_drop_ext(ct2),
-                       relin_key, rescale_after)
+        return self._graph(("mult", rescale_after),
+                           lambda a, b, rk: ev.mult(self.ctx, a, b, rk, rescale_after),
+                           self._maybe_drop_ext(ct1), self._maybe_drop_ext(ct2), relin_key)
 
     def rescale(self, ct: Ciphertext) -> Ciphertext:
-        return ev.rescale(self.ctx, ct)
+        return self._graph("rescale", lambda a: ev.rescale(self.ctx, a), ct)
 
     def rotate(self, ct: Ciphertext, r: int, rot_keys) -> Ciphertext:
         """Rotate slots left by r; ``rot_keys`` is a dict by rotation or the
         one key."""
         key = rot_keys[r] if isinstance(rot_keys, dict) else rot_keys
-        return ev.rotate(self.ctx, ct, r, key)
+        return self._graph(("rotate", r), lambda a, k: ev.rotate(self.ctx, a, r, k), ct, key)
 
     def rotate_hoisted(self, ct: Ciphertext, rotations, rot_keys: dict) -> list:
         return ev.rotate_hoisted(self.ctx, ct, rotations, rot_keys)
@@ -145,7 +253,7 @@ class CkksScheme:
         return ev.rotate_sum_hoisted(self.ctx, ct, rotations, rot_keys)
 
     def conjugate(self, ct: Ciphertext, conj_key: KeySwitchKey) -> Ciphertext:
-        return ev.conjugate(self.ctx, ct, conj_key)
+        return self._graph("conjugate", lambda a, k: ev.conjugate(self.ctx, a, k), ct, conj_key)
 
     def inner_product(self, ct1: Ciphertext, ct2: Ciphertext,
                       relin_key: KeySwitchKey, rot_keys: dict) -> Ciphertext:
@@ -171,13 +279,13 @@ class CkksScheme:
         if indcca and (pk_to is None or gen is None):
             raise ValueError("PREMode INDCCA requires the target public key and a generator "
                              "for re-encryption re-randomization")
+        if not indcca:
+            return self._graph("re_encrypt", lambda c, k: ev.re_encrypt(self.ctx, c, k), ct,
+                               rekey)
+        out = ev.re_encrypt(self.ctx, ct, rekey)
         l = ct.nlimbs
         dev = ct.data.device
         q, _, _ = self.ctx.limb_consts(self.ctx.q_idx(l), dev)
-        d0, d1 = ev.keyswitch(self.ctx, ct.data[..., 1, :, :], rekey, l)
-        out = torch.stack([modadd(ct.data[..., 0, :, :], d0, q), d1], dim=-3)
-        if indcca:
-            z = rlwe.encrypt_zero(self.ctx, pk_to, l, gen, self.params.pre_flood_bits,
-                                  lead=ct.data.shape[:-3], device=dev)
-            out = modadd(out, z, q)
-        return Ciphertext(data=out, scale=ct.scale)
+        z = rlwe.encrypt_zero(self.ctx, pk_to, l, gen, self.params.pre_flood_bits,
+                              lead=ct.data.shape[:-3], device=dev)
+        return Ciphertext(data=modadd(out.data, z, q), scale=ct.scale)

@@ -19,8 +19,12 @@ the constructor raises. The outputs are the graph's static buffers, so the
 next call overwrites them; clone what must outlive it.
 
 Launch counts: the kernel wrappers count the launches they enqueue, so the
-warm-up and the capture add to their counters and a replay does not. Each
-replay adds the captured launches to :data:`replayed` instead.
+warm-up adds to their counters and the capture (which launches nothing) and
+a replay do not. Each replay adds the captured launches to :data:`replayed`
+instead. The capture helper, the counters and the side-stream warm-up are
+:mod:`..utils.graphs`'s, shared with the compiled training step and the
+scheme's per-op graphs; the warm-up runs the scheme's operations eagerly,
+so the round's warm-up captures no per-op graph.
 """
 
 from __future__ import annotations
@@ -30,31 +34,10 @@ import torch
 from ..ckks import eval as ev
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext, KeySwitchKey
-from ..ops import cuda_ext, cuda_ks, cuda_mxu_ntt, cuda_ntt, streamed_ntt
+from ..utils import graphs
+from ..utils.graphs import (COUNTERS, WARMUP, replayed, reset_replayed,  # noqa: F401
+                             wrapper_counts)
 from .api import LAZY_MODES, server_round
-
-# each kernel wrapper's launch counter: (module, attribute)
-COUNTERS = {
-    "mxu_ntt": (cuda_mxu_ntt, "launches"),
-    "mxu_ntt_mont": (cuda_mxu_ntt, "launches_mont"),
-    "streamed_stage_a": (streamed_ntt, "launches_stage_a"),
-    "streamed_stage_b": (streamed_ntt, "launches_stage_b"),
-    "base_extend": (cuda_ext, "launches"),
-    "ks_inner_product": (cuda_ks, "launches"),
-    "fourstep_ntt": (cuda_ntt, "launches"),
-}
-replayed = dict.fromkeys(COUNTERS, 0)   # kernel launches run by replays since the last reset
-WARMUP = 2                              # eager rounds on the side stream before the capture
-
-
-def wrapper_counts() -> dict:
-    """The kernel wrappers' launch counters, by :data:`COUNTERS` name."""
-    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
-
-
-def reset_replayed() -> None:
-    for k in replayed:
-        replayed[k] = 0
 
 
 class CompiledRound:
@@ -80,22 +63,11 @@ class CompiledRound:
         self.stack1 = torch.zeros(shape, dtype=torch.int64, device=device)
         self.stack2 = torch.zeros_like(self.stack1)
 
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                self._round()
-        torch.cuda.current_stream(device).wait_stream(side)
+        graphs.warm_up(self._round, device, WARMUP)
         torch.cuda.synchronize(device)
-
-        before = wrapper_counts()
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                self.avg, self.back = self._round()
-        except Exception as e:
-            raise RuntimeError(f"capture of the server round (lazy={lazy}) failed: {e}") from e
-        self.launches = {k: v - before[k] for k, v in wrapper_counts().items()}
+        self.graph = graphs.Graph(self._round, f"the server round (lazy={lazy})")
+        self.avg, self.back = self.graph.output
+        self.launches = self.graph.launches
 
     def _round(self):
         return server_round(self.sch, Ciphertext(self.stack1, self.scale),
@@ -111,10 +83,7 @@ class CompiledRound:
     def replay(self):
         """Run the graph on the static inputs as they stand → (average in
         client 2's domain, average re-encrypted to client 1)."""
-        self.graph.replay()
-        for k, v in self.launches.items():
-            replayed[k] += v
-        return self.avg, self.back
+        return self.graph.replay()
 
     def __call__(self, stack1: Ciphertext, stack2: Ciphertext):
         """Copy the stacks into the static inputs (skipped for a stack that

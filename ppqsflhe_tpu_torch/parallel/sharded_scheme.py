@@ -56,6 +56,10 @@ class ShardedEvalContext(CkksContext):
     the JAX class takes, any D dividing n1 and n2
     (:func:`..ops.sharded_ntt.check_shards`)."""
 
+    # its transforms run all-to-alls on the coef axis: the scheme's
+    # operations stay eager here (the sharded round's graph is not ported)
+    per_op_graphs = False
+
     def __init__(self, params: CkksParams, mesh, axis: str = "coef"):
         self.impl = params.ntt_impl
         if params.ntt_backend != "fourstep" or params.ntt_impl != cuda_ntt.MXU:

@@ -24,8 +24,9 @@ eager call (it changes no state).
 
 There is no eager fallback: on a CPU model, or when a capture fails, the
 constructor or call raises. Outputs are the graphs' static buffers, copied
-out. A replay adds the launches its graph holds of the port's hand-written
-kernels (none on this path) to :data:`..fl.compiled.replayed`, and one to
+out. The capture and the side-stream warm-up are :mod:`..utils.graphs`'s;
+a replay adds the launches its graph holds of the port's hand-written
+kernels (none on this path) to :data:`..utils.graphs.replayed`, and one to
 :data:`replays`.
 """
 
@@ -35,10 +36,10 @@ import time
 
 import torch
 
-from ..fl import compiled as fl_compiled
+from ..utils import graphs
+from ..utils.graphs import WARMUP
 from .trainer import train_step, val_mse
 
-WARMUP = 2                                # eager steps on a side stream before the capture
 replays = {"step": 0, "eval": 0}          # graph replays since the last reset
 
 
@@ -65,29 +66,6 @@ def _on_card(what: str, model, *tensors) -> torch.device:
     return next(iter(devices))
 
 
-class _Graph:
-    """One captured call of ``fn``: ``output`` is its static result."""
-
-    def __init__(self, fn, what: str, generator: torch.Generator | None = None):
-        self.graph = torch.cuda.CUDAGraph()
-        before = fl_compiled.wrapper_counts()
-        try:
-            if generator is not None:
-                self.graph.register_generator_state(generator)
-            with torch.cuda.graph(self.graph):
-                self.output = fn()
-        except Exception as e:
-            raise RuntimeError(f"capture of {what} failed: {e}") from e
-        self.launches = {k: v - before[k] for k, v in fl_compiled.wrapper_counts().items()}
-
-    def replay(self, kind: str) -> torch.Tensor:
-        self.graph.replay()
-        replays[kind] += 1
-        for k, v in self.launches.items():
-            fl_compiled.replayed[k] += v
-        return self.output
-
-
 class CompiledStep:
     """``train_step(model, opt, X[sel], y[sel], generator)`` as one CUDA
     graph over the static ``X``, ``y`` (on the card) and ``idx``. Call it
@@ -101,7 +79,7 @@ class CompiledStep:
         self.what = (f"the {_family(model)} training step (batch {batch} of X "
                      f"{tuple(X.shape)}, y {tuple(y.shape)})")
         self.warm = 0               # eager steps run so far
-        self.graph: _Graph | None = None
+        self.graph: graphs.Graph | None = None
         self.capture_s: float | None = None
 
     def _step(self) -> torch.Tensor:
@@ -110,21 +88,16 @@ class CompiledStep:
     def __call__(self, sel: torch.Tensor) -> torch.Tensor:
         self.idx.copy_(sel)
         if self.graph is None and self.warm < WARMUP:
-            main = torch.cuda.current_stream(self.device)
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                mse = self._step()
-            main.wait_stream(side)
             self.warm += 1
-            return mse.clone()
+            return graphs.warm_up(self._step, self.device).clone()
         if self.graph is None:
             t0 = time.perf_counter()
             # backward allocates the gradients from the graph's pool
             self.opt.zero_grad(set_to_none=True)
-            self.graph = _Graph(self._step, self.what, self.generator)
+            self.graph = graphs.Graph(self._step, self.what, self.generator)
             self.capture_s = time.perf_counter() - t0
-        return self.graph.replay("step").clone()
+        replays["step"] += 1
+        return self.graph.replay().clone()
 
 
 class CompiledEval:
@@ -133,14 +106,10 @@ class CompiledEval:
 
     def __init__(self, model, X: torch.Tensor, y: torch.Tensor):
         device = _on_card("CompiledEval", model, X, y)
-        main = torch.cuda.current_stream(device)
-        side = torch.cuda.Stream(device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            val_mse(model, X, y)
-        main.wait_stream(side)
-        self.graph = _Graph(lambda: val_mse(model, X, y),
-                            f"the {_family(model)} validation MSE (X {tuple(X.shape)})")
+        graphs.warm_up(lambda: val_mse(model, X, y), device)
+        self.graph = graphs.Graph(lambda: val_mse(model, X, y),
+                                  f"the {_family(model)} validation MSE (X {tuple(X.shape)})")
 
     def __call__(self) -> float:
-        return float(self.graph.replay("eval"))
+        replays["eval"] += 1
+        return float(self.graph.replay())

@@ -1,10 +1,11 @@
 """The bench twins (``ppqsflhe_tpu_torch/bench/{server_round,rotations,kernels,
-sizes}.py``) at small sizes on the CPU, with their gates, and
+sizes,multikey}.py``) at small sizes on the CPU, with their gates, and
 ``utils/profiling.py`` against the JAX module.
 
-On the CPU the twins time nothing (their ``value`` is None); what is held
-here is their set-up, their units and their gates: the round decrypts in
-all five schedules, the rotations pass ``bench_rotations.py``'s gates, the
+On the CPU the twins time nothing (their ``value`` and their compiled
+units' ``compiled_*`` keys are None); what is held here is their set-up,
+their units and their gates: the round decrypts in all five schedules, the
+multikey round in both, the rotations pass ``bench_rotations.py``'s gates, the
 NTT chains and the key switches (L=3 and the 4-tower FLEXIBLEAUTOEXT chain)
 are bit-equal across ``pallas`` and ``pallas_mxu``, and ``sizes.py``'s byte
 counts equal the JAX tools' for the same cut payload and chain. Each
@@ -21,7 +22,7 @@ import pytest
 
 from ppqsflhe_tpu.fl import api as japi
 from ppqsflhe_tpu.utils import profiling as jprofiling
-from ppqsflhe_tpu_torch.bench import kernels, rotations, server_round, sizes, timing
+from ppqsflhe_tpu_torch.bench import kernels, multikey, rotations, server_round, sizes, timing
 from ppqsflhe_tpu_torch.fl import api
 from ppqsflhe_tpu_torch.utils import profiling
 
@@ -40,6 +41,7 @@ def test_server_round_twin_gates(lazy):
     assert got == [r] and r["correct"] and r["err"] < server_round.ERR_GATE
     assert r["metric"] == "server_encrypted_aggregation_ms_per_round" and r["unit"] == "ms"
     assert r["value"] is None and r["vs_baseline"] is None and r["card"] is None
+    assert all(r[k] is None for k in server_round.COMPILED_KEYS) and list(r)[-1] == "card"
     assert r["out_scale"] == (2 if lazy >= 2 else 1) * 2.0**40
     assert r["out_limbs"] == {0: 2, 1: 1, 2: 1, 3: 2, 4: 1}[lazy]
 
@@ -67,6 +69,28 @@ def test_rotations_twin_gates():
     assert r["err"] < rotations.ERR_GATE and r["err_sum"] < rotations.SUM_GATE
     assert r["metric"] == "hoisted_rotation_us_per_rotation_n1024" and r["value"] is None
     assert rotations.params().n == 1 << 15
+    # the compiled units' keys: None on the CPU, where nothing is captured
+    assert rotations.COMPILED_KEYS == ("compiled_plain_us", "compiled_us",
+                                       "compiled_rot_sum_us", "compiled_equal")
+    assert all(r[k] is None for k in rotations.COMPILED_KEYS) and list(r)[-1] == "card"
+
+
+@pytest.mark.parametrize("lazy", [4, 0])
+def test_multikey_twin_line(lazy):
+    """The multikey twin's line at N=2^10 with 4 clients on the CPU: the
+    gate passes, ``value`` (the eager round's rounds/s) and the compiled
+    round's keys are None, "card" last."""
+    got, out = _lines()
+    r = multikey.bench("cpu", lazy=lazy, n=1 << 10, clients=4,
+                       shapes=((3, 40), (300,), (1,)), out=out)
+    assert got == [r] and r["correct"] and r["err"] < multikey.ERR_GATE
+    assert r["metric"] == "multikey_fl_rounds_per_sec" and r["unit"] == "rounds/s"
+    assert r["value"] is None and r["round_seconds"] is None and r["lazy"] == lazy
+    assert r["clients"] == 4 and r["params"] == 421
+    assert multikey.COMPILED_KEYS == ("compiled_rounds_per_sec", "compiled_device_ms",
+                                      "compiled_idle_share", "compiled_capture_s",
+                                      "compiled_equal")
+    assert all(r[k] is None for k in multikey.COMPILED_KEYS) and list(r)[-1] == "card"
 
 
 def test_kernels_twin_bit_equal():

@@ -6,7 +6,8 @@ round makes no host sync (``item``, ``tolist``, ``cpu``, ``numpy``,
 number) once its caches are warm, in all five schedules and both NTT
 implementations, so a capture cannot meet one; and the function that is
 captured gives the JAX package's round (``bench.py``'s ``server_round``)
-bit for bit, from the slice test's JAX keys and ciphertexts. The capture,
+bit for bit, from the slice test's JAX keys and ciphertexts (and, on the
+radix-2 order, from the same world made by a radix-2 JAX scheme). The capture,
 its replay and its bit-equality with the eager round on the card are
 ``chip_smoke.py``'s compiled-round phase."""
 
@@ -27,7 +28,10 @@ from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
 from ppqsflhe_tpu_torch.ckks.types import Ciphertext
 from ppqsflhe_tpu_torch.fl import api, compiled
 from ppqsflhe_tpu_torch.ops.cuda_ntt import BUTTERFLY, MXU
-from test_torch_slice import _jax_server_round, world  # noqa: F401  (the slice's fixture)
+from test_torch_slice import B, N, _encrypt_batch, _jax_server_round, world  # noqa: F401
+
+from ppqsflhe_tpu.ckks.params import CkksParams as JaxParams
+from ppqsflhe_tpu.ckks.scheme import CkksScheme as JaxScheme
 
 N_SMALL = 1 << 10
 # what a capture cannot contain: a copy to the host, a host value read from
@@ -51,11 +55,13 @@ def _keys_and_stacks(sch, seed):
 
 @pytest.fixture(scope="module")
 def small():
-    """N=2^10 schemes in both NTT implementations, with keys and stacks."""
+    """N=2^10 schemes in both four-step NTT implementations and on the
+    radix-2 order, with keys and stacks."""
     out = {}
-    for impl in (MXU, BUTTERFLY):
+    for impl in (MXU, BUTTERFLY, "radix2"):
+        kw = {"ntt_backend": "radix2"} if impl == "radix2" else {"ntt_impl": impl}
         sch = CkksScheme(CkksParams.generate(n=N_SMALL, mult_depth=2, scale_bits=40, dnum=2,
-                                             ntt_impl=impl), device="cpu")
+                                             **kw), device="cpu")
         out[impl] = (sch,) + _keys_and_stacks(sch, 3)
     return out
 
@@ -92,7 +98,7 @@ def _refuse(name):
 
 
 @pytest.mark.parametrize("lazy", api.LAZY_MODES)
-@pytest.mark.parametrize("impl", [MXU, BUTTERFLY])
+@pytest.mark.parametrize("impl", [MXU, BUTTERFLY, "radix2"])
 def test_steady_round_has_no_host_sync(small, monkeypatch, impl, lazy):
     """After one warm-up round (the compiled round warms up the same way),
     the round runs with every host sync patched to raise, and gives the
@@ -129,6 +135,49 @@ def test_captured_round_bitequal_to_jax(world, lazy):  # noqa: F811
                                     w["rk12"], w["rk21"], lazy)
         for g, j in zip(got, want):
             np.testing.assert_array_equal(convert.residues_np(g.data), np.asarray(j))
+
+
+@pytest.fixture(scope="module")
+def radix2_world():
+    """The slice test's world made by a radix-2 JAX scheme: keys and
+    ciphertexts of the JAX package, rekeys of the port, at N=2^11."""
+    jp = JaxParams.generate(n=N, mult_depth=2, scale_bits=40, dnum=2, ntt_backend="radix2")
+    js = JaxScheme(jp)
+    sch = CkksScheme(convert.params(dataclasses.asdict(jp)), device="cpu")
+    assert sch.params.ntt_backend == "radix2"
+    k0 = jax.random.PRNGKey(4)
+    (jsk1, jpk1), (jsk2, jpk2) = (js.keygen(jax.random.fold_in(k0, i)) for i in (1, 2))
+    sk1, sk2 = (convert.secret_key(np.asarray(k.s_eval), np.asarray(k.s_int), device="cpu")
+                for k in (jsk1, jsk2))
+    pk1, pk2 = (convert.public_key(np.asarray(k.data), device="cpu") for k in (jpk1, jpk2))
+    gen = torch.Generator().manual_seed(5)
+    rk12 = ev.ksk_to_mont(sch.ctx, sch.rekey_gen(sk1, pk2, gen))
+    rk21 = ev.ksk_to_mont(sch.ctx, sch.rekey_gen(sk2, pk1, gen))
+    rng = np.random.default_rng(9)
+    vs = [[rng.uniform(-1, 1, js.encoder.slots) for _ in range(B)] for _ in range(2)]
+    s1, s2 = (np.stack([np.asarray(c.data) for c in _encrypt_batch(
+        js, pk, v, jax.random.fold_in(k0, 5 + i))]) for i, (pk, v) in enumerate(
+        zip((jpk1, jpk2), vs)))
+    return dict(js=js, sch=sch, rk12=rk12, rk21=rk21, s1=s1, s2=s2, scale=js.params.scale)
+
+
+@pytest.mark.parametrize("lazy", [4, 0, 1, 2, 3],
+                         ids=["lazy4", "full_level", "lazy1", "lazy2", "lazy3"])
+def test_captured_round_bitequal_to_jax_radix2(radix2_world, lazy):
+    """As above on the radix-2 order (``core/ntt.Radix2Ntt``, plain torch
+    on every device): the captured function over static buffers gives the
+    radix-2 JAX round's residues."""
+    w = radix2_world
+    k12, k21 = (jnp.asarray(convert.residues_np(k.data)) for k in (w["rk12"], w["rk21"]))
+    want = jax.jit(lambda a, b, c, d: _jax_server_round(w["js"], a, b, c, d, w["scale"], lazy))(
+        jnp.asarray(w["s1"]), jnp.asarray(w["s2"]), k12, k21)
+    bufs = [torch.zeros(s.shape, dtype=torch.int64) for s in (w["s1"], w["s2"])]
+    for buf, s in zip(bufs, (w["s1"], w["s2"])):
+        buf.copy_(convert.residues(s, "cpu"))
+    got = compiled.server_round(w["sch"], *(Ciphertext(b, w["scale"]) for b in bufs),
+                                w["rk12"], w["rk21"], lazy)
+    for g, j in zip(got, want):
+        np.testing.assert_array_equal(convert.residues_np(g.data), np.asarray(j))
 
 
 def test_twin_json_has_compiled_keys():
