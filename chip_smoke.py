@@ -169,7 +169,20 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   1e-3), eager -> compiled µs per rotation and ms per round with device
   time, idle and capture seconds; the replays' kernel launches, the keys
   cached and the reserved device memory's growth. The phase prints its
-  seconds and the script's.
+  seconds and the script's;
+- **the randomized scheme** (phase 17): keygen, relin_key_gen,
+  rot_key_gen, conj_key_gen, rekey_gen and encrypt on phase 2's N=2^15
+  world and INDCCA re_encrypt of 32 ciphertexts on phase 7's multikey
+  world (its scheme in PREMode INDCCA), each WARMUP + 3 times on a CUDA
+  and on a CPU generator: the draws are made outside the per-op graph
+  (one sampler call a kind) and every cached result is ``torch.equal`` to
+  the eager body on the same draws; every key is used once in a key
+  switch and every encryption and INDCCA hop decrypted within its gate;
+  µs per operation eager -> cached; the multikey prep's and the threshold
+  phase's encryptions split into encode, draws and body (the threshold
+  phase prints its own too) against their totals with per-entry draws;
+  the graphs cached, the reserved memory's growth, the phase's and the
+  whole script's seconds.
 
 The scheme's operations cache a CUDA graph per operation and shape on the
 card (``ckks/scheme.py``), so a phase's eager timings run inside
@@ -1830,7 +1843,8 @@ def threshold_phase(card, device):
     154-ciphertext payload encrypted under it, ``multikey.aggregate_local``,
     16 batched partial decryptions and the fusion (smudging 2^30, then
     none), then Shamir 9-of-16: the sets {1..9} and {8..16} decrypt, {1..8}
-    does not. Returns the kernels' rows."""
+    does not. Returns the kernels' rows and the encryptions' seconds split
+    as ``bench.multikey.encrypt_split`` times them."""
     import hashlib
 
     import numpy as np
@@ -1880,8 +1894,8 @@ def threshold_phase(card, device):
                                                for _ in range(TH_PARTIES)])
     shares = [s for s, _ in parts]
     pk = step("joint_public_key", lambda: th.joint_public_key(ctx, a, [b for _, b in parts]))
-    cts = step(f"encrypt {TH_PARTIES} x {len(vecs[0])}",
-               lambda: [sch.encrypt_values(pk, v, gen) for v in vecs])
+    cts, split = step(f"encrypt {TH_PARTIES} x {len(vecs[0])}",
+                      lambda: mk.encrypt_split(sch, [pk] * TH_PARTIES, vecs, gen))
     agg = step("aggregate_local", lambda: multikey.aggregate_local(ctx, cts))
     del cts
     results = {}
@@ -1905,6 +1919,8 @@ def threshold_phase(card, device):
     launches = read_counts()
     print(f"[threshold] kernel launches { {k: v for k, v in launches.items() if v} }; ms per "
           f"step (synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in times.items())
+          + f"; the encryptions split: " + ", ".join(f"{k} {v * 1e3:.1f}"
+                                                      for k, v in split.items())
           + f" ({card})")
     if launches["mxu_ntt"] == 0 or launches["base_extend"] or launches["ks_inner_product"]:
         raise AssertionError("threshold: kernel 1 must launch, kernels 2 and 3 must not")
@@ -1929,7 +1945,7 @@ def threshold_phase(card, device):
             failures.append(name)
     if failures:
         raise AssertionError(f"threshold: gates failed for {failures}")
-    return cases.take_launches(launches)
+    return cases.take_launches(launches), split
 
 
 # ---------------------------------------------------------------------------
@@ -3531,6 +3547,16 @@ def show_pair(pair, names=("eager", "cached")):
         for name, (w, d, i) in zip(names, pair))
 
 
+def reserved_bytes(device) -> int:
+    """Reserved device memory once the allocator's free blocks are released
+    (a capture releases them too)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_reserved(device)
+
+
 def compiled_scheme_phase(card, device, rw, mw, t_script):
     """The compiled scheme on phase 2's N=2^15 world ``rw``: every cached
     operation called WARMUP + 3 times on fresh uniform residues, each
@@ -3555,13 +3581,7 @@ def compiled_scheme_phase(card, device, rw, mw, t_script):
     from ppqsflhe_tpu_torch.ckks.types import Ciphertext, Plaintext
     from ppqsflhe_tpu_torch.utils import graphs
 
-    def reserved():
-        """Reserved device memory once the allocator's free blocks are
-        released (a capture releases them too)."""
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        return torch.cuda.memory_reserved(device)
-
+    reserved = lambda: reserved_bytes(device)
     t0 = time.perf_counter()
     reserved0 = reserved()
     torch.cuda.reset_peak_memory_stats(device)
@@ -3687,6 +3707,211 @@ def compiled_scheme_phase(card, device, rw, mw, t_script):
           f"{now - t_script:.1f} s ({card})")
 
 
+# ---------------------------------------------------------------------------
+# Path 17: the randomized scheme (draws outside, bodies through the per-op
+# graph cache)
+# ---------------------------------------------------------------------------
+
+RANDOM_CALLS_EXTRA = 3      # calls of each randomized operation past its warm-up
+CCA_BATCH = 32              # the INDCCA hop's ciphertexts (client 0's first)
+
+
+def twin(gen):
+    """A generator in ``gen``'s state: it makes again the draws ``gen`` is
+    about to make (a clone of them)."""
+    import torch
+
+    return torch.Generator(gen.device).set_state(gen.get_state())
+
+
+def random_ops(rw, mw, ind, pk2, sk2, pt, cca):
+    """Each randomized operation as (its call through the scheme on a
+    generator, its draws on a generator, its eager body on those draws, a
+    check of one result that uses it and returns its decryption error).
+    The key generators, keygen and encrypt run on phase 2's N=2^15 world,
+    INDCCA re_encrypt on phase 7's multikey world (N=2^14) in PREMode
+    INDCCA."""
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks import eval as ev
+    from ppqsflhe_tpu_torch.ckks import rlwe
+
+    sch, ctx, sk, dev = rw.sch, rw.sch.ctx, rw.sk, rw.sch.device
+    free = torch.Generator().manual_seed(SEED + 170)    # encryptions that only check a key
+    L = sch.params.num_q
+    s = sk.s_eval
+    idx = tuple(range(L))
+    g1, gc = ev.rot_to_galois(1, sch.params.n), 2 * sch.params.n - 1
+    ct, v = rw.ct, rw.v
+    err = lambda c, want, key=sk: float(np.abs(sch.decrypt(key, c) - want).max())
+    sk_path = lambda target: (lambda g: ev.ksk_draws(ctx, g, dev, pk_path=False),
+                              lambda d: ev.ksk_body(ctx, target, s, False, *d))
+
+    def check_cca(c):
+        from ppqsflhe_tpu_torch.bench.multikey import slot_diffs
+
+        coeffs = rlwe.decrypt_to_coeffs(ind.ctx, mw.w.sks[-1].s_eval, c)
+        d = slot_diffs(ind, coeffs, c, mw.vecs[0][:CCA_BATCH])
+        return float(np.sqrt(np.mean(d ** 2))), float(np.abs(d).max())
+
+    ccts, rk_cca, pk_hub = cca
+    return {
+        "keygen": (lambda g: sch.keygen(g), lambda g: rlwe.keygen_draws(ctx, g, dev),
+                   lambda d: rlwe.keygen_body(ctx, *d),
+                   lambda r: err(sch.encrypt(r[1], pt, free), v, r[0])),
+        "relin_key_gen": (lambda g: sch.relin_key_gen(sk, g),
+                          *sk_path(rlwe._poly_mul(ctx, s[:L], s[:L], idx)),
+                          lambda k: err(ev.mult(ctx, ct, ct, k), v * v)),
+        "rot_key_gen": (lambda g: sch.rotation_key_gen(sk, [1], g)[1],
+                        *sk_path(ev.automorphism(ctx, s[:L], g1)),
+                        lambda k: err(ev.rotate(ctx, ct, 1, k), np.roll(v, -1))),
+        "conj_key_gen": (lambda g: sch.conjugation_key_gen(sk, g),
+                         *sk_path(ev.automorphism(ctx, s[:L], gc)),
+                         lambda k: err(ev.conjugate(ctx, ct, k), v)),
+        "rekey_gen": (lambda g: sch.rekey_gen(sk, pk2, g),
+                      lambda g: ev.ksk_draws(ctx, g, dev, pk_path=True),
+                      lambda d: ev.ksk_body(ctx, s[:L], pk2.data, True, *d),
+                      lambda k: err(ev.re_encrypt(ctx, ct, k), v, sk2)),
+        "encrypt": (lambda g: sch.encrypt(rw.pk, pt, g),
+                    lambda g: rlwe.encrypt_draws(ctx, g, (), dev),
+                    lambda d: rlwe.encrypt_body(ctx, rw.pk, pt, *d),
+                    lambda c: err(c, v)),
+        "re_encrypt INDCCA": (lambda g: ind.re_encrypt(ccts, rk_cca, pk_hub, g),
+                              lambda g: rlwe.zero_draws(ind.ctx, g, ccts.data.shape[:-3],
+                                                        ccts.data.device,
+                                                        ind.params.pre_flood_bits),
+                              lambda d: ev.re_encrypt_indcca(ind.ctx, ccts, rk_cca, pk_hub, *d),
+                              check_cca),
+    }
+
+
+def randomized_phase(card, device, rw, mw, th_split, t_script):
+    """The randomized scheme: keygen, relin_key_gen, rot_key_gen (r = 1),
+    conj_key_gen, rekey_gen and encrypt on phase 2's N=2^15 world and
+    INDCCA re_encrypt on phase 7's multikey world (its scheme in PREMode
+    INDCCA, its context shared), each called WARMUP + 3 times on a CUDA
+    generator and as often on a CPU generator: every result ``torch.equal``
+    to the eager body on the same draws (a twin generator makes them
+    again), every key used once in a key switch (keygen's pair in an
+    encryption) and every encryption and INDCCA hop decrypted within its
+    gate; each of the seven keys must have captured its graph and replayed
+    it. Then µs per operation eager -> cached (CUDA generator, draws
+    included), the multikey prep's and the threshold phase's encryptions
+    split into encode, draws and body, the replays' kernel launches (each
+    of kernels 1-5 required), the graphs cached, the reserved memory's
+    growth and the seconds."""
+    import copy
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks import eval as ev
+    from ppqsflhe_tpu_torch.ckks import scheme as scheme_mod
+    from ppqsflhe_tpu_torch.ckks.types import Ciphertext
+    from ppqsflhe_tpu_torch.utils import graphs
+
+    t0 = time.perf_counter()
+    reserved0 = reserved_bytes(device)
+    reset_counts()
+    sch, msch, w = rw.sch, mw.sch, mw.w
+    ind = copy.copy(msch)           # phase 7's scheme, its context shared, in PREMode INDCCA
+    ind.params = dataclasses.replace(msch.params, pre_mode="INDCCA")
+    ind._graphs = {}
+    gens = {"CUDA": torch.Generator(device=device).manual_seed(SEED + 17),
+            "CPU": torch.Generator().manual_seed(SEED + 17)}
+    sk2, pk2 = sch.keygen(gens["CPU"])
+    pt = sch.make_plaintext(rw.v)
+    cca = (Ciphertext(w.stacks.data[0, :CCA_BATCH], w.stacks.scale), w.rk_to[0], w.pks[-1])
+    ops = random_ops(rw, mw, ind, pk2, sk2, pt, cca)
+    graphs_before = len(sch._graphs)
+    calls = scheme_mod.WARMUP + RANDOM_CALLS_EXTRA
+    errs = {}
+    for name, (cached, draw, body, check) in ops.items():
+        for kind, gen in gens.items():
+            for i in range(calls):
+                again = twin(gen)
+                got = cached(gen)
+                want = body(draw(again))
+                pairs = (list(zip((got[0].s_eval, got[1].data), want)) if name == "keygen"
+                         else [(got.data, want.data)])
+                if not all(torch.equal(a, b) for a, b in pairs):
+                    raise AssertionError(f"randomized scheme: {name}, {kind} generator, call "
+                                         f"{i + 1} of {calls}, differs from the eager body on "
+                                         f"the same draws")
+                errs.setdefault(name, []).append(check(got))
+    print(f"[randomized] {len(ops)} randomized operations x {calls} calls x {len(gens)} "
+          f"generators (CUDA, CPU), each torch.equal to its eager body on the same draws "
+          f"({scheme_mod.WARMUP} eager warm-ups a key, then the capture and replays) ({card})")
+    failures = []
+    for name, es in errs.items():
+        if name == "re_encrypt INDCCA":
+            rms, mx = max(e[0] for e in es), max(e[1] for e in es)
+            ok = rms < CCA_UNIT and mx < 4 * CCA_UNIT
+            what = (f"error RMS {rms:.4e}, max {mx:.4e} (the worst of the calls); gate RMS < "
+                    f"{CCA_UNIT:.4f}, max < {4 * CCA_UNIT:.4f}")
+        else:
+            mx = max(es)
+            ok = mx < ERR_GATE
+            use = "" if name in ("encrypt", "keygen") else ", each key used once in a key switch"
+            what = f"decrypt max err {mx:.3e} (the worst of the calls{use}); gate {ERR_GATE}"
+        print(f"[randomized {name}] {what}: {'held' if ok else 'FAILED'} ({card})")
+        if not (np.isfinite(mx) and ok):
+            failures.append(name)
+    if failures:
+        raise AssertionError(f"randomized scheme: gates failed for {failures}")
+    g1 = ev.rot_to_galois(1, sch.params.n)
+    for owner, keys in ((sch, ("keygen", "relin_key_gen", ("rot_key_gen", g1), "conj_key_gen",
+                               "rekey_gen", "encrypt")), (ind, (("re_encrypt", "INDCCA"),))):
+        for key in keys:
+            held = [op for k, op in owner._graphs.items() if k[0] == key]
+            if not any(op.graph is not None and op.replays for op in held):
+                raise AssertionError(f"randomized scheme: {key} captured no graph or never "
+                                     f"replayed it")
+    replayed = {k: v for k, v in graphs.replayed.items() if v}
+    missing = [k for k in ("mxu_ntt", "streamed_stage_a", "streamed_stage_b", "base_extend",
+                           "ks_inner_product") if not replayed.get(k)]
+    if missing:
+        raise AssertionError(f"randomized scheme: replays never launched {missing}")
+    print(f"[randomized] kernel launches by replays: {replayed}; by the wrappers (warm-ups, "
+          f"eager bodies, key checks) { {k: v for k, v in graphs.wrapper_counts().items() if v} }")
+    reserved_ops = reserved_bytes(device)
+
+    gen = gens["CUDA"]
+    for name, (cached, _, _, _) in ops.items():
+        pair = timed_pair(lambda: cached(gen), lambda: cached(gen))
+        print(f"[timing randomized] {name}: {show_pair(pair)}; eager/cached "
+              f"{pair[0][0] / pair[1][0]:.2f}x (draws included, CUDA generator; "
+              f"{'N=2^14, ' + str(CCA_BATCH) + ' ciphertexts' if 'INDCCA' in name else 'N=2^15'}"
+              f"; {card})")
+    mk_s = w.seconds
+    print(f"[randomized] multikey prep (phase 7): {MK_CLIENTS * w.stacks.data.shape[1]} "
+          f"encryptions {mk_s['encrypt']:.3f} s = encode {mk_s['encode']:.3f} + draws "
+          f"{mk_s['draws']:.3f} + body {mk_s['body']:.3f} s (synchronized); keygen "
+          f"{mk_s['keygen']:.3f} s, "
+          f"{2 * (MK_CLIENTS - 1)} rekeys {mk_s['rekeys']:.3f} s ({card})")
+    th_ms = sum(th_split.values()) * 1e3
+    print(f"[randomized] threshold (phase 8): {TH_PARTIES} x {w.stacks.data.shape[1]} "
+          f"encryptions {th_ms:.1f} ms = encode {th_split['encode'] * 1e3:.1f} + draws "
+          f"{th_split['draws'] * 1e3:.1f} + body {th_split['body'] * 1e3:.1f} ms "
+          f"(synchronized) ({card})")
+    n_rand = {k for k in list(sch._graphs) + list(ind._graphs)
+              if k[0] in ("keygen", "relin_key_gen", "conj_key_gen", "rekey_gen", "encrypt",
+                          ("re_encrypt", "INDCCA")) or k[0][0] == "rot_key_gen"}
+    mib = lambda b: b / 2**20
+    print(f"[memory randomized] {len(sch._graphs) - graphs_before} keys added on the N=2^15 "
+          f"scheme ({len(sch._graphs)} in all), {len(ind._graphs)} on the INDCCA twin; "
+          f"{len(n_rand)} randomized keys on the two, "
+          f"{sum(1 for k in n_rand if (sch._graphs.get(k) or ind._graphs.get(k)).graph)} "
+          f"captured; reserved device memory {mib(reserved0):.1f} MiB at the phase's start, "
+          f"{mib(reserved_ops):.1f} MiB after the checks (+{mib(reserved_ops - reserved0):.1f}), "
+          f"{mib(reserved_bytes(device)):.1f} MiB at the end ({card})")
+    now = time.perf_counter()
+    print(f"[randomized] phase 17: {now - t0:.1f} s; the whole script {now - t_script:.1f} s "
+          f"({card})")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true")
@@ -3723,7 +3948,8 @@ def main() -> None:
     kernels += files_phase(card, device, args.profile)
     rows, mk_world = multikey_phase(card, device)
     kernels += rows
-    kernels += threshold_phase(card, device)
+    rows, th_split = threshold_phase(card, device)
+    kernels += rows
     kernels += probe_phase(card, device)
     kernels += orchestrated_phase(card, device)
     kernels += twins_phase(card, device)
@@ -3742,6 +3968,7 @@ def main() -> None:
     del radix2
     compiled_train_phase(card, device)
     compiled_scheme_phase(card, device, rot_world, mk_world, t_script)
+    randomized_phase(card, device, rot_world, mk_world, th_split, t_script)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -92,10 +92,37 @@ def payloads(seed: int, n_clients: int = N_CLIENTS, slots: int = 8192, shapes=LS
     return out, sum(math.prod(s) for s in shapes)
 
 
+def encrypt_split(sch: CkksScheme, pks, vecs, gen: torch.Generator):
+    """Each client's vectors encrypted under its key as one batch →
+    (ciphertexts, seconds): the three parts of the encryptions timed apart,
+    each synchronized on the card: ``encode`` (``make_plaintext``: the host
+    encoding, its upload and the plaintext's NTT), ``draws`` (one sampler
+    call of each kind over the batch) and ``body`` (the scheme's cached
+    encryption on them)."""
+    secs = dict.fromkeys(("encode", "draws", "body"), 0.0)
+    sync = torch.cuda.synchronize if sch.device.type == "cuda" else (lambda: None)
+    cts = []
+    for pk, v in zip(pks, vecs):
+        t0 = time.perf_counter()
+        pt = sch.make_plaintext(v)
+        sync()
+        t1 = time.perf_counter()
+        draws = rlwe.encrypt_draws(sch.ctx, gen, pt.data.shape[:-2], pt.data.device)
+        sync()
+        t2 = time.perf_counter()
+        cts.append(sch.encrypt_drawn(pk, pt, draws))
+        sync()
+        t3 = time.perf_counter()
+        for k, dt in zip(secs, (t1 - t0, t2 - t1, t3 - t2)):
+            secs[k] += dt
+    return cts, secs
+
+
 def prep(sch: CkksScheme, vecs, gen: torch.Generator):
     """Keys for every client, the rekeys into the hub (the last client) and
     back in Montgomery form, and every client's vectors encrypted under its
-    own key as one (C, B, 2, L, N) stack; the seconds of each step."""
+    own key as one (C, B, 2, L, N) stack; the seconds of each step, the
+    encryptions' also split as :func:`encrypt_split` times them."""
     t0 = time.perf_counter()
     keys = [sch.keygen(gen) for _ in vecs]
     t_keys = time.perf_counter() - t0
@@ -103,16 +130,19 @@ def prep(sch: CkksScheme, vecs, gen: torch.Generator):
     sk_hub, pk_hub = keys[hub]
     rk_to = [ev.ksk_to_mont(sch.ctx, sch.rekey_gen(sk, pk_hub, gen)) for sk, _ in keys[:hub]]
     rk_from = [ev.ksk_to_mont(sch.ctx, sch.rekey_gen(sk_hub, pk, gen)) for _, pk in keys[:hub]]
+    if sch.device.type == "cuda":
+        torch.cuda.synchronize()
     t_rekeys = time.perf_counter() - t0 - t_keys
-    cts = [sch.encrypt_values(pk, v, gen) for (_, pk), v in zip(keys, vecs)]
+    cts, split = encrypt_split(sch, [pk for _, pk in keys], vecs, gen)
     stacks = Ciphertext(torch.stack([c.data for c in cts]), scale=cts[0].scale)
     del cts
     if stacks.data.is_cuda:
         torch.cuda.synchronize()
     t_enc = time.perf_counter() - t0 - t_keys - t_rekeys
-    return types.SimpleNamespace(sks=[k[0] for k in keys], stacks=stacks, rk_to=rk_to,
+    return types.SimpleNamespace(sks=[k[0] for k in keys], pks=[k[1] for k in keys],
+                                 stacks=stacks, rk_to=rk_to,
                                  rk_from=rk_from, seconds={"keygen": t_keys, "rekeys": t_rekeys,
-                                                           "encrypt": t_enc})
+                                                           "encrypt": t_enc, **split})
 
 
 def inbound_level(sch: CkksScheme, lazy: int) -> int:

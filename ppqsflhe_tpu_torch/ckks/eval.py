@@ -2,7 +2,7 @@
 
 Twin of :mod:`ppqsflhe_tpu.ckks.eval`: add, sub, negate, add_plain,
 mult_plain, mult_scalar, rescale, level_reduce, HYBRID key switching, the
-INDCPA re-encryption (the JAX scheme's ``re_encrypt`` body),
+INDCPA and INDCCA re-encryption (the JAX scheme's ``re_encrypt`` bodies),
 key-switch key generation (PRE rekeys from a public key, relinearization
 and Galois keys from a secret key, with a fresh or a seed-expanded mask),
 ct×ct mult with relinearization, and Galois rotations (plain, hoisted,
@@ -260,6 +260,20 @@ def re_encrypt(ctx: CkksContext, ct: Ciphertext, rekey: KeySwitchKey) -> Ciphert
                       scale=ct.scale)
 
 
+def re_encrypt_indcca(ctx: CkksContext, ct: Ciphertext, rekey: KeySwitchKey, pk_to: PublicKey,
+                      u: torch.Tensor, e: torch.Tensor,
+                      flood: torch.Tensor | None = None) -> Ciphertext:
+    """INDCCA proxy re-encryption's device work: :func:`re_encrypt`, then
+    a fresh encryption of zero under the TARGET key ``pk_to``, flooded,
+    added to it, from the draws of ``rlwe.zero_draws`` (one per ciphertext
+    of the batch)."""
+    from .rlwe import encrypt_zero_body
+
+    q, _, _ = ctx.limb_consts(ctx.q_idx(ct.nlimbs), ct.data.device)
+    z = encrypt_zero_body(ctx, pk_to, ct.nlimbs, u, e, flood)
+    return Ciphertext(data=modadd(re_encrypt(ctx, ct, rekey).data, z, q), scale=ct.scale)
+
+
 # ---------------------------------------------------------------------------
 # Key-switch key generation (PRE rekeys; relinearization and Galois keys)
 # ---------------------------------------------------------------------------
@@ -290,6 +304,60 @@ def _ksk_digit_seed(a_seed: bytes, j: int) -> bytes:
     return hashlib.blake2b(a_seed + j.to_bytes(2, "little"), digest_size=16).digest()
 
 
+def ksk_draws(ctx: CkksContext, gen: torch.Generator, device, pk_path: bool,
+              a_seed: bytes | None = None) -> tuple:
+    """:func:`keyswitch_key_gen`'s draws for every digit at once, one
+    sampler call of each kind. The pk path: u ternary (int32[dnum, N]) and
+    the Gaussian e0, e1 (int32[2, dnum, N]). The sk path: the digits' masks
+    in the coefficient domain (int64[dnum, L+K, N]: uniform, or expanded
+    from ``a_seed`` on the host) and the Gaussian e (int32[dnum, N])."""
+    from .rlwe import _expand_coeff
+
+    shape = (len(ctx.digit_groups), ctx.params.n)
+    sigma = ctx.params.sigma
+    if pk_path:
+        return (sampling.ternary(gen, shape, device),
+                sampling.discrete_gaussian(gen, (2,) + shape, sigma, device))
+    if a_seed is not None:
+        a = np.stack([_expand_coeff(ctx, _ksk_digit_seed(a_seed, j), len(ctx.moduli_qp))
+                      for j in range(shape[0])])
+        a = torch.from_numpy(a.view(np.int64)).to(device)
+    else:
+        a = sampling.uniform_rns(gen, ctx.moduli_qp, shape, device)
+    return a, sampling.discrete_gaussian(gen, shape, sigma, device)
+
+
+def ksk_body(ctx: CkksContext, target_eval_q: torch.Tensor, key: torch.Tensor,
+             pk_path: bool, x: torch.Tensor, e: torch.Tensor) -> KeySwitchKey:
+    """:func:`keyswitch_key_gen`'s device work on the draws of
+    :func:`ksk_draws` (``x`` = u or the masks), every digit at once:
+    ``key`` is the public key's data on the pk path, the secret's
+    full-basis eval stack on the sk path."""
+    from .rlwe import _poly_mul, _signed_to_eval
+
+    n = ctx.params.n
+    L = ctx.params.num_q
+    K = ctx.params.num_p
+    nd = len(ctx.digit_groups)
+    dev = target_eval_q.device
+    all_idx = tuple(range(L + K))
+    q_all, _, _ = ctx.limb_consts(all_idx, dev)
+    q_l, qinv_l, r2_l = ctx.limb_consts(range(L), dev)
+    factors = ctx.consts("ks_factors", lambda: (f for row in _ks_target_factors(ctx)
+                                                for f in row), dev).reshape(nd, L, 1)
+    m_q = modmul(target_eval_q, factors, q_l, qinv_l, r2_l)
+    m = torch.cat([m_q, torch.zeros((nd, K, n), dtype=torch.int64, device=dev)], dim=1)
+    e = _signed_to_eval(ctx, e, all_idx)
+    if pk_path:
+        u = _signed_to_eval(ctx, x, all_idx)
+        b = modadd(modadd(_poly_mul(ctx, key[0], u, all_idx), e[0], q_all), m, q_all)
+        a = modadd(_poly_mul(ctx, key[1], u, all_idx), e[1], q_all)
+    else:
+        a = ctx.ntt(x, all_idx)
+        b = modadd(modadd(modneg(_poly_mul(ctx, a, key, all_idx), q_all), e, q_all), m, q_all)
+    return KeySwitchKey(data=torch.stack([b, a], dim=1))
+
+
 def keyswitch_key_gen(ctx: CkksContext, target_eval_q: torch.Tensor,
                       gen: torch.Generator, pk_to: PublicKey | None = None,
                       sk_to: SecretKey | None = None,
@@ -301,41 +369,15 @@ def keyswitch_key_gen(ctx: CkksContext, target_eval_q: torch.Tensor,
     conjugation keys): fresh from ``gen``, or with ``a_seed`` expanded from
     the digit's seed :func:`_ksk_digit_seed` (the seeded wire ships only the
     b rows and the seed)."""
-    from .rlwe import _poly_mul, _signed_to_eval, expand_a
-
     if (pk_to is None) == (sk_to is None):
         raise ValueError("give exactly one of pk_to and sk_to")
     if a_seed is not None and pk_to is not None:
         raise ValueError("a_seed applies to secret-key KSKs only (the pk path's rows "
                          "are not uniform)")
-    n = ctx.params.n
-    L = ctx.params.num_q
-    K = ctx.params.num_p
-    dev = target_eval_q.device
-    all_idx = tuple(range(L + K))
-    q_all, _, _ = ctx.limb_consts(all_idx, dev)
-    q_l, qinv_l, r2_l = ctx.limb_consts(range(L), dev)
-    noise = lambda: _signed_to_eval(
-        ctx, sampling.discrete_gaussian(gen, n, ctx.params.sigma, dev), all_idx)
-    rows = []
-    for j, f in enumerate(_ks_target_factors(ctx)):
-        fj = ctx.consts(("ks_factor", j), lambda: f, dev)
-        m_q = modmul(target_eval_q, fj, q_l, qinv_l, r2_l)
-        m = torch.cat([m_q, torch.zeros((K, n), dtype=torch.int64, device=dev)])
-        if pk_to is not None:
-            u = _signed_to_eval(ctx, sampling.ternary(gen, n, dev), all_idx)
-            e0, e1 = noise(), noise()
-            b = modadd(modadd(_poly_mul(ctx, pk_to.data[0], u, all_idx), e0, q_all), m, q_all)
-            a = modadd(_poly_mul(ctx, pk_to.data[1], u, all_idx), e1, q_all)
-        else:
-            if a_seed is not None:
-                a = expand_a(ctx, _ksk_digit_seed(a_seed, j), L + K, dev)
-            else:
-                a = ctx.ntt(sampling.uniform_rns(gen, ctx.moduli_qp, n, dev), all_idx)
-            as_ = _poly_mul(ctx, a, sk_to.s_eval, all_idx)
-            b = modadd(modadd(modneg(as_, q_all), noise(), q_all), m, q_all)
-        rows.append(torch.stack([b, a]))
-    return KeySwitchKey(data=torch.stack(rows))
+    pk_path = pk_to is not None
+    draws = ksk_draws(ctx, gen, target_eval_q.device, pk_path, a_seed)
+    key = pk_to.data if pk_path else sk_to.s_eval
+    return ksk_body(ctx, target_eval_q, key, pk_path, *draws)
 
 
 # ---------------------------------------------------------------------------

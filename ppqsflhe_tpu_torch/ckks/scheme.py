@@ -9,26 +9,37 @@ where it creates new tensors: the card unless the caller asks for another
 (``device="cpu"`` runs the plain versions). Randomness comes from explicit
 ``torch.Generator``s.
 
-The JAX scheme jits each deterministic operation once per (operation,
-static configuration) (``_jit``). Here :meth:`CkksScheme._graph` caches a
-CUDA graph per operation, keyed by the JAX key plus the inputs' shapes,
-dtypes and devices, every ciphertext's and plaintext's scale and the key's
+The JAX scheme jits each operation once per (operation, static
+configuration) (``_jit``). Here :meth:`CkksScheme._graph` caches a CUDA
+graph per operation, keyed by the JAX key plus the inputs' shapes, dtypes
+and devices, every ciphertext's and plaintext's scale and the key's
 ``mont`` flag: add, sub, add_plain, mult_plain, mult_scalar, mult,
-rescale, rotate, conjugate, INDCPA re_encrypt and decrypt's device half
-(``"decrypt_core"``). A key's first :data:`WARMUP` calls run the eager body
-on a side stream, the next captures it over static input buffers the cache
-owns (ciphertexts, plaintexts and key-switch keys are copied in, so keys of
-one shape share a graph and none is kept alive by one), and every later
-call copies its inputs in and replays. Each call returns clones of the
-graph's outputs, so no later call changes an earlier result. The body runs
-eagerly on the CPU, inside :func:`..utils.graphs.eager` (every whole-program
-warm-up), while the current stream captures (a whole-program graph then
-holds the operation's kernels) and on a context that runs collectives
+rescale, rotate, conjugate, re_encrypt in both PRE modes, decrypt's device
+half (``"decrypt_core"``), and the randomized operations: keygen (without
+a seed, as the JAX scheme jits it), relin_key_gen, rot_key_gen per Galois
+element, conj_key_gen, rekey_gen and encrypt. A randomized operation draws
+first, outside the cache, one sampler call of each kind over the whole
+batch on the caller's generator (``rlwe.*_draws``, ``ev.ksk_draws``); its
+draws are inputs of the cached body like the ciphertexts, so a CPU and a
+CUDA generator serve alike and no generator is reseeded or moved. A key's
+first :data:`WARMUP` calls run the eager body on a side stream, the next
+captures it over static input buffers the cache owns (ciphertexts,
+plaintexts, keys and draws are copied in, so keys of one shape share a
+graph and none is kept alive by one), and every later call copies its
+inputs in and replays. Each call returns clones of the graph's outputs, so
+no later call changes an earlier result. An operation that reads a secret
+key, draws or a plaintext (the randomized ones and ``decrypt_core``) then
+zeroes its static inputs and outputs, so the cache keeps no copy of a
+secret between calls; the graph's pool of intermediates is, like the
+allocator's freed blocks on the eager path, overwritten only by later
+work. The body runs eagerly on the CPU,
+inside :func:`..utils.graphs.eager` (every whole-program warm-up), while
+the current stream captures (a whole-program graph then holds the
+operation's kernels) and on a context that runs collectives
 (``CkksContext.per_op_graphs`` False). On the card a failed capture raises
 ``RuntimeError`` naming the operation and its key; there is no eager
-fallback. The randomized operations (key generation, encryption, INDCCA
-re-encryption) and the hoisted rotations stay eager, as the JAX scheme
-leaves the latter unjitted.
+fallback. The hoisted rotations stay eager, as the JAX scheme leaves them
+unjitted.
 """
 
 from __future__ import annotations
@@ -40,7 +51,6 @@ import torch
 
 from . import eval as ev
 from . import rlwe
-from ..core.modarith import modadd
 from ..utils import graphs
 from ..utils.graphs import WARMUP
 from .encoding import Encoder
@@ -67,6 +77,8 @@ def _signature(x) -> tuple:
 
 
 def _clone(out):
+    if isinstance(out, tuple):
+        return tuple(_clone(o) for o in out)
     return (out.clone() if isinstance(out, torch.Tensor)
             else dataclasses.replace(out, data=out.data.clone()))
 
@@ -78,11 +90,15 @@ def _on_card(t: torch.Tensor) -> bool:
 class _OpGraph:
     """One cached operation at one key: :data:`WARMUP` eager calls on a side
     stream, then one capture over static copies of the inputs, then
-    replays; every call's result is the caller's own."""
+    replays; every call's result is the caller's own. With ``scrub`` the
+    static inputs and outputs are zeroed after each replay's result is
+    cloned, so the cache keeps no copy of a secret, a draw or a plaintext
+    between calls."""
 
-    def __init__(self, what: str, body):
-        self.what, self.body = what, body
+    def __init__(self, what: str, body, scrub: bool = False):
+        self.what, self.body, self.scrub = what, body, scrub
         self.calls = 0              # eager warm-up calls so far
+        self.replays = 0
         self.static = None          # the inputs' static buffers
         self.graph = None
 
@@ -103,7 +119,12 @@ class _OpGraph:
             self.graph = graphs.Graph(lambda: self.body(*args), self.what)
         else:
             self._load(leaves)
-        return _clone(self.graph.replay())
+        out = _clone(self.graph.replay())
+        self.replays += 1
+        if self.scrub:
+            for t in [*self.static, *graphs._tensors(self.graph.output)]:
+                t.zero_()
+        return out
 
 
 class CkksScheme:
@@ -114,12 +135,14 @@ class CkksScheme:
         self.encoder = Encoder(params.n, params.slots or params.n // 2)
         self._graphs: dict = {}
 
-    def _graph(self, key, body, *inputs):
+    def _graph(self, key, body, *inputs, scrub: bool = False):
         """``body(*inputs)`` through the per-op graph cache, the
         counterpart of the JAX scheme's ``_jit``: ``key`` is the JAX key
         (the operation and its static configuration); the inputs
         (ciphertexts, plaintexts, key-switch keys, tensors) add their
-        signatures. Eager on the CPU, inside :func:`..utils.graphs.eager`,
+        signatures. ``scrub`` (an operation that reads a secret key, draws
+        or a plaintext) zeroes the graph's static inputs and outputs after
+        every call. Eager on the CPU, inside :func:`..utils.graphs.eager`,
         during another capture and on a context that runs collectives."""
         if (not _on_card(_leaf(inputs[0])) or not self.ctx.per_op_graphs
                 or graphs.bypass()):
@@ -127,7 +150,7 @@ class CkksScheme:
         full = (key,) + tuple(_signature(x) for x in inputs)
         op = self._graphs.get(full)
         if op is None:
-            op = self._graphs[full] = _OpGraph(f"the CkksScheme operation {full}", body)
+            op = self._graphs[full] = _OpGraph(f"the CkksScheme operation {full}", body, scrub)
         return op(inputs)
 
     # -- encoding -----------------------------------------------------------
@@ -157,38 +180,63 @@ class CkksScheme:
 
     def keygen(self, gen: torch.Generator,
                a_seed: bytes | None = None) -> tuple[SecretKey, PublicKey]:
-        return rlwe.keygen(self.ctx, gen, self.device, a_seed)
+        """Ternary secret and public key; with ``a_seed`` the key's ``a``
+        expands from the seed and the body runs eagerly, as the JAX scheme
+        leaves the seeded keygen unjitted."""
+        draws = rlwe.keygen_draws(self.ctx, gen, self.device, a_seed)
+        body = lambda s, a, e: rlwe.keygen_body(self.ctx, s, a, e)
+        out = (body(*draws) if a_seed is not None
+               else self._graph("keygen", body, *draws, scrub=True))
+        return rlwe.keys_of(draws[0], *out)
+
+    def _sk_ksk(self, key, target, sk: SecretKey, gen: torch.Generator) -> KeySwitchKey:
+        """A key-switch key under ``sk`` keying ``target(s_eval[:L])``
+        through the cache under ``key``."""
+        draws = ev.ksk_draws(self.ctx, gen, sk.s_eval.device, pk_path=False)
+        body = lambda s, a, e: ev.ksk_body(self.ctx, target(s[: self.params.num_q]), s, False,
+                                           a, e)
+        return self._graph(key, body, sk.s_eval, *draws, scrub=True)
 
     def rekey_gen(self, sk_from: SecretKey, pk_to: PublicKey,
                   gen: torch.Generator) -> KeySwitchKey:
         """Proxy re-encryption key A→B from A's secret and B's public key
         (INDCPA PRE)."""
         L = self.params.num_q
-        return ev.keyswitch_key_gen(self.ctx, sk_from.s_eval[:L], gen, pk_to=pk_to)
+        draws = ev.ksk_draws(self.ctx, gen, sk_from.s_eval.device, pk_path=True)
+        body = lambda s, pk, u, e: ev.ksk_body(self.ctx, s[:L], pk.data, True, u, e)
+        return self._graph("rekey_gen", body, sk_from.s_eval, pk_to, *draws, scrub=True)
 
     def relin_key_gen(self, sk: SecretKey, gen: torch.Generator) -> KeySwitchKey:
         """Key switching s² → s, for relinearizing a ct×ct product."""
-        L = self.params.num_q
-        s = sk.s_eval[:L]
-        s2 = rlwe._poly_mul(self.ctx, s, s, tuple(range(L)))
-        return ev.keyswitch_key_gen(self.ctx, s2, gen, sk_to=sk)
+        idx = tuple(range(self.params.num_q))
+        return self._sk_ksk("relin_key_gen", lambda s: rlwe._poly_mul(self.ctx, s, s, idx),
+                            sk, gen)
 
-    def _galois_key(self, sk: SecretKey, g: int, gen: torch.Generator) -> KeySwitchKey:
-        s_g = ev.automorphism(self.ctx, sk.s_eval[: self.params.num_q], g)
-        return ev.keyswitch_key_gen(self.ctx, s_g, gen, sk_to=sk)
+    def _galois_key(self, key, sk: SecretKey, g: int, gen: torch.Generator) -> KeySwitchKey:
+        return self._sk_ksk(key, lambda s: ev.automorphism(self.ctx, s, g), sk, gen)
 
     def rotation_key_gen(self, sk: SecretKey, rotations, gen: torch.Generator) -> dict:
         """Keys for slot rotations (EvalRotateKeyGen), by rotation."""
-        return {r: self._galois_key(sk, ev.rot_to_galois(r, self.params.n), gen)
-                for r in rotations}
+        out = {}
+        for r in rotations:
+            g = ev.rot_to_galois(r, self.params.n)
+            out[r] = self._galois_key(("rot_key_gen", g), sk, g, gen)
+        return out
 
     def conjugation_key_gen(self, sk: SecretKey, gen: torch.Generator) -> KeySwitchKey:
-        return self._galois_key(sk, 2 * self.params.n - 1, gen)
+        return self._galois_key("conj_key_gen", sk, 2 * self.params.n - 1, gen)
 
     # -- encrypt / decrypt --------------------------------------------------
 
     def encrypt(self, pk: PublicKey, pt: Plaintext, gen: torch.Generator) -> Ciphertext:
-        return rlwe.encrypt(self.ctx, pk, pt, gen)
+        return self.encrypt_drawn(pk, pt, rlwe.encrypt_draws(self.ctx, gen, pt.data.shape[:-2],
+                                                             pt.data.device))
+
+    def encrypt_drawn(self, pk: PublicKey, pt: Plaintext, draws) -> Ciphertext:
+        """:meth:`encrypt`'s body through the cache on the draws of
+        ``rlwe.encrypt_draws``."""
+        return self._graph("encrypt", lambda p, t, u, e: rlwe.encrypt_body(self.ctx, p, t, u, e),
+                           pk, pt, *draws, scrub=True)
 
     def encrypt_values(self, pk: PublicKey, values, gen: torch.Generator,
                        nlimbs: int | None = None) -> Ciphertext:
@@ -198,7 +246,8 @@ class CkksScheme:
         """The device half (``"decrypt_core"``) through the graph cache,
         the decoding on the host."""
         coeffs = self._graph("decrypt_core",
-                             lambda s, c: rlwe.decrypt_to_coeffs(self.ctx, s, c), sk.s_eval, ct)
+                             lambda s, c: rlwe.decrypt_to_coeffs(self.ctx, s, c), sk.s_eval, ct,
+                             scrub=True)
         return rlwe.decode_coeffs(self.ctx, coeffs, ct, self.encoder, num)
 
     def _maybe_drop_ext(self, ct: Ciphertext) -> Ciphertext:
@@ -282,10 +331,8 @@ class CkksScheme:
         if not indcca:
             return self._graph("re_encrypt", lambda c, k: ev.re_encrypt(self.ctx, c, k), ct,
                                rekey)
-        out = ev.re_encrypt(self.ctx, ct, rekey)
-        l = ct.nlimbs
-        dev = ct.data.device
-        q, _, _ = self.ctx.limb_consts(self.ctx.q_idx(l), dev)
-        z = rlwe.encrypt_zero(self.ctx, pk_to, l, gen, self.params.pre_flood_bits,
-                              lead=ct.data.shape[:-3], device=dev)
-        return Ciphertext(data=modadd(out.data, z, q), scale=ct.scale)
+        draws = rlwe.zero_draws(self.ctx, gen, ct.data.shape[:-3], ct.data.device,
+                                self.params.pre_flood_bits)
+        return self._graph(("re_encrypt", "INDCCA"),
+                           lambda c, k, pk, *d: ev.re_encrypt_indcca(self.ctx, c, k, pk, *d),
+                           ct, rekey, pk_to, *draws, scrub=True)

@@ -67,9 +67,10 @@ def flood_bits_for_ss(ctx: CkksContext, ss: int, noise_bits: int | None = None) 
     return noise_bits + ss
 
 
-def smudging_noise(gen: torch.Generator, n: int, bits: int, device=None) -> torch.Tensor:
-    """Uniform flooding noise in [−2^bits, 2^bits] (int64)."""
-    return sampling.uniform_signed(gen, n, bits, device)
+def smudging_noise(gen: torch.Generator, shape, bits: int, device=None) -> torch.Tensor:
+    """Uniform flooding noise in [−2^bits, 2^bits] (int64), one draw of
+    ``shape`` (a batch shape plus (N,), or N)."""
+    return sampling.uniform_signed(gen, shape, bits, device)
 
 
 def common_random_poly(ctx: CkksContext, seed: int, device="cuda") -> torch.Tensor:
@@ -136,11 +137,8 @@ def decryption_share(ctx: CkksContext, ct: Ciphertext, s_eval: torch.Tensor,
 
 
 def _flood(ctx: CkksContext, ct: Ciphertext, gen: torch.Generator, bits: int) -> torch.Tensor:
-    """One flood per ciphertext of the batch: int64[*lead, N]."""
-    n = ctx.params.n
-    lead = tuple(ct.data.shape[:-3])
-    count = math.prod(lead)
-    return torch.stack([smudging_noise(gen, n, bits) for _ in range(count)]).reshape(lead + (n,))
+    """One flood per ciphertext of the batch, one draw: int64[*lead, N]."""
+    return smudging_noise(gen, tuple(ct.data.shape[:-3]) + (ctx.params.n,), bits)
 
 
 def partial_decrypt(ctx: CkksContext, sk_share: SecretKey, ct: Ciphertext,
@@ -217,9 +215,7 @@ def shamir_share_secret(ctx: CkksContext, sk_share: SecretKey, n_parties: int, t
     int64[n_parties, L+K, N], row j−1 for party j."""
     if not 1 <= t <= n_parties:
         raise ValueError(f"need 1 <= t <= N, got t={t}, N={n_parties}")
-    coeffs = torch.stack([sampling.uniform_rns(gen, ctx.moduli_qp, ctx.params.n)
-                          for _ in range(t - 1)]) if t > 1 else torch.zeros(
-        (0, len(ctx.moduli_qp), ctx.params.n), dtype=torch.int64)
+    coeffs = sampling.uniform_rns(gen, ctx.moduli_qp, (t - 1, ctx.params.n))
     return shamir_rows(ctx, sk_share.s_eval, coeffs, n_parties)
 
 

@@ -5,8 +5,11 @@ ternary secret, the exact CDT discrete Gaussian with σ = 3.19, uniform
 flooding noise, per-limb uniform residues), drawn from torch's generator
 instead of ``jax.random`` —
 so the bits differ from the JAX package's for the same seed, by design.
-Draws happen on the generator's device (the CPU for a CPU generator) and
-the result is moved to ``device``.
+Each sampler takes a shape, a leading batch shape plus ``(n,)`` (an int
+``n`` alone is one entry), and draws the whole batch in one call, where the
+JAX tools split one key per entry under ``vmap``. Draws happen on the
+generator's device (the CPU for a CPU generator) and the result is moved to
+``device`` in one copy.
 """
 
 from __future__ import annotations
@@ -24,9 +27,13 @@ from .modarith import INT64_MIN, u64_to_i64
 SIGMA = 3.19  # OpenFHE default CKKS error std-dev
 
 
-def ternary(gen: torch.Generator, n: int, device=None) -> torch.Tensor:
-    """Uniform ternary secret in {-1, 0, 1}^n (int32)."""
-    return torch.randint(-1, 2, (n,), generator=gen, dtype=torch.int32,
+def _shape(shape) -> tuple:
+    return (shape,) if isinstance(shape, int) else tuple(shape)
+
+
+def ternary(gen: torch.Generator, shape, device=None) -> torch.Tensor:
+    """Uniform ternary secret in {-1, 0, 1}^shape (int32)."""
+    return torch.randint(-1, 2, _shape(shape), generator=gen, dtype=torch.int32,
                          device=gen.device).to(device)
 
 
@@ -54,39 +61,53 @@ def _cdt_thresholds(sigma: float) -> np.ndarray:
     return np.array(thr, dtype=np.uint64)
 
 
-def discrete_gaussian(gen: torch.Generator, n: int, sigma: float = SIGMA,
+_CDT_TABLES: dict = {}
+
+
+def _cdt_table(sigma: float, device) -> torch.Tensor:
+    """The CDT thresholds with their sign bit flipped (unsigned order as
+    signed int64, ascending) on ``device``, uploaded once per (σ, device)."""
+    key = (float(sigma), str(device))
+    t = _CDT_TABLES.get(key)
+    if t is None:
+        thr = torch.from_numpy(u64_to_i64(_cdt_thresholds(float(sigma))))
+        t = _CDT_TABLES[key] = (thr ^ INT64_MIN).to(device)
+    return t
+
+
+def discrete_gaussian(gen: torch.Generator, shape, sigma: float = SIGMA,
                       device=None) -> torch.Tensor:
     """Exact discrete Gaussian by CDT inversion: magnitude = #{thresholds ≤
     u} for a uniform 64-bit u, independent uniform sign (int32)."""
-    halves = torch.randint(0, 1 << 32, (2, n), generator=gen, dtype=torch.int64,
+    shape = _shape(shape)
+    halves = torch.randint(0, 1 << 32, (2,) + shape, generator=gen, dtype=torch.int64,
                            device=gen.device)
     u = (halves[0] << 32) | halves[1]          # uniform 64-bit pattern
-    thr = torch.as_tensor(u64_to_i64(_cdt_thresholds(float(sigma))),
-                          device=gen.device)
-    # unsigned u >= thr: flip both sign bits, compare signed
-    mag = ((u ^ INT64_MIN)[:, None] >= (thr ^ INT64_MIN)[None, :]).sum(1)
-    sign = torch.randint(0, 2, (n,), generator=gen, dtype=torch.int64,
-                         device=gen.device)
+    # unsigned thr <= u: flip both sign bits, count in signed order
+    mag = torch.searchsorted(_cdt_table(sigma, gen.device), u ^ INT64_MIN, right=True)
+    sign = torch.randint(0, 2, shape, generator=gen, dtype=torch.int64, device=gen.device)
     return torch.where(sign == 1, -mag, mag).to(torch.int32).to(device)
 
 
-def uniform_signed(gen: torch.Generator, n: int, bits: int, device=None) -> torch.Tensor:
+def uniform_signed(gen: torch.Generator, shape, bits: int, device=None) -> torch.Tensor:
     """Uniform flooding noise in [-2^bits, 2^bits] (int64): the
     re-randomizer's flooding in INDCCA re-encryption."""
     if bits <= 0:
-        return torch.zeros((n,), dtype=torch.int64, device=device)
+        return torch.zeros(_shape(shape), dtype=torch.int64, device=device)
     bound = 1 << bits
-    return torch.randint(-bound, bound + 1, (n,), generator=gen, dtype=torch.int64,
+    return torch.randint(-bound, bound + 1, _shape(shape), generator=gen, dtype=torch.int64,
                          device=gen.device).to(device)
 
 
-def uniform_rns(gen: torch.Generator, moduli: Sequence[int], n: int,
+def uniform_rns(gen: torch.Generator, moduli: Sequence[int], shape,
                 device=None) -> torch.Tensor:
-    """Uniform element of R_Q in RNS form: int64[L, n], limb i in [0, q_i)."""
+    """Uniform elements of R_Q in RNS form: int64[*lead, L, n] for
+    ``shape`` = (*lead, n), limb i in [0, q_i)."""
+    shape = _shape(shape)
     return torch.stack([
-        torch.randint(0, int(q), (n,), generator=gen, dtype=torch.int64,
+        torch.randint(0, int(q), shape, generator=gen, dtype=torch.int64,
                       device=gen.device)
-        for q in moduli]).to(device)
+        for q in moduli], dim=-2).to(device)
 
 
 def signed_to_rns(v: torch.Tensor, moduli: Sequence[int]) -> torch.Tensor:

@@ -14,10 +14,15 @@ the JAX scheme's ``_jit``) on the CPU, where no CUDA graph is captured:
   the WARMUP eager calls, one capture per key, inputs copied into static
   buffers (so keys of one shape share a graph), results cloned, the bypass
   inside ``graphs.eager()`` and during a capture, none on a context that
-  runs collectives, and a failed capture raising with no eager fallback.
+  runs collectives, and a failed capture raising with no eager fallback;
+- the randomized operations' bookkeeping: the seven JAX keys (one per
+  Galois element), the seeded keygen never cached, the WARMUP eager calls
+  then one capture, draws and keys copied in (two public keys of one shape
+  share a graph), every result the eager body on the same draws, cloned,
+  and their static buffers (``decrypt_core``'s too) zeroed after a call.
 
 The capture and replay on the card, bit-equal to the eager operations, are
-``chip_smoke.py``'s phase 16."""
+``chip_smoke.py``'s phases 16 and 17."""
 
 import dataclasses
 
@@ -430,8 +435,125 @@ def test_inner_product_composes_cached_ops(worlds, stand_in):
     rng = np.random.default_rng(7)
     u1, u2 = (rng.uniform(-1, 1, sch.encoder.slots) * 0.1 for _ in range(2))
     c1, c2 = (sch.encrypt_values(w["pk"], u, gen) for u in (u1, u2))
+    keys_made = set(sch._graphs)            # the key generators' and encrypt's
     ip = sch.inner_product(c1, c2, w["relin"], rots)
     assert abs(sch.decrypt(w["sk"], ip)[:4] - np.dot(u1, u2)).max() < 1e-3
-    ops = sorted({k[0] if isinstance(k[0], str) else k[0][0] for k in sch._graphs})
+    new = set(sch._graphs) - keys_made
+    ops = sorted({k[0] if isinstance(k[0], str) else k[0][0] for k in new})
     assert ops == ["add", "decrypt_core", "mult", "rotate"]
-    assert len([k for k in sch._graphs if k[0][0] == "rotate"]) == 9
+    assert len([k for k in new if k[0][0] == "rotate"]) == 9
+
+
+# ---------------------------------------------------------------------------
+# The randomized operations: draws outside the cache, bodies through it
+# ---------------------------------------------------------------------------
+
+def _indcca_scheme(w):
+    return CkksScheme(dataclasses.replace(w["sch"].params, pre_mode="INDCCA"), device="cpu")
+
+
+def _twin(gen: torch.Generator) -> torch.Generator:
+    """A generator in ``gen``'s state: it makes the draws ``gen`` is about
+    to make."""
+    return torch.Generator(gen.device).set_state(gen.get_state())
+
+
+def test_randomized_cache_keys(worlds, stand_in):
+    """keygen, relin_key_gen, rot_key_gen (one key per Galois element),
+    conj_key_gen, rekey_gen, encrypt and INDCCA re_encrypt each cache under
+    the JAX scheme's key; the seeded keygen is never cached, as the JAX
+    scheme leaves it unjitted."""
+    w = worlds[MXU]
+    sch = _indcca_scheme(w)
+    gen = torch.Generator().manual_seed(8)
+    sk, pk = sch.keygen(gen)
+    sch.relin_key_gen(sk, gen)
+    sch.rotation_key_gen(sk, [1, 2], gen)
+    sch.conjugation_key_gen(sk, gen)
+    rk = ev.ksk_to_mont(sch.ctx, sch.rekey_gen(sk, w["pk"], gen))
+    ct = sch.encrypt(pk, w["pt"], gen)
+    sch.re_encrypt(ct, rk, w["pk"], gen)
+    g1, g2 = (ev.rot_to_galois(r, N) for r in (1, 2))
+    assert {k[0] for k in sch._graphs} == {
+        "keygen", "relin_key_gen", ("rot_key_gen", g1), ("rot_key_gen", g2), "conj_key_gen",
+        "rekey_gen", "encrypt", ("re_encrypt", "INDCCA")}
+    before = set(sch._graphs)
+    for _ in range(scheme_mod.WARMUP + 2):
+        sk_s, pk_s = sch.keygen(gen, a_seed=bytes(16))
+    assert set(sch._graphs) == before
+    assert torch.equal(pk_s.data[1], rlwe.expand_a(sch.ctx, bytes(16), len(sch.ctx.moduli_qp),
+                                                   "cpu"))
+
+
+def test_randomized_warmup_capture_copies_draws_and_keys(worlds, stand_in):
+    """encrypt under two public keys of one shape, alternately: WARMUP
+    eager calls, then one capture, then replays, one graph for both keys;
+    each result is the eager body on the same draws (a twin generator
+    makes them again) under its own key, and stays so after later calls.
+    INDCCA re_encrypt and keygen (a tuple of results) the same way."""
+    w = worlds[MXU]
+    sch = _indcca_scheme(w)
+    ctx = sch.ctx
+    gen = torch.Generator().manual_seed(9)
+    pks = [w["pk"], sch.keygen(gen)[1]]
+    stand_in.clear()
+    StandInGraph.captures = []
+    calls = scheme_mod.WARMUP + 3
+    kept = []
+    for i in range(calls):
+        pk = pks[i % 2]
+        draws = rlwe.encrypt_draws(ctx, _twin(gen), w["pt"].data.shape[:-2], "cpu")
+        kept.append((sch.encrypt(pk, w["pt"], gen), rlwe.encrypt_body(ctx, pk, w["pt"], *draws)))
+        assert len(stand_in) == min(i + 1, scheme_mod.WARMUP)
+        assert len(StandInGraph.captures) == (0 if i < scheme_mod.WARMUP else 1)
+    (key,) = [k for k in sch._graphs if k[0] == "encrypt"]
+    op = sch._graphs[key]
+    assert "encrypt" in StandInGraph.captures[0]
+    for got, want in kept:
+        assert torch.equal(got.data, want.data) and got.scale == want.scale
+        assert got.data.data_ptr() != op.graph.output.data.data_ptr()
+    assert not torch.equal(kept[0][0].data, kept[2][0].data)    # fresh draws each call
+
+    rks = [ev.ksk_to_mont(ctx, sch.rekey_gen(w["sk"], pk, gen)) for pk in pks]
+    ct = kept[0][0]
+    for i in range(calls):
+        rk, pk = rks[i % 2], pks[i % 2]
+        draws = rlwe.zero_draws(ctx, _twin(gen), ct.data.shape[:-3], "cpu",
+                                sch.params.pre_flood_bits)
+        got = sch.re_encrypt(ct, rk, pk, gen)
+        assert torch.equal(got.data, ev.re_encrypt_indcca(ctx, ct, rk, pk, *draws).data)
+    assert sch._graphs[next(k for k in sch._graphs if k[0] == ("re_encrypt", "INDCCA"))].graph
+
+    pairs = []
+    for _ in range(calls):
+        draws = rlwe.keygen_draws(ctx, _twin(gen), "cpu")
+        pairs.append((sch.keygen(gen), rlwe.keygen_body(ctx, *draws), draws[0]))
+    for (sk, pk), (s_eval, pk_data), s_int in pairs:
+        assert torch.equal(sk.s_eval, s_eval) and torch.equal(pk.data, pk_data)
+        assert np.array_equal(sk.s_int, s_int.numpy())
+    op = sch._graphs[next(k for k in sch._graphs if k[0] == "keygen")]
+    assert pairs[-1][0][0].s_eval.data_ptr() != op.graph.output[0].data_ptr()
+
+
+def test_randomized_ops_keep_no_secret_in_the_cache(worlds, stand_in):
+    """Once captured, every operation that reads a secret key, draws or a
+    plaintext (the seven randomized keys and ``decrypt_core``) zeroes its
+    static inputs and outputs after each call; a deterministic one
+    (``add``) keeps them."""
+    w = worlds[MXU]
+    sch = _indcca_scheme(w)
+    gen = torch.Generator().manual_seed(10)
+    for _ in range(scheme_mod.WARMUP + 2):
+        sk, pk = sch.keygen(gen)
+        sch.relin_key_gen(sk, gen)
+        sch.rotation_key_gen(sk, [1], gen)
+        sch.conjugation_key_gen(sk, gen)
+        rk = ev.ksk_to_mont(sch.ctx, sch.rekey_gen(sk, w["pk"], gen))
+        ct = sch.encrypt(pk, w["pt"], gen)
+        sch.decrypt(w["sk"], sch.re_encrypt(ct, rk, w["pk"], gen))
+        sch.add(ct, ct)
+    assert len(sch._graphs) == 9
+    for key, op in sch._graphs.items():
+        assert op.graph is not None and op.replays == 2, key
+        held = [*op.static, *graphs._tensors(op.graph.output)]
+        assert any(bool(t.any()) for t in held) == (key[0] == "add"), key
