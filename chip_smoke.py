@@ -70,7 +70,9 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   from round 1's decrypt; round 1 lowers every client's validation MSE;
   the GRU forward on the card is within 1e-4 of the CPU's (the clients
   train through ``train_client``'s CUDA graphs); kernels 2 and 3
-  (A, B) and 1 (C) launched and are bit-equal at the run's shapes. Then
+  (A, B) and 1 (C) launched and are bit-equal at the run's shapes; C's
+  threshold tools captured and replayed their graphs (the fused documents
+  of eager calls and replays the same bytes). Then
   each round's per-step table (the step log), ms per eager training step
   and epoch, and the device's idle share over one eager epoch and one warm
   round of B;
@@ -101,9 +103,19 @@ Drives the port's paths through ``ppqsflhe_tpu_torch``:
   not (11 all-to-alls and one all-reduce a round); a sharded rotation and
   conjugation bit-equal to the scheme's; ``joint_public_key_sharded`` and
   ``partial_decrypt_psum`` at 16 local parties (bit-equal to the joint key
-  and to the single-device fusion, RMS error 0.9–1.1 σ); the twin
-  ``bench/sharded.py`` in both schedules (``[twin json]``, the sharded
-  round's marginal beside the replicated one's); and ``runtime/`` built
+  and to the single-device fusion, RMS error 0.9–1.1 σ); the mesh graphs
+  (``[mesh graphs]``): the five sharded compositions
+  (``sctx.cached_graph``: re-encryption, rotation, conjugation, hoisted
+  rotations, the FedAvg round) and ``aggregate_sharded``, the joint key and
+  ``partial_decrypt_psum`` (``utils.graphs.group_cache``) each captured as a
+  CUDA graph with its NCCL collectives and replayed three times or more on
+  fresh inputs, each call ``torch.equal`` to its eager body, their kernel
+  launches and collectives a replay (the round's: 11 all-to-alls and one
+  all-reduce), the MiB they reserved, freed before the group is destroyed,
+  and a replay after that refused; the twin ``bench/sharded.py`` in both
+  schedules (``[twin json]``: the eager sharded round's marginal and the
+  compiled one's, each replay of the compiled round bit-equal, beside the
+  replicated round per-op cached and compiled); and ``runtime/`` built
   with make, its artifact server answering ``/getCC`` and ``/download/``.
   The phase prints its seconds;
 - **small rings and narrow shards** (phase 13): kernels 1, 1b and 6 at
@@ -2435,10 +2447,49 @@ def orchestrated_phase(card, device):
                                             scale))
         training_checks("C", cfgc, resc, device)
         print_rounds("C", logc, card)
+        threshold_tool_graphs(cfgc, sch, card)
         cases = KernelCases(card)
         orchestrated_kernel_checks(cases, cfgc, device, "C")
         rows += cases.take_launches(cc)
     return rows
+
+
+def threshold_tool_graphs(cfg, sch, card):
+    """Run C's threshold tools went through the scheme's graph cache: the
+    partial decryption (one call a client) and the fusion (one a client,
+    all on the same inputs) each captured a graph past its warm-up and
+    replayed it; the fused documents of the eager calls and of the replays
+    are the same bytes, client 1's partial decryption made again (a replay)
+    with the round's seed is its file's bytes, and each graph's static
+    buffers are zero after its call."""
+    import tempfile
+
+    from ppqsflhe_tpu_torch.fl import api
+    from ppqsflhe_tpu_torch.utils import graphs
+
+    client = lambda i, name: os.path.join(cfg.work_dir, f"client_{i}", name)
+    read = lambda path: open(path, "rb").read()
+    fused = {read(client(i, "decrypted_weights.json")) for i in range(1, cfg.n_clients + 1)}
+    with tempfile.TemporaryDirectory() as tmp:
+        again = os.path.join(tmp, "partial_c1.json")
+        api.threshold_partial_decrypt(client(1, "CC.json"), client(1, "client_1-share.key"),
+                                      client(1, "aggregated_for_me.json"), again,
+                                      seed=cfg.seed + 3000 + 1, smudging_bits=cfg.smudging_bits,
+                                      device=cfg.device)
+        same_partial = read(again) == read(client(1, "partial_c1.json"))
+    ops = {k[0]: op for k, op in sch._graphs.items()
+           if k[0] in ("threshold_partial_decrypt", "threshold_fuse_decrypt")}
+    seen = {name: (op.graph is not None, op.replays) for name, op in ops.items()}
+    zero = all(op.graph is not None and not any(t.any() for t in [
+        *op.static, *graphs._tensors(op.graph.output)]) for op in ops.values())
+    print(f"[orchestrated C threshold graphs] {seen} (captured, replays); {cfg.n_clients} fused "
+          f"documents, eager and replayed: {len(fused)} distinct; client 1's partial "
+          f"decryption again from its seed: same bytes {same_partial}; static buffers zero "
+          f"{zero} ({card})")
+    if (len(seen) != 2 or not all(c and r >= 2 for c, r in seen.values()) or len(fused) != 1
+            or not same_partial or not zero):
+        raise AssertionError(f"run C's threshold tools: graphs {seen}, {len(fused)} distinct "
+                             f"fusions, partial same {same_partial}, static zero {zero}")
 
 
 # ---------------------------------------------------------------------------
@@ -2779,18 +2830,142 @@ def runtime_check(card):
           f"answered /getCC and /download/ ({len(body)} B) ({card})")
 
 
+MESH_GRAPH_REPLAYS = 3      # replays of each mesh graph, each on fresh inputs
+
+
+def mesh_graph_checks(card, device, w, sctx, cmesh, s_parties, a, rot_keys, conj_key):
+    """The mesh compositions through their graph caches on the one-rank
+    NCCL group: the sharded context's re-encryption, rotation and
+    conjugation (``("galois", g, l)``), hoisted rotations by 1 and 2 and
+    FedAvg round (``sctx.cached_graph``), and ``aggregate_sharded``, the
+    joint key and ``partial_decrypt_psum`` (``graphs.group_cache``). Each
+    runs WARMUP + MESH_GRAPH_REPLAYS calls on fresh uniform residues (the
+    floods from fresh seeds), each ``torch.equal`` to its eager body on the
+    same inputs (the same draws); then every key must have captured its
+    graph and replayed it MESH_GRAPH_REPLAYS times or more, the FedAvg
+    graph must hold 11 all-to-alls and one all-reduce, and one replay must
+    add its collectives to the replays' tally. Prints each graph's launches
+    and collectives a replay, then releases the graphs and prints the MiB
+    they reserved; a replay after that must raise. Returns the caches'
+    keys."""
+    import torch
+
+    from ppqsflhe_tpu_torch.ckks import multikey
+    from ppqsflhe_tpu_torch.ckks import threshold as th
+    from ppqsflhe_tpu_torch.ckks.scheme import WARMUP
+    from ppqsflhe_tpu_torch.ckks.types import Ciphertext, KeySwitchKey
+    from ppqsflhe_tpu_torch.parallel import mesh as pm
+    from ppqsflhe_tpu_torch.parallel import sharded_scheme as ss
+    from ppqsflhe_tpu_torch.utils import graphs
+
+    sch, ctx = w.sch, w.sch.ctx
+    L, n, nloc, scale = sch.params.num_q, sch.params.n, sctx.local_n, w.ct1.scale
+    mq = ctx.moduli_qp
+    gen = torch.Generator().manual_seed(SEED + 14)
+    key = lambda k: KeySwitchKey(sctx.local(k.data), k.mont)
+    rk12, rk21, kc = key(w.rk12), key(w.rk21), key(conj_key)
+    rks = {r: key(k) for r, k in rot_keys.items()}
+    cts = lambda width, lead=(N_CTS,): Ciphertext(rand_residues(mq[:L], lead + (2,), width, gen,
+                                                                device), scale)
+    datas = lambda *outs: [o.data if isinstance(o, Ciphertext) else o for o in outs]
+    cases = (
+        ("reenc", lambda: (cts(nloc),), lambda c: [ss.re_encrypt_sharded(sctx, c, rk12).data]),
+        ("galois rotate 1", lambda: (cts(nloc),),
+         lambda c: [ss.rotate_sharded(sctx, c, 1, rks[1]).data]),
+        ("galois conjugate", lambda: (cts(nloc),),
+         lambda c: [ss.conjugate_sharded(sctx, c, kc).data]),
+        ("hoisted (1, 2)", lambda: (cts(nloc),),
+         lambda c: datas(*ss.rotate_hoisted_sharded(sctx, c, [1, 2], rks))),
+        ("fedavg", lambda: (cts(nloc, (2, N_CTS)).data,),
+         lambda st: list(ss.fedavg_round_sharded(sctx, st, rk12, rk21, scale))),
+        ("aggregate_sharded", lambda: (cts(n, (4, N_CTS)).data,),
+         lambda st: [multikey.aggregate_sharded(ctx, st, cmesh, scale, 4).data]),
+        ("joint_public_key_sharded",
+         lambda: (rand_residues(mq, (TH_PARTIES,), n, gen, device),),
+         lambda b: [th.joint_public_key_sharded(ctx, a, b, cmesh).data]),
+        ("partial_decrypt_psum",
+         lambda: (cts(n), int(torch.randint(1 << 30, (), generator=gen))),
+         lambda c, seed: [th.partial_decrypt_psum(
+             ctx, c, s_parties, [torch.Generator(device=device).manual_seed(seed + i)
+                                 for i in range(TH_PARTIES)], cmesh)]),
+    )
+    t0 = time.perf_counter()
+    for name, make, fn in cases:
+        for _ in range(WARMUP + MESH_GRAPH_REPLAYS):
+            inputs = make()
+            got = fn(*inputs)
+            with graphs.eager():
+                want = fn(*inputs)
+            if not all(torch.equal(g, e) for g, e in zip(got, want)):
+                raise AssertionError(f"mesh graph {name}: a call differs from its eager body")
+    torch.cuda.synchronize()
+    t_calls = time.perf_counter() - t0
+    ops = {k: op for k, op in sctx._graphs.items()}
+    ops.update(graphs.group_cache(pm.axis_group(cmesh, "client")).items())
+    names = sorted({k[0][0] for k in ops})
+    lacking = [k[0] for k, op in ops.items()
+               if op.graph is None or op.replays < MESH_GRAPH_REPLAYS]
+    want_names = ["aggregate_sharded", "fedavg", "galois", "hoisted", "joint_public_key_sharded",
+                  "partial_decrypt_psum", "reenc"]
+    if names != want_names or lacking or len([k for k in ops if k[0][0] == "galois"]) != 2:
+        raise AssertionError(f"mesh graphs: keys {names}, not captured or replayed "
+                             f"{MESH_GRAPH_REPLAYS} times: {lacking}")
+    for k, op in ops.items():
+        launches = {c: v for c, v in op.graph.launches.items() if v}
+        colls = {c: v for c, v in op.graph.collectives.items() if v["ops"]}
+        shown = tuple(x for x in k[0] if isinstance(x, (str, int, float, tuple)))
+        print(f"[mesh graphs] {shown}: captured, {op.replays} replays each torch.equal to the "
+              f"eager body; a replay: kernel launches {launches}, collectives {colls} ({card})")
+    (fedavg,) = [op.graph for k, op in ops.items() if k[0][0] == "fedavg"]
+    colls = fedavg.collectives
+    graphs.reset_replayed()
+    fedavg.replay()
+    torch.cuda.synchronize()
+    if (colls["all_to_all"]["ops"] != 11 or colls["all_reduce"]["ops"] != 1
+            or graphs.replayed_collectives != colls):
+        raise AssertionError(f"the fedavg graph holds {colls}, one replay tallied "
+                             f"{graphs.replayed_collectives}: 11 all-to-alls and one all-reduce "
+                             f"expected")
+    ran = {c: sum(op.replays * op.graph.launches[c] for op in ops.values())
+           + fedavg.launches[c] for c in fedavg.launches}
+    print(f"[mesh graphs] kernel launches the {sum(op.replays for op in ops.values()) + 1} "
+          f"replays ran: { {c: v for c, v in ran.items() if v} } ({card})")
+    held = reserved_bytes(device)
+    pm.release_graphs()
+    freed = held - reserved_bytes(device)
+    try:
+        fedavg.replay()
+    except RuntimeError as e:
+        refused = str(e)[str(e).find("its graph"):]
+    else:
+        raise AssertionError("a mesh graph replayed after its release")
+    print(f"[mesh graphs] {len(ops)} graphs on the one-rank NCCL group, {len(cases)} "
+          f"compositions x {WARMUP + MESH_GRAPH_REPLAYS} calls in {t_calls:.1f} s (each beside "
+          f"its eager body); fedavg_round_sharded a replay: {colls['all_to_all']['ops']} "
+          f"all-to-alls, {colls['all_reduce']['ops']} all-reduce, tallied; released before the "
+          f"group: {freed / 2**20:.1f} MiB reserved freed; a replay after: {refused!r} ({card})")
+    return names
+
+
 def sharded_phase(card, device, w, outs):
     """The sharded server round on a one-rank NCCL group (client 1 × coef 1)
     at full width, after the per-shard kernel checks: ``fedavg_round_sharded``
     and ``fl.api.server_round`` over the sharded context (lazy-4 and full)
     bit-equal to phase 1's replicated round on its world ``w``, ``outs``, and
     decrypting within 1e-3; a sharded rotation and conjugation; the threshold
-    key and fused decryption of 16 local parties; then the twin of
-    ``bench_sharded.py`` in both schedules, and ``runtime/``. Returns the
-    kernels' rows."""
+    key and fused decryption of 16 local parties; the mesh compositions'
+    CUDA graphs (:func:`mesh_graph_checks`: the five sharded compositions,
+    ``rotate_hoisted_sharded`` included, ``aggregate_sharded``, the joint key
+    and ``partial_decrypt_psum``, each captured and replayed on fresh inputs
+    ``torch.equal`` to its eager body, their launches and collectives a
+    replay, the MiB they reserved, released before the group); then the
+    twin of ``bench_sharded.py`` in both schedules (the eager and the
+    compiled sharded round) beside phase 1's replicated round compiled, and
+    ``runtime/``. Returns the kernels' rows."""
     import numpy as np
     import torch
 
+    from ppqsflhe_tpu_torch.bench import server_round as round_twin
     from ppqsflhe_tpu_torch.bench import sharded as sharded_twin
     from ppqsflhe_tpu_torch.ckks import threshold as th
     from ppqsflhe_tpu_torch.ckks.types import Ciphertext, KeySwitchKey
@@ -2822,7 +2997,8 @@ def sharded_phase(card, device, w, outs):
         view = ss.scheme_view(sch, sctx)
         key = lambda k: KeySwitchKey(sctx.local(k.data), k.mont)
         loc = lambda ct: Ciphertext(sctx.local(ct.data), ct.scale)
-        rot_key = sch.rotation_key_gen(w.sk2, [1], w.gen)[1]
+        rot_keys = sch.rotation_key_gen(w.sk2, [1, 2], w.gen)
+        rot_key = rot_keys[1]
         conj_key = sch.conjugation_key_gen(w.sk2, w.gen)
         torch.cuda.synchronize()
 
@@ -2901,6 +3077,9 @@ def sharded_phase(card, device, w, outs):
         if not (0.9 * sig <= rms <= 1.1 * sig and mx < 6 * sig):
             raise AssertionError(f"partial_decrypt_psum error RMS {rms / sig:.3f} sigma")
 
+        mesh_graph_checks(card, device, w, sctx, cmesh,
+                          torch.stack([s.s_eval for s, _ in parts]), a, rot_keys, conj_key)
+
         lines = []
         t2 = time.perf_counter()
         for lazy in (4, 0):
@@ -2908,12 +3087,20 @@ def sharded_phase(card, device, w, outs):
                                out=lambda s: (print(f"[twin json] {s}"),
                                               lines.append(json.loads(s))))
         t_twin = time.perf_counter() - t2
+    replicated = {lazy: round_twin.measure_compiled(sch, w, lazy, card, TWIN_REPS)
+                  for lazy in (4, 0)}
+    share = lambda x: "not measured" if x is None else f"{x:.1%}"
     for r in lines:
-        print(f"[timing sharded] lazy={r['lazy']}: sharded round {r['value']:.3f} ms/round "
-              f"marginal on a 1-rank NCCL coef mesh, replicated {r['replicated_ms']:.3f} ms "
-              f"(ratio {r['value'] / r['replicated_ms']:.2f}); one sharded round: device "
-              f"{show_us(r['device_ms'])}, enqueue {r['enqueue_ms']:.3f} ms; {r['collectives']} "
-              f"({card})")
+        rc = replicated[r["lazy"]]
+        print(f"[timing sharded] lazy={r['lazy']}: sharded round eager {r['value']:.3f} ms/round "
+              f"marginal on a 1-rank NCCL coef mesh (device {show_us(r['device_ms'])}, enqueue "
+              f"{r['enqueue_ms']:.3f} ms, idle {share(r['idle_share'])}), compiled "
+              f"{r['compiled_ms']:.3f} ms (device {show_us(r['compiled_device_ms'])}, enqueue "
+              f"{r['compiled_enqueue_ms']:.3f} ms, idle {share(r['compiled_idle_share'])}, "
+              f"capture {r['compiled_capture_s']:.1f} s, equal {r['compiled_equal']}); "
+              f"replicated: per-op cached {r['replicated_ms']:.3f} ms, compiled "
+              f"{rc['compiled_ms']:.3f} ms (device {show_us(rc['compiled_device_ms'])}, idle "
+              f"{share(rc['compiled_idle_share'])}); {r['collectives']} ({card})")
     runtime_check(card)
     print(f"[sharded] phase 12: {time.perf_counter() - t0:.1f} s (kernel checks {t_checks:.1f} "
           f"s, bench twin {t_twin:.1f} s) ({card})")
@@ -3818,7 +4005,7 @@ def randomized_phase(card, device, rw, mw, th_split, t_script):
     sch, msch, w = rw.sch, mw.sch, mw.w
     ind = copy.copy(msch)           # phase 7's scheme, its context shared, in PREMode INDCCA
     ind.params = dataclasses.replace(msch.params, pre_mode="INDCCA")
-    ind._graphs = {}
+    ind._graphs = graphs.GraphCache()
     gens = {"CUDA": torch.Generator(device=device).manual_seed(SEED + 17),
             "CPU": torch.Generator().manual_seed(SEED + 17)}
     sk2, pk2 = sch.keygen(gens["CPU"])

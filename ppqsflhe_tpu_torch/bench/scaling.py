@@ -167,7 +167,7 @@ def main(argv=None) -> None:
         try:
             row = run_one(device, args.reps, args.n_ntt)
         finally:
-            dist.destroy_process_group()
+            pmesh.destroy_process_group()
         if os.environ["RANK"] == "0":
             print(json.dumps(row), flush=True)
         return

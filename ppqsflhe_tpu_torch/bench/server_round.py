@@ -127,12 +127,14 @@ def measure(sch: CkksScheme, w, lazy: int, card: str, reps: int = 3) -> dict:
     return m
 
 
-def measure_compiled(sch: CkksScheme, w, lazy: int, card: str, reps: int = 3) -> dict:
+def measure_compiled(sch: CkksScheme, w, lazy: int, card: str, reps: int = 3,
+                     tag: str | None = None) -> dict:
     """The compiled round: capture (seconds, warm-up included), one replay
     on the clients' stacks against the eager round (``compiled_equal``),
     then :func:`measure`'s chained marginal over replays, each first
     rewriting one residue of the static input, and one replay's device ms,
-    enqueue ms and idle share (stderr)."""
+    enqueue ms and idle share (stderr, under ``tag``). ``sch`` may be a
+    sharded view, ``w`` then holding this rank's shards."""
     t0 = time.perf_counter()
     cr = CompiledRound(sch, w.rk12, w.rk21, lazy, w.ct1.data.shape[:-3], w.ct1.scale)
     capture_s = time.perf_counter() - t0
@@ -141,7 +143,8 @@ def measure_compiled(sch: CkksScheme, w, lazy: int, card: str, reps: int = 3) ->
                 for a, b in zip(eager, cr(w.ct1, w.ct2)))
     outs = lambda: [c.data for c in cr.replay()]
     m = timing.marginal_carried_ms(outs, cr.stack1, R_LO, R_HI, reps)
-    m.update(timing.unit_report(f"compiled server_round lazy={lazy}", cr.replay, m["ms"], card))
+    m.update(timing.unit_report(tag or f"compiled server_round lazy={lazy}", cr.replay, m["ms"],
+                                card))
     m.update(capture_s=capture_s, equal=equal)
     return {k: m[k.removeprefix("compiled_")] for k in COMPILED_KEYS}
 

@@ -16,15 +16,23 @@ payload within 1e-3.
 Timed as :mod:`.server_round` times the replicated round (the marginal
 between 20 and 60 chained rounds, :mod:`.timing`), the replicated round
 beside it, one sharded round's device time, enqueue and idle share on
-stderr. Run on the card::
+stderr. ``bench_sharded.py`` times a compiled round (one ``jit(shard_map)``
+over a ``lax.scan``), so the sharded round is also captured whole
+(:class:`..fl.compiled.CompiledRound` on the sharded view: one CUDA graph a
+rank with its NCCL collectives inside) and timed the same way under
+:mod:`.server_round`'s ``compiled_*`` keys; a replay on the clients' shards
+must be bit-equal to the eager sharded round (``compiled_equal``). Run on
+the card::
 
     python -m ppqsflhe_tpu_torch.bench.sharded
 
 It prints one JSON line with ``bench_sharded.py``'s keys (``"metric":
-"sharded_round_ms"``, ``value``, ``replicated_ms``, ``lazy``, ``impl``)
-plus ``"card"``, the collectives of one round and the gates. ``--device
-cpu`` runs the same on a one-rank ``gloo`` group, untimed (``value``
-None), at any ``--n``.
+"sharded_round_ms"``, ``value``: the eager round's, ``replicated_ms``,
+``lazy``, ``impl``) plus ``"card"``, the collectives of one round, the
+gates and the ``compiled_*`` keys. A compiled round that differs from the
+eager one raises after the line, as a failed gate does. ``--device cpu``
+runs the same on a one-rank ``gloo`` group, untimed (``value`` and the
+``compiled_*`` keys None: no graph is captured), at any ``--n``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from __future__ import annotations
 import argparse
 import json
 import time
+import types
 
 import numpy as np
 import torch
@@ -49,18 +58,25 @@ from .timing import card_line
 METRIC = "sharded_round_ms"
 
 
+def local_world(sch: CkksScheme, sctx: ShardedEvalContext, w):
+    """This rank's shards of the world ``w``'s rekeys and ciphertexts."""
+    key = lambda k: KeySwitchKey(sctx.local(k.data), k.mont)
+    loc = lambda ct: Ciphertext(sctx.local(ct.data), ct.scale)
+    return types.SimpleNamespace(rk12=key(w.rk12), rk21=key(w.rk21), ct1=loc(w.ct1),
+                                 ct2=loc(w.ct2))
+
+
 def round_fns(sch: CkksScheme, sctx: ShardedEvalContext, w, lazy: int) -> tuple:
     """(sharded round, replicated round), each a callable on the two
     clients' data, returning [average, average re-encrypted]; the sharded
     one takes and gives this rank's shards."""
     view = scheme_view(sch, sctx)
-    key = lambda k: KeySwitchKey(sctx.local(k.data), k.mont)
-    k12, k21 = key(w.rk12), key(w.rk21)
+    wl = local_world(sch, sctx, w)
     scale = w.ct1.scale
 
     def sharded(d1, d2):
         return [c.data for c in server_round(view, Ciphertext(d1, scale), Ciphertext(d2, scale),
-                                             k12, k21, lazy)]
+                                             wl.rk12, wl.rk21, lazy)]
 
     def replicated(d1, d2):
         return [c.data for c in server_round(sch, Ciphertext(d1, scale), Ciphertext(d2, scale),
@@ -96,7 +112,7 @@ def bench(device="cuda", lazy: int = 4, n: int = twin.N, count: int = twin.N_CTS
     t_setup = time.perf_counter() - t0
     err = max(errs.values())
     correct = bool(bit_equal and np.isfinite(err) and err < twin.ERR_GATE)
-    m, rep_ms = {"ms": None}, None
+    m, rep_ms, c = {"ms": None}, None, dict.fromkeys(twin.COMPILED_KEYS)
     if device.type == "cuda":
         work = d1.clone()
         unit = lambda: sharded(work, d2)
@@ -105,16 +121,21 @@ def bench(device="cuda", lazy: int = 4, n: int = twin.N, count: int = twin.N_CTS
         work_r = w.ct1.data.clone()
         rep_ms = timing.marginal_carried_ms(lambda: replicated(work_r, w.ct2.data), work_r,
                                             twin.R_LO, twin.R_HI, reps)["ms"]
+        c = twin.measure_compiled(scheme_view(sch, sctx), local_world(sch, sctx, w), lazy,
+                                  card, reps, f"compiled sharded round lazy={lazy}")
     result = {"metric": METRIC, "value": m["ms"], "unit": f"ms_per_round_D{sctx.D}_mesh",
               "replicated_ms": rep_ms, "lazy": lazy, "impl": sctx.impl, "use_pallas_ks": True,
               "n": n, "ciphertexts": count, "devices": dist.get_world_size(),
               "bit_equal": bit_equal, "correct": correct, "err": err,
               "out_limbs": back.nlimbs, "collectives": colls, "setup_seconds": t_setup,
-              **{k: v for k, v in m.items() if k != "ms"}, "card": card}
+              **{k: v for k, v in m.items() if k != "ms"}, **c, "card": card}
     out(json.dumps(result))
     if not correct:
         raise AssertionError(f"sharded round lazy={lazy}: bit-equal {bit_equal}, decrypt error "
                              f"{errs} (gate {twin.ERR_GATE})")
+    if c["compiled_equal"] is False:
+        raise AssertionError(f"sharded round lazy={lazy}: the compiled round differs from the "
+                             "eager sharded round")
     return result
 
 

@@ -8,7 +8,10 @@ limb goes). Each ciphertext may be a batch (..., 2, l, N).
 
 :func:`aggregate_sharded` is the mesh variant (``multikey.py:57-96``) on
 ``torch.distributed``: each rank folds its own clients' residues mod q, then
-one modular psum over the ``client`` axis gives every rank the sum.
+one modular psum over the ``client`` axis gives every rank the sum. The JAX
+function jits its ``shard_map``; on the card this one runs as a CUDA graph
+per (context, group, scale, count, average and the stack's signature),
+the psum's all-reduce captured inside (:func:`..utils.graphs.group_cache`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 
 from ..core.modarith import modadd
 from ..parallel.mesh import axis_group, psum_mod
+from ..utils import graphs
 from . import eval as ev
 from .params import CkksContext
 from .types import Ciphertext
@@ -53,9 +57,15 @@ def aggregate_sharded(ctx: CkksContext, ct_stack: torch.Tensor, mesh, scale: flo
     ``average`` is False. Returns the aggregate batch (B, k, l', N), the
     same on every rank."""
     l = ct_stack.shape[-2]
-    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct_stack.device)
-    agg = psum_mod(fold_local(ct_stack, q), q, axis_group(mesh, axis))
-    if not average:
-        return Ciphertext(data=agg, scale=scale)
-    avg = ev.mult_scalar(ctx, Ciphertext(data=agg, scale=scale), 1.0 / n_clients_total)
-    return Ciphertext(data=avg.data, scale=scale)
+    group = axis_group(mesh, axis)
+
+    def body(stack):
+        q, _, _ = ctx.limb_consts(ctx.q_idx(l), stack.device)
+        agg = psum_mod(fold_local(stack, q), q, group)
+        if not average:
+            return agg
+        return ev.mult_scalar(ctx, Ciphertext(data=agg, scale=scale), 1.0 / n_clients_total).data
+
+    key = ("aggregate_sharded", ctx, float(scale), n_clients_total, average)
+    data = graphs.cached(graphs.group_cache(group), key, "the mesh function", body, ct_stack)
+    return Ciphertext(data=data, scale=scale)

@@ -166,6 +166,7 @@ class CkksContext:
 
     def __init__(self, params: CkksParams):
         self.params = params
+        self.local_n = params.n     # the trailing width of the polys it transforms
         # parameters are taken as given (HEStd_NotSet), but a sub-128-bit
         # chain is surfaced when the context is built
         bits = params.security_bits()

@@ -44,87 +44,20 @@ unjitted.
 
 from __future__ import annotations
 
-import dataclasses
-
 import numpy as np
 import torch
 
 from . import eval as ev
 from . import rlwe
 from ..utils import graphs
-from ..utils.graphs import WARMUP
+from ..utils.graphs import WARMUP  # noqa: F401  (the cache's warm-up count, read by callers)
 from .encoding import Encoder
 from .params import CkksContext, CkksParams
 from .types import Ciphertext, KeySwitchKey, Plaintext, PublicKey, SecretKey
 
 
-def _leaf(x) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else x.data
-
-
-def _with_leaf(x, t: torch.Tensor):
-    """``x`` with its tensor replaced by ``t``."""
-    return t if isinstance(x, torch.Tensor) else dataclasses.replace(x, data=t)
-
-
-def _signature(x) -> tuple:
-    """An input's part of a cache key: its type, shape, dtype, device and
-    the host metadata a body reads (a scale, a key's ``mont`` flag)."""
-    t = _leaf(x)
-    meta = (x.scale if isinstance(x, (Ciphertext, Plaintext))
-            else x.mont if isinstance(x, KeySwitchKey) else None)
-    return (type(x).__name__, tuple(t.shape), t.dtype, str(t.device), meta)
-
-
-def _clone(out):
-    if isinstance(out, tuple):
-        return tuple(_clone(o) for o in out)
-    return (out.clone() if isinstance(out, torch.Tensor)
-            else dataclasses.replace(out, data=out.data.clone()))
-
-
 def _on_card(t: torch.Tensor) -> bool:
     return t.is_cuda
-
-
-class _OpGraph:
-    """One cached operation at one key: :data:`WARMUP` eager calls on a side
-    stream, then one capture over static copies of the inputs, then
-    replays; every call's result is the caller's own. With ``scrub`` the
-    static inputs and outputs are zeroed after each replay's result is
-    cloned, so the cache keeps no copy of a secret, a draw or a plaintext
-    between calls."""
-
-    def __init__(self, what: str, body, scrub: bool = False):
-        self.what, self.body, self.scrub = what, body, scrub
-        self.calls = 0              # eager warm-up calls so far
-        self.replays = 0
-        self.static = None          # the inputs' static buffers
-        self.graph = None
-
-    def _load(self, leaves) -> None:
-        for dst, t in zip(self.static, leaves):
-            if t is not dst:
-                dst.copy_(t)
-
-    def __call__(self, inputs):
-        leaves = [_leaf(x) for x in inputs]
-        if self.graph is None and self.calls < WARMUP:
-            self.calls += 1
-            return graphs.warm_up(lambda: self.body(*inputs), leaves[0].device)
-        if self.graph is None:
-            self.static = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in leaves]
-            args = [_with_leaf(x, t) for x, t in zip(inputs, self.static)]
-            self._load(leaves)
-            self.graph = graphs.Graph(lambda: self.body(*args), self.what)
-        else:
-            self._load(leaves)
-        out = _clone(self.graph.replay())
-        self.replays += 1
-        if self.scrub:
-            for t in [*self.static, *graphs._tensors(self.graph.output)]:
-                t.zero_()
-        return out
 
 
 class CkksScheme:
@@ -133,7 +66,7 @@ class CkksScheme:
         self.device = torch.device(device)
         self.ctx = CkksContext(params)
         self.encoder = Encoder(params.n, params.slots or params.n // 2)
-        self._graphs: dict = {}
+        self._graphs = graphs.GraphCache()
 
     def _graph(self, key, body, *inputs, scrub: bool = False):
         """``body(*inputs)`` through the per-op graph cache, the
@@ -144,14 +77,10 @@ class CkksScheme:
         or a plaintext) zeroes the graph's static inputs and outputs after
         every call. Eager on the CPU, inside :func:`..utils.graphs.eager`,
         during another capture and on a context that runs collectives."""
-        if (not _on_card(_leaf(inputs[0])) or not self.ctx.per_op_graphs
+        if (not _on_card(graphs.leaf(inputs[0])) or not self.ctx.per_op_graphs
                 or graphs.bypass()):
             return body(*inputs)
-        full = (key,) + tuple(_signature(x) for x in inputs)
-        op = self._graphs.get(full)
-        if op is None:
-            op = self._graphs[full] = _OpGraph(f"the CkksScheme operation {full}", body, scrub)
-        return op(inputs)
+        return self._graphs.run(key, "the CkksScheme operation", body, inputs, scrub)
 
     # -- encoding -----------------------------------------------------------
 

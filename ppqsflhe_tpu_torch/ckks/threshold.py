@@ -26,7 +26,10 @@ and the Shamir rows sits in helpers that take the sampled values
 (:func:`public_share`, :func:`decryption_share`, :func:`shamir_rows`), so
 they can be held bit-equal to the JAX functions given the same samples.
 Every function takes batched ciphertexts (..., 2, l, N), one fresh flood
-per ciphertext.
+per ciphertext. The JAX mesh variants jit their ``shard_map``; on the card
+these run as a CUDA graph per (function, context, group and the inputs'
+signatures), the psum's all-reduce captured inside
+(:func:`..utils.graphs.group_cache`), the floods drawn outside it.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from ..core import jax_prng, primes, sampling
 from ..core.modarith import modadd, modmul, modneg
 from ..parallel.mesh import axis_group, psum_mod
+from ..utils import graphs
 from .multikey import fold_local
 from .params import CkksContext
 from .rlwe import _poly_mul, _signed_to_eval, decode_coeffs
@@ -136,9 +140,11 @@ def decryption_share(ctx: CkksContext, ct: Ciphertext, s_eval: torch.Tensor,
     return modadd(p, ct.data[..., 0, :, :], q) if lead else p
 
 
-def _flood(ctx: CkksContext, ct: Ciphertext, gen: torch.Generator, bits: int) -> torch.Tensor:
-    """One flood per ciphertext of the batch, one draw: int64[*lead, N]."""
-    return smudging_noise(gen, tuple(ct.data.shape[:-3]) + (ctx.params.n,), bits)
+def flood(ctx: CkksContext, ct: Ciphertext, gen: torch.Generator, bits: int,
+          device=None) -> torch.Tensor:
+    """One flood per ciphertext of the batch, one draw on ``gen``'s device:
+    int64[*lead, N], copied to ``device`` (None: left there)."""
+    return smudging_noise(gen, tuple(ct.data.shape[:-3]) + (ctx.params.n,), bits, device)
 
 
 def partial_decrypt(ctx: CkksContext, sk_share: SecretKey, ct: Ciphertext,
@@ -147,8 +153,7 @@ def partial_decrypt(ctx: CkksContext, sk_share: SecretKey, ct: Ciphertext,
     """Party i's decryption share p_i = c1·s_i + e_flood; ``lead`` folds in
     c0 (MultipartyDecryptLead), so the fusion is a plain Σ."""
     _check_two(ct)
-    return decryption_share(ctx, ct, sk_share.s_eval, _flood(ctx, ct, gen, smudging_bits),
-                            lead)
+    return decryption_share(ctx, ct, sk_share.s_eval, flood(ctx, ct, gen, smudging_bits), lead)
 
 
 def fuse_partial_decryptions(ctx: CkksContext, ct: Ciphertext,
@@ -250,14 +255,18 @@ def partial_decrypt_t(ctx: CkksContext, sigma_j: torch.Tensor, ct: Ciphertext,
     :func:`fuse_partial_decryptions`."""
     _check_two(ct)
     return decryption_share(ctx, ct, scaled_sigma(ctx, sigma_j, party_set, j, ct.nlimbs),
-                            _flood(ctx, ct, gen, smudging_bits), lead)
+                            flood(ctx, ct, gen, smudging_bits), lead)
+
+
+def check_party(party_set: Sequence[int], j: int) -> None:
+    if j not in party_set:
+        raise ValueError(f"party {j} not in the participating set {party_set}")
 
 
 def scaled_sigma(ctx: CkksContext, sigma_j: torch.Tensor, party_set: Sequence[int], j: int,
                  nlimbs: int) -> torch.Tensor:
     """λ_j·σ_j over the first ``nlimbs`` limbs."""
-    if j not in party_set:
-        raise ValueError(f"party {j} not in the participating set {party_set}")
+    check_party(party_set, j)
     idx = ctx.q_idx(nlimbs)
     q, qinv, r2 = ctx.limb_consts(idx, sigma_j.device)
     lam = lagrange_at_zero(ctx, party_set, j, sigma_j.device)[:nlimbs]
@@ -284,9 +293,15 @@ def joint_public_key_sharded(ctx: CkksContext, a: torch.Tensor, b_local: torch.T
     """pk = (Σ b_i, a) with this rank's public shares ``b_local``
     (parties_local, L+K, N) folded locally and one modular psum over
     ``axis``; the same key on every rank."""
-    q, _, _ = _all_q(ctx, b_local.device)
-    b = psum_mod(fold_local(b_local, q), q, axis_group(mesh, axis))
-    return PublicKey(data=torch.stack([b, a]))
+    group = axis_group(mesh, axis)
+
+    def body(a_, b_):
+        q, _, _ = _all_q(ctx, b_.device)
+        return torch.stack([psum_mod(fold_local(b_, q), q, group), a_])
+
+    return PublicKey(data=graphs.cached(graphs.group_cache(group),
+                                        ("joint_public_key_sharded", ctx),
+                                        "the mesh function", body, a, b_local))
 
 
 def partial_decrypt_psum(ctx: CkksContext, ct: Ciphertext, s_eval_local: torch.Tensor,
@@ -297,13 +312,23 @@ def partial_decrypt_psum(ctx: CkksContext, ct: Ciphertext, s_eval_local: torch.T
     (parties_local, L+K, N), party i's flood from ``gens_local[i]`` as in
     :func:`partial_decrypt`), one modular psum over ``axis``, then c0 is
     added and the iNTT taken. Returns the plaintext's coefficient residues,
-    the same on every rank."""
+    the same on every rank. The floods are drawn first, one call a party on
+    its own generator; the shares, the floods and the plaintext are zeroed
+    in the graph cache after each call."""
     _check_two(ct)
     idx = ctx.q_idx(ct.nlimbs)
-    q, _, _ = ctx.limb_consts(idx, ct.data.device)
-    acc = None
-    for s_i, gen in zip(s_eval_local, gens_local):
-        p = decryption_share(ctx, ct, s_i, _flood(ctx, ct, gen, smudging_bits))
-        acc = p if acc is None else modadd(acc, p, q)
-    fused = psum_mod(acc, q, axis_group(mesh, axis))
-    return ctx.intt(modadd(ct.data[..., 0, :, :], fused, q), idx)
+    group = axis_group(mesh, axis)
+    floods = torch.stack([flood(ctx, ct, gen, smudging_bits, ct.data.device)
+                          for gen in gens_local])
+
+    def body(c, s_stack, e_stack):
+        q, _, _ = ctx.limb_consts(idx, c.data.device)
+        acc = None
+        for s_i, e_i in zip(s_stack, e_stack):
+            p = decryption_share(ctx, c, s_i, e_i)
+            acc = p if acc is None else modadd(acc, p, q)
+        fused = psum_mod(acc, q, group)
+        return ctx.intt(modadd(c.data[..., 0, :, :], fused, q), idx)
+
+    return graphs.cached(graphs.group_cache(group), ("partial_decrypt_psum", ctx),
+                         "the mesh function", body, ct, s_eval_local, floods, scrub=True)

@@ -595,12 +595,19 @@ def threshold_partial_decrypt(cc_path: str, priv_share_path: str, enc_in: str,
                               partial_out: str, seed: int | None = None,
                               smudging_bits: int | None = None, device="cuda") -> Dict:
     """A party's decryption shares p_i = c1·s_i + e_flood of every
-    ciphertext of an encrypted-weights document, as one batch."""
+    ciphertext of an encrypted-weights document, as one batch: the floods
+    one draw on the tool's generator, the shares through the scheme's graph
+    cache (the JAX tool's ``jit(vmap)``; the share, floods and output zeroed
+    in the cache after the call)."""
     sch = load_scheme(cc_path, device)
     sk = ser.deserialize_secret_key(ser.load_json(priv_share_path), sch.ctx, device)
     bits = th.DEFAULT_SMUDGING_BITS if smudging_bits is None else smudging_bits
     enc, cts = _doc_batch(sch, enc_in)
-    out = _partials_doc(enc, th.partial_decrypt(sch.ctx, sk, cts, _rng(seed), bits))
+    flood = th.flood(sch.ctx, cts, _rng(seed), bits, sch.device)
+    parts = sch._graph("threshold_partial_decrypt",
+                       lambda c, s, e: th.decryption_share(sch.ctx, c, s, e), cts, sk.s_eval,
+                       flood, scrub=True)
+    out = _partials_doc(enc, parts)
     ser.save_json(out, partial_out)
     return out
 
@@ -642,8 +649,9 @@ def threshold_partial_decrypt_t(cc_path: str, sigma_path: str, enc_in: str, part
                                 seed: int | None = None, smudging_bits: int | None = None,
                                 device="cuda") -> Dict:
     """Party j's t-of-N decryption shares (λ_j·σ_j folded in) of every
-    ciphertext of a document; fuse the t documents with
-    :func:`threshold_fuse_decrypt`."""
+    ciphertext of a document, the floods drawn as in
+    :func:`threshold_partial_decrypt` and the body cached per (T, j); fuse
+    the t documents with :func:`threshold_fuse_decrypt`."""
     sch = load_scheme(cc_path, device)
     d = ser.load_json(sigma_path)
     if int(d["recipient"]) != int(party_id):
@@ -652,10 +660,17 @@ def threshold_partial_decrypt_t(cc_path: str, sigma_path: str, enc_in: str, part
         raise ValueError(f"participating set size {len(party_set)} != threshold "
                          f"t={d['threshold']}")
     bits = th.DEFAULT_SMUDGING_BITS if smudging_bits is None else smudging_bits
-    pset = tuple(int(x) for x in party_set)
+    pset, j = tuple(int(x) for x in party_set), int(party_id)
+    th.check_party(pset, j)
     enc, cts = _doc_batch(sch, enc_in)
-    parts = th.partial_decrypt_t(sch.ctx, _doc_array(d, sch.device), cts, pset, int(party_id),
-                                 _rng(seed), bits)
+    flood = th.flood(sch.ctx, cts, _rng(seed), bits, sch.device)
+
+    def body(c, sigma, e):
+        return th.decryption_share(sch.ctx, c, th.scaled_sigma(sch.ctx, sigma, pset, j, c.nlimbs),
+                                   e)
+
+    parts = sch._graph(("threshold_partial_decrypt_t", pset, j), body, cts,
+                       _doc_array(d, sch.device), flood, scrub=True)
     out = _partials_doc(enc, parts, party_set=list(pset))
     ser.save_json(out, partial_out)
     return out
@@ -665,16 +680,19 @@ def threshold_fuse_decrypt(cc_path: str, enc_in: str, partial_paths: Sequence[st
                            plain_out: str, device="cuda") -> Dict:
     """The fusion over a document: per ciphertext iNTT(c0 + Σ_i p_i), then
     decode and trim each layer to prod(shape) (the output contract of
-    :func:`decrypt_weights`)."""
+    :func:`decrypt_weights`). The fusion runs through the scheme's graph
+    cache (the JAX tool's ``jit(vmap)``), its inputs and the plaintext
+    zeroed in the cache after the call."""
     sch = load_scheme(cc_path, device)
     enc, cts = _doc_batch(sch, enc_in)
     l, n = cts.nlimbs, sch.params.n
     partials = []
     for p in partial_paths:
         doc = ser.load_json(p)
-        flat = [ser._b64_to_arr(s, (l, n)) for _, _, _, s in _doc_fields(doc)]
-        partials.append(convert.residues(np.stack(flat), sch.device))
-    coeffs = th.fuse_partial_decryptions(sch.ctx, cts, partials).cpu()
+        partials.append(np.stack([ser._b64_to_arr(s, (l, n)) for _, _, _, s in _doc_fields(doc)]))
+    coeffs = sch._graph("threshold_fuse_decrypt",
+                        lambda c, ps: th.fuse_partial_decryptions(sch.ctx, c, list(ps)), cts,
+                        convert.residues(np.stack(partials), sch.device), scrub=True).cpu()
     vals = [rlwe.decode_coeffs(sch.ctx, c, cts, sch.encoder) for c in coeffs]
     out = {"weights_summary": []}
     i = 0

@@ -43,8 +43,10 @@ from .api import LAZY_MODES, server_round
 class CompiledRound:
     """``server_round(sch, ·, ·, rk12, rk21, lazy)`` over two stacks of
     ``batch_shape`` ciphertexts at full level and ``scale``, as one CUDA
-    graph. ``stack1``/``stack2`` are the static inputs; ``launches`` holds
-    the kernel launches of one replay by :data:`COUNTERS` name."""
+    graph. ``stack1``/``stack2`` are the static inputs, ``local_n`` wide
+    (``N``, or ``N/D`` on :func:`..parallel.sharded_scheme.scheme_view`,
+    whose round captures its collectives too); ``launches`` holds the
+    kernel launches of one replay by :data:`COUNTERS` name."""
 
     def __init__(self, sch: CkksScheme, rk12: KeySwitchKey, rk21: KeySwitchKey, lazy: int,
                  batch_shape, scale: float | None = None):
@@ -59,7 +61,7 @@ class CompiledRound:
         # the graph reads the keys by address: keep them (converted once, as
         # keyswitch_ip would convert them on every call)
         self.rk12, self.rk21 = (ev.ksk_to_mont(sch.ctx, k) for k in (rk12, rk21))
-        shape = tuple(batch_shape) + (2, sch.params.num_q, sch.params.n)
+        shape = tuple(batch_shape) + (2, sch.params.num_q, sch.ctx.local_n)
         self.stack1 = torch.zeros(shape, dtype=torch.int64, device=device)
         self.stack2 = torch.zeros_like(self.stack1)
 

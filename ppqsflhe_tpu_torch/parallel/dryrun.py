@@ -41,7 +41,7 @@ from ..core.modarith import modadd
 from ..train import gru
 from ..train.trainer import make_optimizer
 from . import multihost
-from .mesh import axis_group, axis_index, make_mesh, psum_mod, shard
+from .mesh import axis_group, axis_index, destroy_process_group, make_mesh, psum_mod, shard
 from .sharded_scheme import ShardedEvalContext, fedavg_round_sharded, rotate_sharded
 
 N_RING = 1 << 12
@@ -198,7 +198,7 @@ def main(argv=None) -> None:
         try:
             line = dryrun_multichip(args.n, device)
         finally:
-            dist.destroy_process_group()
+            destroy_process_group()
         if os.environ["RANK"] == "0":
             print(line, flush=True)
         return

@@ -24,7 +24,10 @@ counterparts of ``client_sharding`` and ``limb_sharding``).
 and payload bytes per kind, the bytes those of the op's output as
 ``bench_scaling.py``'s HLO scrape counts them
 (``bench_scaling.py:40-104``): the port's counterpart of reading them off
-the compiled program.
+the compiled program. A CUDA graph that captures collectives holds the
+NCCL kernels of these groups' communicators: such graphs are tied to the
+groups (:func:`tie`) and released by :func:`release_graphs` before
+:func:`destroy_process_group` destroys the groups, so none outlives them.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import contextlib
 import math
 import socket
 import tempfile
+import weakref
 
 import torch
 import torch.distributed as dist
@@ -53,6 +57,13 @@ def reset_collectives() -> None:
 
 def read_collectives() -> dict:
     return {k: dict(v) for k, v in collectives.items()}
+
+
+def restore_collectives(counts: dict) -> None:
+    """Set the counter back to a :func:`read_collectives` snapshot (a
+    capture issues nothing)."""
+    for k, c in counts.items():
+        collectives[k].update(c)
 
 
 def _count(kind: str, t: torch.Tensor) -> None:
@@ -76,11 +87,38 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+# objects holding CUDA graphs with collectives of the current process groups,
+# by id (a graph cache is a dict: unhashable)
+_tied = weakref.WeakValueDictionary()
+
+
+def tie(obj) -> None:
+    """Tie ``obj`` (a graph or a graph cache, with a ``release()``) to the
+    process groups: :func:`release_graphs` releases it."""
+    _tied[id(obj)] = obj
+
+
+def release_graphs() -> None:
+    """Release every tied graph: each drops its CUDA graph (and the NCCL
+    kernels it holds), and a later replay raises; a released cache stays
+    tied and empty."""
+    for obj in list(_tied.values()):
+        obj.release()
+
+
+def destroy_process_group() -> None:
+    """``dist.destroy_process_group()`` after :func:`release_graphs`: no
+    graph keeps the destroyed communicators' kernels."""
+    release_graphs()
+    dist.destroy_process_group()
+
+
 @contextlib.contextmanager
 def single_process_group(device="cuda"):
     """A one-rank process group on ``device``'s backend (a ``file://``
-    rendezvous in a temporary directory), destroyed on exit; on the card
-    the current device is ``device``. Where a group is already initialized,
+    rendezvous in a temporary directory), destroyed on exit after the
+    graphs tied to it are released; on the card the current device is
+    ``device``. Where a group is already initialized,
     that one is used and left as it is."""
     if dist.is_initialized():
         yield
@@ -94,7 +132,7 @@ def single_process_group(device="cuda"):
         try:
             yield
         finally:
-            dist.destroy_process_group()
+            destroy_process_group()
 
 
 def make_mesh(axis_sizes: dict | None = None, device_type: str = "cuda"):
@@ -168,12 +206,12 @@ def exchange_tiled(xs, split_axis: int, concat_axis: int) -> list:
 
 def all_gather_stack(x: torch.Tensor, group) -> torch.Tensor:
     """``jax.lax.all_gather``: every rank's x stacked on a new leading axis
-    of size D, in rank order."""
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
-    _count("all_gather", x.new_empty((len(parts),) + tuple(x.shape)))
-    dist.all_gather(parts, x, group=group)
-    return torch.stack(parts)
+    of size D, in rank order, gathered flat into one preallocated tensor
+    (rank d's elements are block d of the flat output)."""
+    out = x.new_empty((dist.get_world_size(group),) + tuple(x.shape))
+    _count("all_gather", out)
+    dist.all_gather_into_tensor(out.view(-1), x.contiguous().view(-1), group=group)
+    return out
 
 
 def fold_mod(s: torch.Tensor, q: torch.Tensor) -> torch.Tensor:

@@ -28,6 +28,14 @@ Galois rotations are the one operation that is not coefficient-local:
 poly once over ``coef`` and take the rank's slice of the global
 permutation, and :func:`rotate_hoisted_sharded` gathers the extended
 digits once for a batch of rotations.
+
+The JAX class compiles each of these compositions once per key
+(``cached_jit``: ``("reenc", l)``, ``("galois", g, l)``, ``("hoisted", gs,
+l)``, ``("fedavg", client_axis, n_clients, B, l, scale)``).
+:meth:`ShardedEvalContext.cached_graph` is its counterpart: on the card a
+CUDA graph per key and inputs' signatures, captured on each rank with its
+NCCL collectives inside (:class:`..utils.graphs.GraphCache`, tied to the
+process groups); eagerly on the CPU, where the tests run ``gloo``.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ from ..ckks.types import Ciphertext, KeySwitchKey
 from ..core.modarith import modadd
 from ..ops import cuda_ntt
 from ..ops.sharded_ntt import check_shards, halves
+from ..utils import graphs
 from .mesh import all_gather_stack, axis_group, axis_index, axis_size, psum_mod, shard, unshard
 
 
@@ -56,8 +65,10 @@ class ShardedEvalContext(CkksContext):
     the JAX class takes, any D dividing n1 and n2
     (:func:`..ops.sharded_ntt.check_shards`)."""
 
-    # its transforms run all-to-alls on the coef axis: the scheme's
-    # operations stay eager here (the sharded round's graph is not ported)
+    # its transforms run all-to-alls on the coef axis: the scheme's per-op
+    # cache stays off here, as the JAX package has no per-op jit on a
+    # sharded context; its compositions are cached by cached_graph, and a
+    # whole round on scheme_view by fl.compiled.CompiledRound
     per_op_graphs = False
 
     def __init__(self, params: CkksParams, mesh, axis: str = "coef"):
@@ -71,7 +82,19 @@ class ShardedEvalContext(CkksContext):
         self.n1, self.n2 = self.fntt.n1, self.fntt.n2
         check_shards(self.n1, self.n2, self.D)
         self.chain = self.fntt.tables.streamed
+        self.local_n = params.n // self.D
         self._local_perms: dict = {}
+        self._graphs = graphs.GraphCache(tied=True)
+
+    def cached_graph(self, key, body, *inputs, scrub: bool = False):
+        """``body(*inputs)`` through this context's graph cache, the
+        counterpart of the JAX class's ``cached_jit``: ``key`` is the JAX
+        key, the inputs (ciphertexts, keys, tensors: this rank's shards) add
+        their signatures; collectives run inside the captured graph. Eager
+        on the CPU, inside :func:`..utils.graphs.eager` and during another
+        capture."""
+        return graphs.cached(self._graphs, key, "the sharded composition", body, *inputs,
+                             scrub=scrub)
 
     def ntt(self, a: torch.Tensor, idx: Sequence[int]) -> torch.Tensor:
         """Local coefficients (..., l, N/D), (n1, n2/D) order → local
@@ -160,9 +183,12 @@ def re_encrypt_sharded(sctx: ShardedEvalContext, ct: Ciphertext,
     the coef axis (bit-equal to the replicated path). ``ct`` and ``rekey``
     are this rank's shards."""
     l = ct.nlimbs
-    rekey = ev.ksk_to_mont(sctx, rekey)
-    d0, d1 = ev.keyswitch(sctx, ct.data[..., 1, :, :], rekey, l)
-    return Ciphertext(data=_with_c0(sctx, ct.data[..., 0, :, :], d0, d1, l), scale=ct.scale)
+
+    def body(c, k):
+        d0, d1 = ev.keyswitch(sctx, c.data[..., 1, :, :], k, l)
+        return Ciphertext(data=_with_c0(sctx, c.data[..., 0, :, :], d0, d1, l), scale=c.scale)
+
+    return sctx.cached_graph(("reenc", l), body, ct, ev.ksk_to_mont(sctx, rekey))
 
 
 def _gather_full(sctx: ShardedEvalContext, y: torch.Tensor) -> torch.Tensor:
@@ -190,13 +216,16 @@ def _automorphism_local(sctx: ShardedEvalContext, y: torch.Tensor, g: int) -> to
 def _galois_keyswitch_sharded(sctx: ShardedEvalContext, ct: Ciphertext, g: int,
                               key: KeySwitchKey) -> Ciphertext:
     """X → X^g on both components (one all-gather each), then one sharded
-    key switch of the permuted c1."""
+    key switch of the permuted c1: one cached graph per (g, l)."""
     l = ct.nlimbs
-    key = ev.ksk_to_mont(sctx, key)
-    c0p = _automorphism_local(sctx, ct.data[..., 0, :l, :], g)
-    c1p = _automorphism_local(sctx, ct.data[..., 1, :l, :], g)
-    d0, d1 = ev.keyswitch(sctx, c1p, key, l)
-    return Ciphertext(data=_with_c0(sctx, c0p, d0, d1, l), scale=ct.scale)
+
+    def body(c, k):
+        c0p = _automorphism_local(sctx, c.data[..., 0, :l, :], g)
+        c1p = _automorphism_local(sctx, c.data[..., 1, :l, :], g)
+        d0, d1 = ev.keyswitch(sctx, c1p, k, l)
+        return Ciphertext(data=_with_c0(sctx, c0p, d0, d1, l), scale=c.scale)
+
+    return sctx.cached_graph(("galois", g, l), body, ct, ev.ksk_to_mont(sctx, key))
 
 
 def rotate_sharded(sctx: ShardedEvalContext, ct: Ciphertext, r: int,
@@ -218,20 +247,25 @@ def rotate_hoisted_sharded(sctx: ShardedEvalContext, ct: Ciphertext,
     """Hoisted rotations, sharded: one sharded decompose+extend
     (``keyswitch_core``), the extended digits and c0 gathered once, then per
     rotation the rank's slice of each permutation and the inner product and
-    ModDown on the shard (``eval.rotate_hoisted``'s order)."""
+    ModDown on the shard (``eval.rotate_hoisted``'s order); one cached
+    graph per tuple of Galois elements and l."""
     l = ct.nlimbs
-    digits = ev.keyswitch_core(sctx, ct.data[..., 1, :, :], l)
-    digits_full = [_gather_full(sctx, d) for d in digits]
-    c0_full = _gather_full(sctx, ct.data[..., 0, :l, :])
-    out = []
-    for r in rotations:
-        g = ev.rot_to_galois(r, sctx.params.n)
-        key = ev.ksk_to_mont(sctx, rot_keys[r])
-        d0, d1 = ev.keyswitch_apply(sctx, [_perm_local(sctx, d, g) for d in digits_full], key,
-                                    l)
-        out.append(Ciphertext(data=_with_c0(sctx, _perm_local(sctx, c0_full, g), d0, d1, l),
-                              scale=ct.scale))
-    return out
+    gs = tuple(ev.rot_to_galois(r, sctx.params.n) for r in rotations)
+
+    def body(c, *keys):
+        digits = ev.keyswitch_core(sctx, c.data[..., 1, :, :], l)
+        digits_full = [_gather_full(sctx, d) for d in digits]
+        c0_full = _gather_full(sctx, c.data[..., 0, :l, :])
+        out = []
+        for g, key in zip(gs, keys):
+            d0, d1 = ev.keyswitch_apply(sctx, [_perm_local(sctx, d, g) for d in digits_full],
+                                        key, l)
+            out.append(Ciphertext(data=_with_c0(sctx, _perm_local(sctx, c0_full, g), d0, d1, l),
+                                  scale=c.scale))
+        return tuple(out)
+
+    keys = [ev.ksk_to_mont(sctx, rot_keys[r]) for r in rotations]
+    return list(sctx.cached_graph(("hoisted", gs, l), body, ct, *keys))
 
 
 def fedavg_round_sharded(sctx: ShardedEvalContext, stacks: torch.Tensor, rk12: KeySwitchKey,
@@ -244,19 +278,26 @@ def fedavg_round_sharded(sctx: ShardedEvalContext, stacks: torch.Tensor, rk12: K
     the orchestrator's aggregation domain, and is used as it is), a modular
     psum over ``client``, EvalMult(1/n) + rescale, then PRE the average
     back. Returns the (average, average re-encrypted) data (B, 2, l', N/D),
-    the same on every client rank."""
+    the same on every client rank. One cached graph per (client axis,
+    clients, B, l, scale)."""
     mesh = sctx.mesh
     local_clients, l = stacks.shape[0], stacks.shape[-2]
     n_clients = local_clients * axis_size(mesh, client_axis)
     base = axis_index(mesh, client_axis) * local_clients
-    q, _, _ = sctx.limb_consts(sctx.q_idx(l), stacks.device)
-    k12, k21 = ev.ksk_to_mont(sctx, rk12), ev.ksk_to_mont(sctx, rk21)
-    acc = None
-    for c in range(local_clients):
-        st = stacks[c]
-        if base + c != n_clients - 1:
-            st = re_encrypt_sharded(sctx, Ciphertext(st, scale), k12).data
-        acc = st if acc is None else modadd(acc, st, q)
-    tot = psum_mod(acc, q, axis_group(mesh, client_axis))
-    avg = ev.mult_scalar(sctx, Ciphertext(tot, scale), 1.0 / n_clients)
-    return avg.data, re_encrypt_sharded(sctx, avg, k21).data
+    group = axis_group(mesh, client_axis)
+
+    def body(st_all, k12, k21):
+        q, _, _ = sctx.limb_consts(sctx.q_idx(l), st_all.device)
+        acc = None
+        for c in range(local_clients):
+            st = st_all[c]
+            if base + c != n_clients - 1:
+                st = re_encrypt_sharded(sctx, Ciphertext(st, scale), k12).data
+            acc = st if acc is None else modadd(acc, st, q)
+        tot = psum_mod(acc, q, group)
+        avg = ev.mult_scalar(sctx, Ciphertext(tot, scale), 1.0 / n_clients)
+        return avg.data, re_encrypt_sharded(sctx, avg, k21).data
+
+    key = ("fedavg", client_axis, n_clients, stacks.shape[1], l, float(scale))
+    return sctx.cached_graph(key, body, stacks, ev.ksk_to_mont(sctx, rk12),
+                             ev.ksk_to_mont(sctx, rk21))

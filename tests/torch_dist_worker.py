@@ -1,7 +1,7 @@
 """One rank of the port's multi-rank CPU tests (``gloo``), started by
 ``tests/test_torch_parallel.py``, ``tests/test_torch_multihost.py``,
-``tests/test_torch_mesh_d8.py``, ``tests/test_torch_mesh_16.py`` and
-``tests/test_torch_multikey.py`` as
+``tests/test_torch_mesh_d8.py``, ``tests/test_torch_mesh_16.py``,
+``tests/test_torch_multikey.py`` and ``tests/test_torch_mesh_graphs.py`` as
 
     python tests/torch_dist_worker.py <scenario> <in.npz> <out_dir>
 
@@ -216,8 +216,101 @@ def agg_fold(z, out):
                                             z["stack"].shape[0], average=False).data.numpy()
 
 
+def mesh_graphs(z, out):
+    """tests/test_torch_mesh_graphs.py: the mesh compositions through their
+    graph caches with the card's stand-ins (``torch_graph_standins``), each
+    called WARMUP + 2 times, so that the last result is a replay: the
+    re-encryption, rotations, conjugation and hoisted rotations on a coef
+    mesh of every rank, the round on client 1 × coef D, and
+    ``aggregate_sharded``, the joint key and ``partial_decrypt_psum`` on a
+    client axis of every rank; the caches' keys, captures and replays, the
+    replays' collective tally, the static buffers of the psum after a call,
+    ``all_gather_stack`` against every rank's input, and every body run
+    again warm with the host syncs patched to raise."""
+    import torch_graph_standins as standins
+
+    from ppqsflhe_tpu_torch.ckks.scheme import WARMUP
+    from ppqsflhe_tpu_torch.utils import graphs
+
+    D, r = dist.get_world_size(), dist.get_rank()
+    params = convert.params(json.loads(str(z["params"])))
+    ctx = CkksContext(params)
+    coef = pm.make_mesh({"client": 1, "coef": D}, "cpu")
+    cm = pm.make_mesh({"client": D}, "cpu")
+
+    x = torch.arange(6, dtype=torch.int64).reshape(2, 3) * (r + 1)
+    pm.reset_collectives()
+    got = pm.all_gather_stack(x, pm.axis_group(cm, "client"))
+    out["gather_ok"] = np.array(torch.equal(got, torch.stack([x // (r + 1) * (k + 1)
+                                                               for k in range(D)])))
+    out["gather_bytes"] = np.array(pm.read_collectives()["all_gather"]["bytes"])
+
+    standins.install(setattr)
+    sctx = ss.ShardedEvalContext(params, coef)
+    key = {name: KeySwitchKey(sctx.local(_t(z[name])))
+           for name in ["rk12", "rk21", "conj"] + [f"rot{k}" for k in ROTS]}
+    stacks, scale = _t(z["stacks"]), float(z["scale"])
+    local, c1 = sctx.local(stacks), Ciphertext(sctx.local(stacks[0]), scale)
+    c2 = Ciphertext(sctx.local(stacks[1]), scale)
+    rot = {k: key[f"rot{k}"] for k in ROTS}
+    mine = {name: pm.shard(_t(z[name]), r, D, 0) for name in ("agg_stack", "b_shares",
+                                                               "s_shares")}
+    crs = _t(z["crs"])
+    per = z["b_shares"].shape[0] // D
+    th_ct = Ciphertext(_t(z["th_ct"]), float(z["th_scale"]))
+    gens = lambda: [torch.Generator().manual_seed(int(z["flood_seed"]) + i)
+                    for i in range(r * per, (r + 1) * per)]
+    n_total = z["agg_stack"].shape[0]
+    calls = {
+        "reenc": lambda: [ss.re_encrypt_sharded(sctx, c1, key["rk12"]).data],
+        "conj": lambda: [ss.conjugate_sharded(sctx, c2, key["conj"]).data],
+        "round": lambda: list(ss.fedavg_round_sharded(sctx, local, key["rk12"], key["rk21"],
+                                                      scale)),
+        "agg_avg": lambda: [multikey.aggregate_sharded(ctx, mine["agg_stack"], cm, scale,
+                                                       n_total).data],
+        "joint_pk": lambda: [th.joint_public_key_sharded(ctx, crs, mine["b_shares"], cm).data],
+        "pdec": lambda: [th.partial_decrypt_psum(ctx, th_ct, mine["s_shares"], gens(), cm)],
+    }
+    for k in ROTS:
+        calls[f"rot_{k}"] = lambda k=k: [ss.rotate_sharded(sctx, c2, k, rot[k]).data]
+    calls["hoisted"] = lambda: [c.data for c in ss.rotate_hoisted_sharded(sctx, c2, ROTS, rot)]
+    pm.reset_collectives()
+    graphs.reset_replayed()
+    for name, fn in calls.items():
+        for _ in range(WARMUP + 2):
+            res = fn()
+        for i, t in enumerate(res):
+            out[f"{name}_{i}"] = t.numpy()
+    ops = dict(sctx._graphs)
+    ops.update(graphs.group_cache(pm.axis_group(cm, "client")))
+    out["keys"] = np.array(json.dumps(sorted(
+        json.dumps([x for x in k[0] if isinstance(x, (str, int, float, list, tuple))])
+        for k in ops)))
+    out["captures"] = np.array(len(standins.ReplayingGraph.captures))
+    out["replays"] = np.array([op.replays for op in ops.values()])
+    tally = {c: {"ops": 0, "bytes": 0} for c in pm.collectives}
+    for op in ops.values():
+        for c, v in op.graph.collectives.items():
+            for f in v:
+                tally[c][f] += v[f] * op.replays
+    out["tally_ok"] = np.array(tally == graphs.replayed_collectives
+                               and any(v["ops"] for v in tally.values()))
+    (psum,) = [op for k, op in ops.items() if k[0][0] == "partial_decrypt_psum"]
+    out["psum_zero"] = np.array(all(not t.any() for t in [
+        *psum.static, *graphs._tensors(psum.graph.output)]))
+    out["round_colls"] = np.array(json.dumps(
+        [op.graph.collectives for k, op in ops.items() if k[0][0] == "fedavg"]))
+
+    with graphs.eager():
+        warm = {name: fn() for name, fn in calls.items()}
+        standins.refuse_host_syncs(setattr)
+        steady = {name: fn() for name, fn in calls.items()}
+    out["no_host_sync"] = np.array(all(torch.equal(a, b) for name in calls
+                                       for a, b in zip(warm[name], steady[name])))
+
+
 SCENARIOS = {"parallel": parallel, "multihost": multihost_fedavg, "mesh_d8": mesh_d8,
-             "mesh_16": mesh_16, "agg_fold": agg_fold}
+             "mesh_16": mesh_16, "agg_fold": agg_fold, "mesh_graphs": mesh_graphs}
 
 
 def main():
@@ -233,7 +326,7 @@ def main():
         SCENARIOS[scenario](z, out)
         np.savez(os.path.join(out_dir, f"rank{dist.get_rank()}.npz"), **out)
     finally:
-        dist.destroy_process_group()
+        pm.destroy_process_group()
 
 
 if __name__ == "__main__":
