@@ -228,7 +228,16 @@ both contexts, changeCipherDomain's document bit-equal to the in-memory
 radix-2 round launching kernels 2 and 3 and no NTT kernel, the four-step
 round kernels 1, 2 and 3; the INDCCA hop's error RMS below √(N/2)·2^-10
 (the flooding's cost per hop, ``docs/SECURITY.md:58``) and its largest
-value below four times that.
+value below four times that. Then, in both contexts, the tools run again
+in turns through their CUDA graphs (the radix-2 transforms, the seed
+expansion, the encoding NTT, sk-encryption, the batched decryption, the
+aggregation's sum and ÷N, and the scheme's per-op graphs) and inside
+``utils.graphs.eager()``: every file the graphs write must be byte-equal
+to the eager tools' in every turn, every new cache must have captured and
+replayed a graph, and every scrubbed graph's static buffers must be zero
+after a call; it prints warm ms per tool both ways, device ms, device
+activities and host launch calls of four tools both ways, the caches'
+graphs and the device memory they hold.
 
 Each kernel row carries its bound: the least time the card could take for
 the same work, the larger of the bytes it must move (each input read once,
@@ -1569,6 +1578,206 @@ def files_kernel_checks(cases, sch, rk_mont, gen, device, tag):
     torch.cuda.synchronize()
 
 
+def file_round(cc, container, P, dev, tag=""):
+    """The file round's eleven tool calls in order, {name: call}, every key
+    and document named after ``tag``, and the paths they write."""
+    from ppqsflhe_tpu_torch.fl import api
+
+    e = lambda name: P(f"{name}{tag}.{container}")
+    key = lambda name: P(f"{name}.key{tag}.{container}")
+    d = lambda name: P(f"{name}{tag}.json")
+    calls = {
+        "keyGen 1": lambda: api.key_gen(cc, key("pk1"), key("sk1"), seed=SEED + 1, device=dev),
+        "keyGen 2": lambda: api.key_gen(cc, key("pk2"), key("sk2"), seed=SEED + 2, device=dev),
+        "REkeyGen 1->2": lambda: api.rekey_gen(cc, key("sk1"), key("pk2"), key("rk12"),
+                                               seed=SEED + 3, device=dev),
+        "REkeyGen 2->1": lambda: api.rekey_gen(cc, key("sk2"), key("pk1"), key("rk21"),
+                                               seed=SEED + 4, device=dev),
+        "encrypt pk (v2)": lambda: api.encrypt_weights(cc, key("pk1"), P("w1.json"), e("e1"),
+                                                       seed=SEED + 5, container=container,
+                                                       device=dev),
+        "encrypt sk (v3)": lambda: api.encrypt_weights(cc, key("sk2"), P("w2.json"), e("e2"),
+                                                       seed=SEED + 6, container=container,
+                                                       device=dev),
+        "changeCipherDomain 1->2": lambda: api.change_cipher_domain(cc, key("rk12"), e("e1"),
+                                                                    e("c12"), device=dev),
+        "aggregate": lambda: api.aggregate_encrypted_weights(cc, [e("c12"), e("e2")], e("agg"),
+                                                             device=dev),
+        "changeCipherDomain 2->1": lambda: api.change_cipher_domain(cc, key("rk21"), e("agg"),
+                                                                    e("back"), device=dev),
+        "decrypt 2": lambda: api.decrypt_weights(cc, key("sk2"), e("agg"), d("d2"), device=dev),
+        "decrypt 1": lambda: api.decrypt_weights(cc, key("sk1"), e("back"), d("d1"), device=dev),
+    }
+    paths = ([key(k) for k in ("pk1", "sk1", "pk2", "sk2", "rk12", "rk21")]
+             + [e(k) for k in ("e1", "e2", "c12", "agg", "back")] + [d("d2"), d("d1")])
+    return calls, paths
+
+
+def radix2_timing(sch, device, card):
+    """The radix-2 transforms of 3 limbs x 27 polys at N=2^14: eagerly, as
+    the cached CUDA graph the tools run (copy-in, replay, clone, scrub),
+    and as the same graph unscrubbed: the scrub's cost is the difference."""
+    import torch
+
+    from ppqsflhe_tpu_torch.utils import graphs
+
+    idx = (0, 1, 2)
+    x = rand_residues(sch.ctx.moduli_qp[:3], (N_CTS,), sch.params.n,
+                      torch.Generator().manual_seed(SEED), device)
+    unscrubbed = graphs.GraphCache()
+    for name in ("ntt", "intt"):
+        f = getattr(sch.ctx, name)
+        run = lambda: f(x, idx)
+        plain = lambda: graphs.cached(unscrubbed, name, "an unscrubbed radix-2 transform",
+                                      lambda y: f(y, idx), x)
+        with eager_ops():
+            e_dev, e_wall = device_ms(run, 3), cuda_ms(run, 3)
+        warm = graphs.WARMUP + 2
+        g_wall, p_wall = cuda_ms(run, ROUNDS, warm), cuda_ms(plain, ROUNDS, warm)
+        g_dev, p_dev = device_ms(run, 3), device_ms(plain, 3)
+        per = None if e_dev is None else e_dev / (3 * N_CTS)
+        print(f"[timing radix2 {name}] 3 limbs x {N_CTS} polys, N=2^14 (plain torch, "
+              f"{sch.params.n.bit_length() - 1} stages): eager device {show_us(e_dev)} per call, "
+              f"{show_us(per)} per limb-NTT, wall {e_wall * 1e3:.1f} us per call; as the cached "
+              f"graph device {show_us(g_dev)}, wall {g_wall * 1e3:.1f} us; unscrubbed device "
+              f"{show_us(p_dev)}, wall {p_wall * 1e3:.1f} us (the scrub "
+              f"{(g_wall - p_wall) * 1e3:+.1f} us of wall) ({card})")
+    unscrubbed.release()
+
+
+TOOL_TURNS = 3      # turns of the file round through the graphs and inside graphs.eager()
+PROFILED_TOOLS = ("changeCipherDomain 1->2", "aggregate", "decrypt 2", "encrypt sk (v3)")
+# the JAX functions of the tools' graph caches' keys, and those scrubbed
+TOOL_KINDS = ("ntt", "intt", "expand_a", "api_ntt", "encrypt_sk", "decrypt_batch", "aggregate")
+SCRUBBED_KINDS = ("ntt", "intt", "api_ntt", "encrypt_sk", "decrypt_batch")
+# host calls that enqueue device work: launches, graph launches, copies, sets
+HOST_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch", "cuGraphLaunch", "cudaMemcpy",
+                 "cudaMemset")
+
+
+def key_kind(key) -> str:
+    """The JAX function of a graph cache's key."""
+    return key[0] if isinstance(key[0], str) else key[0][0]
+
+
+def tool_profile(fn):
+    """(device ms, of it copies and sets ms, device activities, host calls
+    that enqueue work) of one call of ``fn``, from the raw events of one
+    CPU + CUDA profile."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    evs = prof.profiler.kineto_results.events()
+    dev = [(e.name(), e.duration_ns()) for e in evs if e.device_type() == cuda]
+    copies = sum(ns for name, ns in dev if name.startswith(("Memcpy", "Memset")))
+    host = sum(e.name().startswith(HOST_LAUNCHES) for e in evs if e.device_type() != cuda)
+    return sum(ns for _, ns in dev) / 1e6, copies / 1e6, len(dev), host
+
+
+def graphs_mib(ops):
+    """MiB the captured graphs of ``ops`` (``utils.graphs.OpGraph``s) hold:
+    the reserved segments of their memory pools once the allocator's free
+    blocks are released, plus their static inputs; None where the
+    allocator's snapshot does not name the segments' pools."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    captured = [op for op in ops if op.graph is not None]
+    pools = {tuple(op.graph.graph.pool()) for op in captured}
+    segments = torch.cuda.memory_snapshot()
+    if any("segment_pool_id" not in seg for seg in segments):
+        return None
+    held = sum(seg["total_size"] for seg in segments if tuple(seg["segment_pool_id"]) in pools)
+    held += sum(t.numel() * t.element_size() for op in captured for t in op.static)
+    return held / 2 ** 20
+
+
+def tool_graph_checks(card, device, tag, cc, container, P):
+    """The file round's tools through their CUDA graphs and inside
+    ``graphs.eager()``, in turns (after the cold and warm runs, so each key
+    has had its warm-up calls): every file the graphs write byte-equal to
+    the eager tools' in every turn; warm ms per tool both ways; device ms,
+    device activities and host launch calls of four tools both ways; each
+    new cache's graphs (captured, replayed), the scrubbed ones' static
+    buffers zero after a call, and the device memory they hold."""
+    from pathlib import Path
+
+    import torch
+
+    from ppqsflhe_tpu_torch.fl import api
+    from ppqsflhe_tpu_torch.utils import graphs
+
+    dev = str(device)
+    read = lambda path: Path(path).read_bytes()
+    rounds = {mode: file_round(cc, container, P, dev, f".{mode}") for mode in ("graphs", "eager")}
+    scope = {"graphs": contextlib.nullcontext, "eager": eager_ops}
+    times = {mode: {name: [] for name in calls} for mode, (calls, _) in rounds.items()}
+    for turn in range(TOOL_TURNS):
+        for mode, (calls, _) in rounds.items():
+            with scope[mode]():
+                for name, fn in calls.items():
+                    t0 = time.perf_counter()
+                    fn()
+                    torch.cuda.synchronize()
+                    times[mode][name].append((time.perf_counter() - t0) * 1e3)
+        differ = [os.path.basename(g) for g, e in zip(rounds["graphs"][1], rounds["eager"][1])
+                  if read(g) != read(e)]
+        if differ:
+            raise AssertionError(f"{tag}, turn {turn + 1}: the files the graphs wrote differ "
+                                 f"from the eager tools' {differ}")
+    warm = {mode: {name: statistics.median(t[1:]) for name, t in ts.items()}
+            for mode, ts in times.items()}
+    print(f"[files {tag} graphs] warm ms per tool (wall, file I/O included; median of turns "
+          f"2-{TOOL_TURNS} of {TOOL_TURNS}), through the graphs vs inside graphs.eager(): "
+          + ", ".join(f"{name} {warm['graphs'][name]:.1f} vs {warm['eager'][name]:.1f}"
+                      for name in warm["graphs"])
+          + f"; sum {sum(warm['graphs'].values()):.1f} vs {sum(warm['eager'].values()):.1f}; "
+          f"all {len(rounds['graphs'][1])} files byte-equal in each turn ({card})")
+    for name in PROFILED_TOOLS:
+        parts = []
+        for mode, (calls, _) in rounds.items():
+            with scope[mode]():
+                dms, copies, n_dev, n_host = tool_profile(calls[name])
+            parts.append(f"{mode} device {dms:.3f} ms (copies and sets {copies:.3f}) in "
+                         f"{n_dev} device activities, "
+                         f"{n_host if n_host else 'not measured'} host launch calls")
+        print(f"[files {tag} graphs] {name}: {'; '.join(parts)} (one call, profiler) ({card})")
+
+    sch = api.load_scheme(cc, dev)
+    caches = {"context": sch.ctx._graphs,
+              "scheme": {k: op for k, op in sch._graphs.items() if key_kind(k) in TOOL_KINDS}}
+    if sch.ctx.radix2:
+        caches["radix-2"] = sch.ctx.fntt._graphs
+    ops = [(key_kind(k), op) for cache in caches.values() for k, op in cache.items()]
+    stats = {name: (sum(1 for n, _ in ops if n == name),
+                    sum(op.graph is not None for n, op in ops if n == name),
+                    sum(op.replays for n, op in ops if n == name)) for name, _ in ops}
+    want = [k for k in TOOL_KINDS if sch.ctx.radix2 or k not in ("ntt", "intt")]
+    unreplayed = [k for k in want if not stats.get(k, (0, 0, 0))[2]]
+    held = sorted({name for name, op in ops if name in SCRUBBED_KINDS and op.graph is not None
+                   and (not op.scrub or any(t.any() for t in [
+                       *op.static, *graphs._tensors(op.graph.output)]))})
+    per_cache = {name: sum(op.graph is not None for op in c.values())
+                 for name, c in caches.items()}
+    replayed = {k: sum(op.graph.launches[k] * op.replays for _, op in ops
+                       if op.graph is not None) for k in graphs.COUNTERS}
+    mib = graphs_mib([op for _, op in ops])
+    print(f"[files {tag} graphs] the caches' keys by JAX function (entries, captured, "
+          f"replays): {stats}; graphs captured per cache: {per_cache}; kernel launches "
+          f"their replays ran: { {k: v for k, v in replayed.items() if v} }; the scrubbed "
+          f"graphs' static buffers zero after a call: {not held}; device memory they hold "
+          f"(their pools' reserved segments once free blocks are released, and their static "
+          f"inputs): " + ("not measured" if mib is None else f"{mib:.1f} MiB") + f" ({card})")
+    if unreplayed or held:
+        raise AssertionError(f"{tag}: caches never replayed {unreplayed}; scrubbed graphs "
+                             f"holding data {held}")
+
+
 def files_phase(card, device, profile_on):
     """The file round through the port's tools, in the radix-2/JSON and the
     four-step/PQWD contexts, then one INDCCA hop; ms per tool, device ms of
@@ -1595,38 +1804,17 @@ def files_phase(card, device, profile_on):
             e = lambda name: P(f"{name}.{container}")
             key = lambda name: P(f"{name}.key.{container}")
             api.gen_cc(dict(base_cfg, **extra), cc)
-            times = {}
-
-            def tool(name, fn, *a, **kw):
-                t0 = time.perf_counter()
-                out = fn(*a, **kw)
-                torch.cuda.synchronize()
-                times[name] = (time.perf_counter() - t0) * 1e3
-                return out
-
-            ccd = lambda: api.change_cipher_domain(cc, key("rk12"), e("e1"), e("c12"), device=dev)
-            agg = lambda: api.aggregate_encrypted_weights(cc, [e("c12"), e("e2")], e("agg"),
-                                                          device=dev)
+            calls = file_round(cc, container, P, dev)[0]
+            ccd, agg = calls["changeCipherDomain 1->2"], calls["aggregate"]
+            times, outs = {}, {}
             reset_counts()
             for rep in ("cold", "warm"):
-                tool("keyGen 1", api.key_gen, cc, key("pk1"), key("sk1"), seed=SEED + 1, device=dev)
-                tool("keyGen 2", api.key_gen, cc, key("pk2"), key("sk2"), seed=SEED + 2, device=dev)
-                tool("REkeyGen 1->2", api.rekey_gen, cc, key("sk1"), key("pk2"), key("rk12"),
-                     seed=SEED + 3, device=dev)
-                tool("REkeyGen 2->1", api.rekey_gen, cc, key("sk2"), key("pk1"), key("rk21"),
-                     seed=SEED + 4, device=dev)
-                tool("encrypt pk (v2)", api.encrypt_weights, cc, key("pk1"), P("w1.json"), e("e1"),
-                     seed=SEED + 5, container=container, device=dev)
-                tool("encrypt sk (v3)", api.encrypt_weights, cc, key("sk2"), P("w2.json"), e("e2"),
-                     seed=SEED + 6, container=container, device=dev)
-                tool("changeCipherDomain 1->2", ccd)
-                tool("aggregate", agg)
-                tool("changeCipherDomain 2->1", api.change_cipher_domain, cc, key("rk21"),
-                     e("agg"), e("back"), device=dev)
-                d2 = tool("decrypt 2", api.decrypt_weights, cc, key("sk2"), e("agg"), P("d2.json"),
-                          device=dev)
-                d1 = tool("decrypt 1", api.decrypt_weights, cc, key("sk1"), e("back"),
-                          P("d1.json"), device=dev)
+                for name, fn in calls.items():
+                    t0 = time.perf_counter()
+                    outs[name] = fn()
+                    torch.cuda.synchronize()
+                    times[name] = (time.perf_counter() - t0) * 1e3
+                d2, d1 = outs["decrypt 2"], outs["decrypt 1"]
                 if rep == "cold":
                     launches = read_counts()
                 print(f"[files {tag} {rep}] ms per tool (wall, file I/O included): "
@@ -1668,20 +1856,12 @@ def files_phase(card, device, profile_on):
             if profile_on:
                 profile_table(f"files {tag} changeCipherDomain", ccd)
             if sch.ctx.radix2:
-                x = rand_residues(sch.ctx.moduli_qp[:3], (N_CTS,), sch.params.n,
-                                  torch.Generator().manual_seed(SEED), device)
-                for name, run in (("ntt", lambda: sch.ctx.ntt(x, (0, 1, 2))),
-                                  ("intt", lambda: sch.ctx.intt(x, (0, 1, 2)))):
-                    dms = device_ms(run, 3)
-                    per = None if dms is None else dms / (3 * N_CTS)
-                    print(f"[timing radix2 {name}] 3 limbs x {N_CTS} polys, N=2^14 (plain torch, "
-                          f"{sch.params.n.bit_length() - 1} stages): device {show_us(dms)} per "
-                          f"call, {show_us(per)} per limb-NTT; wall "
-                          f"{cuda_ms(run, 3) * 1e3:.1f} us per call ({card})")
+                radix2_timing(sch, device, card)
             cases = KernelCases(card)
             files_kernel_checks(cases, sch, rk12, torch.Generator().manual_seed(SEED), device,
                                 tag)
             rows += cases.take_launches(launches)
+            tool_graph_checks(card, device, tag, cc, container, P)
 
         # one INDCCA hop on the radix-2 round's keys (same chain and order)
         cca = P("cc_cca.json")

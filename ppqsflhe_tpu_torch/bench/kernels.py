@@ -7,8 +7,10 @@ B=27 polys and at N=2^16 with B=8, numpy-seeded residues. Each
 implementation, under its JAX name, runs R chained forward transforms (each
 output the next input):
 
-- ``core``: the radix-2 transform (``core/ntt.Radix2Ntt``, plain torch; the
-  bit-reversed order, so its chain is not compared);
+- ``core``: the radix-2 transform (``core/ntt.Radix2Ntt``, plain torch,
+  each call a replay of its cached CUDA graph on the card as the JAX
+  package jits ``_ntt_impl``; the bit-reversed order, so its chain is not
+  compared);
 - ``pallas``: the butterfly transform, kernel 6;
 - ``pallas_mxu``: the digit-matmul route (``route``: kernel 1, 1b, or 4+5
   per digit-count group).

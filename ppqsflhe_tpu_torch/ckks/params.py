@@ -15,7 +15,12 @@ bit-reversed order of :class:`..core.ntt.Radix2Ntt`; ``ntt_impl`` is not
 read). Which implementation runs a four-step transform follows the tensor:
 the plain torch version on the CPU, the CUDA kernels on the card (the JAX
 package's ``use_pallas_ks`` gate). The radix-2 transforms are plain torch on
-every device.
+every device, each a CUDA graph on the card (:class:`..core.ntt.Radix2Ntt`).
+
+The JAX package caches two jitted transforms on its context, the seed
+expansion's (``ctx._expand_a_jit``) and the tools' encoding NTT
+(``ctx._api_ntt_jit``); :meth:`CkksContext.cached` is their counterpart, a
+CUDA graph per JAX key and input signature on the card.
 """
 
 from __future__ import annotations
@@ -33,6 +38,7 @@ from ..core.modarith import u64_to_i64
 from ..core.ntt import NttBasis, Radix2Ntt
 from ..core.rns import BaseExtender
 from ..ops import cuda_ntt
+from ..utils import graphs
 
 # the reference artifacts' chain and roots (ppqsflhe_tpu/ckks/params.py:36-37)
 REFERENCE_MODULI = (1152921504606748673, 1099510054913, 1099511922689, 557057)
@@ -189,6 +195,7 @@ class CkksContext:
         self.fntt = (Radix2Ntt(self.basis) if self.radix2 else cuda_ntt.four_step_ntt(
             params.n, self.moduli_qp, self.basis.psis, cuda_ntt.RUNNER[params.ntt_impl]))
         self._dev: Dict[tuple, torch.Tensor] = {}
+        self._graphs = graphs.GraphCache()
         self._ext_cache: Dict[tuple, BaseExtender] = {}
 
         # Digit partition of Q limb indices for hybrid KS (fixed at keygen).
@@ -211,6 +218,17 @@ class CkksContext:
             t = self._dev[k] = torch.as_tensor(
                 u64_to_i64(list(values())), device=device).reshape(-1, 1)
         return t
+
+    def cached(self, key, what: str, body, *inputs, scrub: bool = False):
+        """``body(*inputs)`` through the context's graph cache under the JAX
+        key ``key`` (``("expand_a", l)``, ``("api_ntt", l)``) plus the
+        inputs' signatures; ``what`` names it in a failed capture's error,
+        ``scrub`` zeroes the graph's static buffers after every call. Eager
+        on the CPU, inside :func:`..utils.graphs.eager`, during another
+        capture and where ``per_op_graphs`` is off."""
+        if not self.per_op_graphs:
+            return body(*inputs)
+        return graphs.cached(self._graphs, key, what, body, *inputs, scrub=scrub)
 
     # -- limb index helpers -------------------------------------------------
 

@@ -144,10 +144,13 @@ def _expand_coeff(ctx: CkksContext, seed: bytes, nlimbs: int) -> np.ndarray:
 
 def expand_a_batch(ctx: CkksContext, seeds, nlimbs: int, device) -> torch.Tensor:
     """The eval-domain uniform polys of many seeds over the first
-    ``nlimbs`` limbs, int64[len(seeds), nlimbs, N], in ONE batched forward
-    transform on ``device``."""
+    ``nlimbs`` limbs, int64[len(seeds), nlimbs, N]: the host expansion and
+    one upload, then ONE batched forward transform on ``device`` through
+    the context's cache under the JAX key ``("expand_a", nlimbs)``."""
+    idx = ctx.q_idx(nlimbs)
     coeff = np.stack([_expand_coeff(ctx, sd, nlimbs) for sd in seeds])
-    return ctx.ntt(torch.from_numpy(coeff.view(np.int64)).to(device), ctx.q_idx(nlimbs))
+    return ctx.cached(("expand_a", nlimbs), "the seed expansion", lambda c: ctx.ntt(c, idx),
+                      torch.from_numpy(coeff.view(np.int64)).to(device))
 
 
 def expand_a(ctx: CkksContext, seed: bytes, nlimbs: int, device) -> torch.Tensor:
@@ -169,18 +172,24 @@ def encrypt_sk_body(ctx: CkksContext, s_eval: torch.Tensor, pt: Plaintext, a: to
     return Ciphertext(data=torch.stack([c0, a], dim=-3), scale=pt.scale)
 
 
+def encrypt_sk_draws(ctx: CkksContext, gen: torch.Generator, pt: Plaintext, a_seed) -> tuple:
+    """:func:`encrypt_sk`'s draws: the eval-domain masks ``a`` expanded
+    from ``a_seed`` (the plaintext's shape) and the Gaussian error ``e``
+    (int32[*lead, N], one sampler call)."""
+    dev = pt.data.device
+    seeds = [a_seed] if isinstance(a_seed, (bytes, bytearray)) else list(a_seed)
+    a = expand_a_batch(ctx, seeds, pt.nlimbs, dev).reshape(pt.data.shape)
+    return a, sampling.discrete_gaussian(gen, pt.data.shape[:-2] + (ctx.params.n,),
+                                         ctx.params.sigma, dev)
+
+
 def encrypt_sk(ctx: CkksContext, sk: SecretKey, pt: Plaintext, gen: torch.Generator,
                a_seed) -> Ciphertext:
     """Symmetric encryption with a seed-expanded mask: ct = (-a·s + e + m,
     a) with a = expand_a(a_seed). ``a_seed`` is one 16-byte seed, or one
     per entry of a batched plaintext (B, l, N). Decrypts and re-encrypts
     like a pk ciphertext; the wire can drop c1 (PQTC v3)."""
-    dev = pt.data.device
-    seeds = [a_seed] if isinstance(a_seed, (bytes, bytearray)) else list(a_seed)
-    a = expand_a_batch(ctx, seeds, pt.nlimbs, dev).reshape(pt.data.shape)
-    e = sampling.discrete_gaussian(gen, pt.data.shape[:-2] + (ctx.params.n,),
-                                   ctx.params.sigma, dev)
-    return encrypt_sk_body(ctx, sk.s_eval, pt, a, e)
+    return encrypt_sk_body(ctx, sk.s_eval, pt, *encrypt_sk_draws(ctx, gen, pt, a_seed))
 
 
 def zero_draws(ctx: CkksContext, gen: torch.Generator, lead, device,

@@ -17,7 +17,10 @@ and devices, every ciphertext's and plaintext's scale and the key's
 rescale, rotate, conjugate, re_encrypt in both PRE modes, decrypt's device
 half (``"decrypt_core"``), and the randomized operations: keygen (without
 a seed, as the JAX scheme jits it), relin_key_gen, rot_key_gen per Galois
-element, conj_key_gen, rekey_gen and encrypt. A randomized operation draws
+element, conj_key_gen, rekey_gen, encrypt, and the tools' compositions:
+sk-encryption (``("encrypt_sk", l)``), decryptModelWeights' batched
+decryption (``("decrypt_batch", l, k)``) and aggregateEncryptedWeights'
+sum and ÷N (``("aggregate", …)``). A randomized operation draws
 first, outside the cache, one sampler call of each kind over the whole
 batch on the caller's generator (``rlwe.*_draws``, ``ev.ksk_draws``); its
 draws are inputs of the cached body like the ciphertexts, so a CPU and a
@@ -28,11 +31,11 @@ plaintexts, keys and draws are copied in, so keys of one shape share a
 graph and none is kept alive by one), and every later call copies its
 inputs in and replays. Each call returns clones of the graph's outputs, so
 no later call changes an earlier result. An operation that reads a secret
-key, draws or a plaintext (the randomized ones and ``decrypt_core``) then
-zeroes its static inputs and outputs, so the cache keeps no copy of a
-secret between calls; the graph's pool of intermediates is, like the
-allocator's freed blocks on the eager path, overwritten only by later
-work. The body runs eagerly on the CPU,
+key, draws or a plaintext (the randomized ones, ``decrypt_core`` and
+``decrypt_batch``) then zeroes its static inputs and outputs, so the
+cache keeps no copy of a secret between calls; the graph's pool of
+intermediates is, like the allocator's freed blocks on the eager path,
+overwritten only by later work. The body runs eagerly on the CPU,
 inside :func:`..utils.graphs.eager` (every whole-program warm-up), while
 the current stream captures (a whole-program graph then holds the
 operation's kernels) and on a context that runs collectives
@@ -88,7 +91,10 @@ class CkksScheme:
                        scale: float | None = None) -> Plaintext:
         """One real vector, or a list of them (→ a batched plaintext), to
         eval-domain residues over the first ``nlimbs`` Q limbs. Under
-        FLEXIBLEAUTOEXT a fresh full-level plaintext encodes at Δ·q_ext."""
+        FLEXIBLEAUTOEXT a fresh full-level plaintext encodes at Δ·q_ext.
+        Encoding and upload on the host; the transform through the
+        context's cache under the JAX tools' key ``("api_ntt", l)``,
+        scrubbed (it holds a plaintext)."""
         l = nlimbs or self.params.num_q
         if scale is None:
             scale = self.params.scale
@@ -98,7 +104,10 @@ class CkksScheme:
         coeffs = self.encoder.encode_batch(values if batched else [values], scale)
         rns = self.encoder.to_rns_batch(coeffs, self.ctx.moduli_qp[:l])   # (B, l, n)
         data = torch.as_tensor(rns.view(np.int64), device=self.device)
-        data = self.ctx.ntt(data if batched else data[0], self.ctx.q_idx(l))
+        idx = self.ctx.q_idx(l)
+        data = self.ctx.cached(("api_ntt", l), "the encoding transform",
+                               lambda x: self.ctx.ntt(x, idx), data if batched else data[0],
+                               scrub=True)
         return Plaintext(data=data, scale=scale)
 
     def decode(self, coeffs_centered, scale: float, num: int | None = None) -> np.ndarray:
@@ -166,6 +175,16 @@ class CkksScheme:
         ``rlwe.encrypt_draws``."""
         return self._graph("encrypt", lambda p, t, u, e: rlwe.encrypt_body(self.ctx, p, t, u, e),
                            pk, pt, *draws, scrub=True)
+
+    def encrypt_sk(self, sk: SecretKey, pt: Plaintext, gen: torch.Generator,
+                   a_seed) -> Ciphertext:
+        """``rlwe.encrypt_sk``: its draws (the masks expanded from
+        ``a_seed``, one Gaussian draw), then its body through the cache
+        under ``("encrypt_sk", l)``, the JAX tools' jitted batch."""
+        a, e = rlwe.encrypt_sk_draws(self.ctx, gen, pt, a_seed)
+        return self._graph(("encrypt_sk", pt.nlimbs),
+                           lambda s, p, a_, e_: rlwe.encrypt_sk_body(self.ctx, s, p, a_, e_),
+                           sk.s_eval, pt, a, e, scrub=True)
 
     def encrypt_values(self, pk: PublicKey, values, gen: torch.Generator,
                        nlimbs: int | None = None) -> Ciphertext:

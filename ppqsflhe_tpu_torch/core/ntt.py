@@ -10,6 +10,14 @@ is one batched butterfly over a ``(..., L, m, 2, t)`` view, on whatever
 device the tensor lives. The JAX package runs these transforms in XLA, with
 no Pallas kernel, so plain torch is their port; it is the evaluation order
 of the ``ntt_backend="radix2"`` contexts (the CLI's default).
+
+The JAX package jits ``_ntt_impl`` and ``_intt_impl``; on the card
+:class:`Radix2Ntt` runs each through its own graph cache
+(:class:`..utils.graphs.GraphCache`), a CUDA graph per direction, limb
+subset and input signature, whose static buffers are zeroed after every
+call: a transform cannot tell a secret's coefficients from a ciphertext's.
+The transforms run eagerly on the CPU, inside ``utils.graphs.eager()`` and
+while another capture is under way (that graph then holds their kernels).
 """
 
 from __future__ import annotations
@@ -66,9 +74,12 @@ class Radix2Ntt:
     """The radix-2 transforms over a basis: int64[..., L, N] with
     L = len(idx) limbs of the basis. The host tables are the JAX
     ``NttBasis``'s (u64, same names); they are uploaded once per device and
-    limb subset."""
+    limb subset, and never freed (a captured graph reads them by address).
+    Only plain contexts hold one: a sharded context is four-step."""
 
     def __init__(self, basis: NttBasis):
+        from ..utils import graphs     # graphs imports the kernels, which import this module
+
         n, L = basis.n, len(basis.moduli)
         self.n = n
         self.psi_rev = np.zeros((L, n), np.uint64)
@@ -85,6 +96,7 @@ class Radix2Ntt:
             self.ninv[i, 0], self.ninv_shoup[i, 0] = nv, primes.shoup_precompute(nv, q)
         self.q_vec = np.array(basis.moduli, np.uint64).reshape(L, 1)
         self._dev: Dict[tuple, tuple] = {}
+        self._graphs = graphs.GraphCache()
 
     def _tables(self, sel, device):
         key = (tuple(sel), str(device))
@@ -103,15 +115,26 @@ class Radix2Ntt:
                              f"subset {sel} at N={self.n}")
         return sel
 
+    def _run(self, key, body, a: torch.Tensor) -> torch.Tensor:
+        """``body(a)`` through the graph cache under the JAX function and the
+        limb subset (``key``), scrubbed."""
+        from ..utils import graphs
+
+        return graphs.cached(self._graphs, key, "the radix-2 transform", body, a, scrub=True)
+
     def ntt(self, a: torch.Tensor, idx=None) -> torch.Tensor:
         """Natural-order coefficients → bit-reversed evaluations."""
-        psi, psi_sh, *_, q_vec = self._tables(self._sel(a, idx), a.device)
-        return _ntt_impl(a, psi, psi_sh, q_vec, self.n)
+        sel = self._sel(a, idx)
+        psi, psi_sh, *_, q_vec = self._tables(sel, a.device)
+        return self._run(("ntt", tuple(sel)), lambda x: _ntt_impl(x, psi, psi_sh, q_vec, self.n),
+                         a)
 
     def intt(self, a: torch.Tensor, idx=None) -> torch.Tensor:
         """Bit-reversed evaluations → natural-order coefficients."""
-        _, _, ipsi, ipsi_sh, ninv, ninv_sh, q_vec = self._tables(self._sel(a, idx), a.device)
-        return _intt_impl(a, ipsi, ipsi_sh, ninv, ninv_sh, q_vec, self.n)
+        sel = self._sel(a, idx)
+        _, _, ipsi, ipsi_sh, ninv, ninv_sh, q_vec = self._tables(sel, a.device)
+        return self._run(("intt", tuple(sel)),
+                         lambda x: _intt_impl(x, ipsi, ipsi_sh, ninv, ninv_sh, q_vec, self.n), a)
 
 
 def _ntt_impl(a, psi_rev, psi_rev_shoup, q_vec, n: int):

@@ -39,6 +39,15 @@ public key's ``a`` half and the seeded wire's c1 are bit-equal to theirs.
 tools' compute cores on batched ciphertexts; :func:`server_round` composes
 the round the way ``bench.py``'s ``server_round`` does in each of its five
 schedules (``bench.py:178-222``).
+
+On the card the tools' device work runs as CUDA graphs where the JAX tools
+jit it (``ppqsflhe_tpu/fl/api.py:246, 298, 345, 873``): the encoding
+transform (``CkksScheme.make_plaintext``), the seed expansion
+(``rlwe.expand_a_batch``), sk-encryption (``CkksScheme.encrypt_sk``), the
+batched decryption and the aggregation's sum and ÷N (the scheme's cache),
+the radix-2 transforms in each (``core/ntt.Radix2Ntt``). Host work stays
+outside: Philox expansion, encoding, uploads, the Gaussian draw, copies to
+the host, decoding and the files.
 """
 
 from __future__ import annotations
@@ -102,9 +111,15 @@ def aggregate_batch(sch: CkksScheme, stacks: Sequence[Ciphertext], lazy: bool) -
     acc = ev.level_reduce(sch.ctx, stacks[0], lmin)
     for s in stacks[1:]:
         acc = ev.add(sch.ctx, acc, ev.level_reduce(sch.ctx, s, lmin))
-    if lazy and (n_clients & (n_clients - 1)) == 0 and lmin > 1:
+    if free_division(n_clients, lmin, lazy):
         return Ciphertext(acc.data[..., : lmin - 1, :], scale=scale * n_clients)
     return ev.mult_scalar(sch.ctx, acc, 1.0 / n_clients)
+
+
+def free_division(n_clients: int, lmin: int, lazy: bool) -> bool:
+    """Whether :func:`aggregate_batch` divides by N as scale metadata: lazy,
+    N a power of two and a limb left to LevelReduce off."""
+    return lazy and (n_clients & (n_clients - 1)) == 0 and lmin > 1
 
 
 LAZY_MODES = (0, 1, 2, 3, 4)
@@ -361,7 +376,7 @@ def encrypt_weights(cc_path: str, pub_path: str, weights_in: str, enc_out: str,
         sk = ser.deserialize_secret_key(keydoc, sch.ctx, device)
         seeds = [_derived_seed(seed if seed is None else seed + 7919 * j, f"ct_a:{j}")
                  for j in range(len(vecs))]
-        cts = rlwe.encrypt_sk(sch.ctx, sk, pt, _rng(seed), seeds)
+        cts = sch.encrypt_sk(sk, pt, _rng(seed), seeds)
     else:
         seeds = None
         pk = ser.deserialize_public_key(keydoc, sch.ctx, device)
@@ -382,7 +397,9 @@ def decrypt_weights(cc_path: str, priv_path: str, enc_in: str, plain_out: str,
                     device="cuda") -> Dict:
     """Inverse of :func:`encrypt_weights`, trimming each layer's padding to
     prod(shape). The ciphertexts of one level, component count and scale
-    decrypt as one batch."""
+    decrypt as one batch, through the scheme's cache under the JAX tool's
+    key ``("decrypt_batch", l, k)`` with the secret key an input of the
+    graph (one graph serves every client's key), scrubbed."""
     sch = load_scheme(cc_path, device)
     sk = ser.deserialize_secret_key(ser.load_json(priv_path), sch.ctx, device)
     enc = ser.load_enc_doc(enc_in)
@@ -392,9 +409,11 @@ def decrypt_weights(cc_path: str, priv_path: str, enc_in: str, plain_out: str,
     for i, ct in enumerate(cts):
         groups.setdefault((ct.nlimbs, ct.num_components, float(ct.scale)), []).append(i)
     vals: Dict[int, np.ndarray] = {}
-    for idxs in groups.values():
+    for (l, k, _), idxs in groups.items():
         batch = _stack([cts[i] for i in idxs])
-        coeffs = rlwe.decrypt_to_coeffs(sch.ctx, sk.s_eval, batch).cpu()
+        coeffs = sch._graph(("decrypt_batch", l, k),
+                            lambda s, c: rlwe.decrypt_to_coeffs(sch.ctx, s, c), sk.s_eval, batch,
+                            scrub=True).cpu()
         for i, co in zip(idxs, coeffs):
             vals[i] = rlwe.decode_coeffs(sch.ctx, co, cts[i], sch.encoder)
 
@@ -486,8 +505,11 @@ def aggregate_encrypted_weights(cc_path: str, enc_paths: Sequence[str], agg_out:
     """Homomorphic FedAvg over N clients' documents in one key domain:
     layers matched by name AND shape (unmatched ones dropped), ct_avg =
     (Σ ct_i)·(1/N) as one batch. ``lazy``: for N a power of two, ÷N is
-    exact scale metadata plus one more LevelReduce. The first input's
-    container is kept, except on the OpenFHE wire (JSON)."""
+    exact scale metadata plus one more LevelReduce. Every ciphertext is
+    LevelReduced to the common minimum before the stack (a view), as the
+    JAX tool stacks them before its jit; the sum and ÷N run through the
+    scheme's cache under ``("aggregate", N, lmin, free ÷N)``. The first
+    input's container is kept, except on the OpenFHE wire (JSON)."""
     sch = load_scheme(cc_path, device)
     docs = [ser.load_enc_doc(p) for p in enc_paths]
 
@@ -513,7 +535,8 @@ def aggregate_encrypted_weights(cc_path: str, enc_paths: Sequence[str], agg_out:
     loaded = [_load_cts(p, sch) for p in per_client]
     lmin = min(ct.nlimbs for cl in loaded for ct in cl)
     stacks = [_stack([ev.level_reduce(sch.ctx, ct, lmin) for ct in cl]) for cl in loaded]
-    avg = aggregate_batch(sch, stacks, lazy)
+    avg = sch._graph(("aggregate", len(stacks), lmin, free_division(len(stacks), lmin, lazy)),
+                     lambda *s: aggregate_batch(sch, s, lazy), *stacks)
     blobs = iter(_blobs_of(sch, avg, wire))
     binary = ser.doc_is_binary(enc_paths[0]) and wire != "openfhe"
     out = {"weights_summary": []}
