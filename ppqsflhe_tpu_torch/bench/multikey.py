@@ -52,7 +52,7 @@ from ..ckks import rlwe
 from ..ckks.params import CkksParams
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext
-from ..utils import graphs
+from ..utils import graphs, profiling
 from . import timing
 from .timing import card_line
 
@@ -165,16 +165,20 @@ def server_round(sch: CkksScheme, stacks: Ciphertext, rk_to, rk_from, lazy: int 
     C = stacks.data.shape[0]
     scale = stacks.scale
     ctx = sch.ctx
-    acc = Ciphertext(stacks.data[C - 1], scale)
-    for i in range(C - 1):
-        acc = ev.add(ctx, acc, ev.re_encrypt(ctx, Ciphertext(stacks.data[i], scale), rk_to[i]))
-    if lazy >= 2 and (C & (C - 1)) == 0:
-        avg = Ciphertext(acc.data, scale * C)          # ÷C is scale metadata
-    else:
-        avg = ev.mult_scalar(ctx, acc, 1.0 / C)
-    if lazy >= 4 and avg.nlimbs > 1:
-        avg = ev.level_reduce(ctx, avg, avg.nlimbs - 1)
-    outs = torch.stack([ev.re_encrypt(ctx, avg, rk).data for rk in rk_from])
+    with profiling.span("round"):
+        acc = Ciphertext(stacks.data[C - 1], scale)
+        for i in range(C - 1):
+            pre = ev.re_encrypt(ctx, Ciphertext(stacks.data[i], scale), rk_to[i])
+            with profiling.span("fedavg"):
+                acc = ev.add(ctx, acc, pre)
+        with profiling.span("fedavg"):
+            if lazy >= 2 and (C & (C - 1)) == 0:
+                avg = Ciphertext(acc.data, scale * C)          # ÷C is scale metadata
+            else:
+                avg = ev.mult_scalar(ctx, acc, 1.0 / C)
+        if lazy >= 4 and avg.nlimbs > 1:
+            avg = ev.level_reduce(ctx, avg, avg.nlimbs - 1)
+        outs = torch.stack([ev.re_encrypt(ctx, avg, rk).data for rk in rk_from])
     return avg, Ciphertext(outs, avg.scale)
 
 
@@ -218,9 +222,12 @@ class CompiledMultikeyRound:
             raise ValueError(f"stacks {tuple(stacks.data.shape)} at scale {stacks.scale}; the "
                              f"graph was captured for {tuple(self.stacks.shape)} at scale "
                              f"{self.scale}")
-        if stacks.data is not self.stacks:
-            self.stacks.copy_(stacks.data)
-        return self.replay()
+        with profiling.span("round.call"):
+            with profiling.span("round.load"):
+                if stacks.data is not self.stacks:
+                    self.stacks.copy_(stacks.data)
+            with profiling.span("round.replay", device=False):
+                return self.replay()
 
 
 def slot_diffs(sch: CkksScheme, coeffs: torch.Tensor, cts: Ciphertext, want) -> np.ndarray:

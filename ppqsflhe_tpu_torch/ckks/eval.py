@@ -38,6 +38,7 @@ from ..core.modarith import (modadd, modmul, modneg, modsub, mont_mul, shoup_mul
 from ..core.ntt import bit_reverse_indices
 from ..ops.cuda_ext import fused_extend
 from ..ops.cuda_ks import ks_inner_product
+from ..utils import profiling
 from .params import CkksContext
 from .types import Ciphertext, KeySwitchKey, Plaintext, PublicKey, SecretKey
 
@@ -179,23 +180,25 @@ def keyswitch_core(ctx: CkksContext, c_eval: torch.Tensor, nlimbs: int):
     idx_q = ctx.q_idx(l)
     idx_ext = tuple(idx_q) + ctx.p_idx()
     groups, consts = _ks_decomp_consts(ctx, l)
-    c_coeff = ctx.intt(c_eval, idx_q)
-    digits = []
-    for g, inv in zip(groups, consts):
-        lo, hi = g[0], g[-1] + 1                       # groups are contiguous
-        other = tuple(i for i in idx_ext if i not in g)
-        # kernel 2 folds the decomposition constant into its first multiply
-        ext = fused_extend(c_coeff[..., lo:hi, :], ctx.extender(g, other), pre=inv)
-        ext_eval = ctx.ntt(ext, other)
-        # own-group rows stay in the eval domain: the constant multiply
-        # commutes with the NTT
-        qg = ctx.consts(("q", g), lambda: (ctx.moduli_qp[i] for i in g), dev)
-        w = ctx.consts(("ghat_inv", l, g), lambda: inv, dev)
-        ws = ctx.consts(("ghat_inv_sh", l, g), lambda: (
-            primes.shoup_precompute(v, ctx.moduli_qp[i]) for v, i in zip(inv, g)), dev)
-        d_eval = shoup_mul(c_eval[..., lo:hi, :], w, ws, qg)
-        digits.append(torch.cat([ext_eval[..., :lo, :], d_eval, ext_eval[..., lo:, :]], dim=-2))
-    return digits
+    with profiling.span("ks.decompose"):
+        c_coeff = ctx.intt(c_eval, idx_q)
+        digits = []
+        for g, inv in zip(groups, consts):
+            lo, hi = g[0], g[-1] + 1                       # groups are contiguous
+            other = tuple(i for i in idx_ext if i not in g)
+            # kernel 2 folds the decomposition constant into its first multiply
+            ext = fused_extend(c_coeff[..., lo:hi, :], ctx.extender(g, other), pre=inv)
+            ext_eval = ctx.ntt(ext, other)
+            # own-group rows stay in the eval domain: the constant multiply
+            # commutes with the NTT
+            qg = ctx.consts(("q", g), lambda: (ctx.moduli_qp[i] for i in g), dev)
+            w = ctx.consts(("ghat_inv", l, g), lambda: inv, dev)
+            ws = ctx.consts(("ghat_inv_sh", l, g), lambda: (
+                primes.shoup_precompute(v, ctx.moduli_qp[i]) for v, i in zip(inv, g)), dev)
+            d_eval = shoup_mul(c_eval[..., lo:hi, :], w, ws, qg)
+            digits.append(torch.cat([ext_eval[..., :lo, :], d_eval, ext_eval[..., lo:, :]],
+                                    dim=-2))
+        return digits
 
 
 def ksk_to_mont(ctx: CkksContext, ksk: KeySwitchKey) -> KeySwitchKey:
@@ -212,13 +215,14 @@ def keyswitch_ip(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int):
     basis (active Q + P), eval domain — no ModDown. A key not yet in
     Montgomery form is converted first (same residues as the JAX package's
     modmul path: mont_mul(d, k·2^64) = d·k mod q)."""
-    ksk = ksk_to_mont(ctx, ksk)
-    sel_ext = tuple(ctx.q_idx(nlimbs)) + ctx.p_idx()
-    dev = digits[0].device
-    q, qinv, _ = ctx.limb_consts(sel_ext, dev)
-    sel = ctx.consts(("limb_map", sel_ext), lambda: sel_ext, dev)
-    acc = ks_inner_product(torch.stack(digits, dim=-3), ksk.data, sel, q, qinv)
-    return acc[..., 0, :, :], acc[..., 1, :, :]
+    with profiling.span("ks.inner_product"):
+        ksk = ksk_to_mont(ctx, ksk)
+        sel_ext = tuple(ctx.q_idx(nlimbs)) + ctx.p_idx()
+        dev = digits[0].device
+        q, qinv, _ = ctx.limb_consts(sel_ext, dev)
+        sel = ctx.consts(("limb_map", sel_ext), lambda: sel_ext, dev)
+        acc = ks_inner_product(torch.stack(digits, dim=-3), ksk.data, sel, q, qinv)
+        return acc[..., 0, :, :], acc[..., 1, :, :]
 
 
 def _mod_down(ctx: CkksContext, c_ext: torch.Tensor, nlimbs: int) -> torch.Tensor:
@@ -230,11 +234,12 @@ def _mod_down(ctx: CkksContext, c_ext: torch.Tensor, nlimbs: int) -> torch.Tenso
     idx_p = ctx.p_idx()
     q, _, _ = ctx.limb_consts(idx_q, dev)
     pinv, pinv_sh = ctx.moddown_consts(l, dev)
-    part_p = ctx.intt(c_ext[..., l : l + k, :], idx_p)
-    ext = fused_extend(part_p, ctx.extender(idx_p, tuple(idx_q)))
-    ext_eval = ctx.ntt(ext, idx_q)
-    diff = modsub(c_ext[..., :l, :], ext_eval, q)
-    return shoup_mul(diff, pinv, pinv_sh, q)
+    with profiling.span("ks.mod_down"):
+        part_p = ctx.intt(c_ext[..., l : l + k, :], idx_p)
+        ext = fused_extend(part_p, ctx.extender(idx_p, tuple(idx_q)))
+        ext_eval = ctx.ntt(ext, idx_q)
+        diff = modsub(c_ext[..., :l, :], ext_eval, q)
+        return shoup_mul(diff, pinv, pinv_sh, q)
 
 
 def keyswitch_apply(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int):
@@ -253,11 +258,12 @@ def re_encrypt(ctx: CkksContext, ct: Ciphertext, rekey: KeySwitchKey) -> Ciphert
     """INDCPA proxy re-encryption (changeCipherDomain): c1 key-switched
     under ``rekey``, its d0 added to c0; leading batch dimensions ride
     through."""
-    l = ct.nlimbs
-    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
-    d0, d1 = keyswitch(ctx, ct.data[..., 1, :, :], rekey, l)
-    return Ciphertext(data=torch.stack([modadd(ct.data[..., 0, :, :], d0, q), d1], dim=-3),
-                      scale=ct.scale)
+    with profiling.span("pre"):
+        l = ct.nlimbs
+        q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
+        d0, d1 = keyswitch(ctx, ct.data[..., 1, :, :], rekey, l)
+        return Ciphertext(data=torch.stack([modadd(ct.data[..., 0, :, :], d0, q), d1], dim=-3),
+                          scale=ct.scale)
 
 
 def re_encrypt_indcca(ctx: CkksContext, ct: Ciphertext, rekey: KeySwitchKey, pk_to: PublicKey,

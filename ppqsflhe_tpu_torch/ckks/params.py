@@ -38,7 +38,7 @@ from ..core.modarith import u64_to_i64
 from ..core.ntt import NttBasis, Radix2Ntt
 from ..core.rns import BaseExtender
 from ..ops import cuda_ntt
-from ..utils import graphs
+from ..utils import graphs, profiling
 
 # the reference artifacts' chain and roots (ppqsflhe_tpu/ckks/params.py:36-37)
 REFERENCE_MODULI = (1152921504606748673, 1099510054913, 1099511922689, 557057)
@@ -250,10 +250,12 @@ class CkksContext:
     # -- NTT on limb subsets ------------------------------------------------
 
     def ntt(self, a: torch.Tensor, idx: Sequence[int]) -> torch.Tensor:
-        return self.fntt.ntt(a, idx=tuple(idx))
+        with profiling.span("ntt"):
+            return self.fntt.ntt(a, idx=tuple(idx))
 
     def intt(self, a: torch.Tensor, idx: Sequence[int]) -> torch.Tensor:
-        return self.fntt.intt(a, idx=tuple(idx))
+        with profiling.span("ntt"):
+            return self.fntt.intt(a, idx=tuple(idx))
 
     def galois_perm(self, g: int, device="cuda") -> torch.Tensor:
         """Eval-order permutation for the automorphism X→X^g in the

@@ -71,6 +71,7 @@ from ..ckks import threshold as th
 from ..ckks.params import CkksParams
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext, KeySwitchKey
+from ..utils import profiling
 
 OPTIMIZER_PREFIX = "optimizer"  # layers skipped at encrypt time
 
@@ -108,12 +109,13 @@ def aggregate_batch(sch: CkksScheme, stacks: Sequence[Ciphertext], lazy: bool) -
     n_clients = len(stacks)
     scale = stacks[0].scale
     lmin = min(s.nlimbs for s in stacks)
-    acc = ev.level_reduce(sch.ctx, stacks[0], lmin)
-    for s in stacks[1:]:
-        acc = ev.add(sch.ctx, acc, ev.level_reduce(sch.ctx, s, lmin))
-    if free_division(n_clients, lmin, lazy):
-        return Ciphertext(acc.data[..., : lmin - 1, :], scale=scale * n_clients)
-    return ev.mult_scalar(sch.ctx, acc, 1.0 / n_clients)
+    with profiling.span("fedavg"):
+        acc = ev.level_reduce(sch.ctx, stacks[0], lmin)
+        for s in stacks[1:]:
+            acc = ev.add(sch.ctx, acc, ev.level_reduce(sch.ctx, s, lmin))
+        if free_division(n_clients, lmin, lazy):
+            return Ciphertext(acc.data[..., : lmin - 1, :], scale=scale * n_clients)
+        return ev.mult_scalar(sch.ctx, acc, 1.0 / n_clients)
 
 
 def free_division(n_clients: int, lmin: int, lazy: bool) -> bool:
@@ -146,13 +148,15 @@ def server_round(sch: CkksScheme, stack1: Ciphertext, stack2: Ciphertext,
         raise ValueError(f"lazy={lazy}: one of {LAZY_MODES}")
     L = sch.params.num_q
     drop = min(2 if lazy == 2 else min(lazy, 1), L - 1)
-    c1in2 = change_cipher_domain_batch(sch, rk12, stack1, drop_limbs=drop)
-    if lazy in (2, 3):
-        s = ev.add(sch.ctx, c1in2, ev.level_reduce(sch.ctx, stack2, L - drop))
-        avg = Ciphertext(s.data, scale=2 * s.scale)
-    else:
-        avg = aggregate_batch(sch, [c1in2, stack2], lazy=lazy == 4)
-    return avg, change_cipher_domain_batch(sch, rk21, avg)
+    with profiling.span("round"):
+        c1in2 = change_cipher_domain_batch(sch, rk12, stack1, drop_limbs=drop)
+        if lazy in (2, 3):
+            with profiling.span("fedavg"):
+                s = ev.add(sch.ctx, c1in2, ev.level_reduce(sch.ctx, stack2, L - drop))
+            avg = Ciphertext(s.data, scale=2 * s.scale)
+        else:
+            avg = aggregate_batch(sch, [c1in2, stack2], lazy=lazy == 4)
+        return avg, change_cipher_domain_batch(sch, rk21, avg)
 
 
 # ---------------------------------------------------------------------------

@@ -34,7 +34,7 @@ import torch
 from ..ckks import eval as ev
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext, KeySwitchKey
-from ..utils import graphs
+from ..utils import graphs, profiling
 from ..utils.graphs import (COUNTERS, WARMUP, replayed, reset_replayed,  # noqa: F401
                              wrapper_counts)
 from .api import LAZY_MODES, server_round
@@ -89,7 +89,11 @@ class CompiledRound:
 
     def __call__(self, stack1: Ciphertext, stack2: Ciphertext):
         """Copy the stacks into the static inputs (skipped for a stack that
-        is the static input) and :meth:`replay`."""
-        self._load(self.stack1, stack1, "stack1")
-        self._load(self.stack2, stack2, "stack2")
-        return self.replay()
+        is the static input) and :meth:`replay`; traced as the spans
+        ``round.call``, ``round.load`` and ``round.replay``."""
+        with profiling.span("round.call"):
+            with profiling.span("round.load"):
+                self._load(self.stack1, stack1, "stack1")
+                self._load(self.stack2, stack2, "stack2")
+            with profiling.span("round.replay", device=False):
+                return self.replay()

@@ -43,6 +43,7 @@ import torch.distributed as dist
 from ..ckks.types import Ciphertext, KeySwitchKey, Plaintext
 from ..ops import cuda_ext, cuda_ks, cuda_mxu_ntt, cuda_ntt, streamed_ntt
 from ..parallel import mesh
+from . import profiling
 
 # each kernel wrapper's launch counter: (module, attribute)
 COUNTERS = {
@@ -143,9 +144,10 @@ def _capture_mode() -> str:
 
 class Graph:
     """One captured call of ``fn``: ``output`` is its static result,
-    ``launches`` the kernel launches it holds, by :data:`COUNTERS` name, and
+    ``launches`` the kernel launches it holds, by :data:`COUNTERS` name,
     ``collectives`` the collectives, as :data:`..parallel.mesh.collectives`
-    counts them."""
+    counts them, and ``spans`` the device spans captured into it (empty
+    unless :func:`.profiling.tracing` was on), which each replay queues."""
 
     def __init__(self, fn, what: str, generator: torch.Generator | None = None):
         self.what = what
@@ -154,7 +156,8 @@ class Graph:
             self.graph = torch.cuda.CUDAGraph()
             if generator is not None:
                 self.graph.register_generator_state(generator)
-            with torch.cuda.graph(self.graph, capture_error_mode=_capture_mode()):
+            with profiling.capturing() as self.spans, \
+                    torch.cuda.graph(self.graph, capture_error_mode=_capture_mode()):
                 self.output = fn()
         except Exception as e:
             raise RuntimeError(f"capture of {what} failed: {e}") from e
@@ -173,6 +176,8 @@ class Graph:
         if self.graph is None:
             raise RuntimeError(f"{self.what}: its graph was released with the process groups "
                                "whose collectives it held; nothing to replay")
+        if self.spans:
+            profiling.queue(self.spans)
         self.graph.replay()
         for k, v in self.launches.items():
             replayed[k] += v

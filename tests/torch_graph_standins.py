@@ -9,7 +9,8 @@ runs the function once eagerly, and :class:`ReplayingGraph` (the real
 bookkeeping untouched) runs it again eagerly into the static outputs at
 each replay, as a CUDA graph writes its static buffers; the collectives
 and launches of those eager re-runs are not counted (a replay's are
-tallied from the capture). The warm-up runs on the current thread, inside
+tallied from the capture), nor are their spans (a replay queues the
+captured ones). The warm-up runs on the current thread, inside
 ``graphs.eager()``.
 """
 
@@ -19,7 +20,7 @@ import torch
 
 from ppqsflhe_tpu_torch.ckks import scheme as scheme_mod
 from ppqsflhe_tpu_torch.parallel import mesh as pm
-from ppqsflhe_tpu_torch.utils import graphs
+from ppqsflhe_tpu_torch.utils import graphs, profiling
 
 # what a capture cannot contain: a copy to the host, a host value read from
 # a tensor, or an upload from the host (tests/test_torch_compiled.py's list)
@@ -62,7 +63,7 @@ class ReplayingGraph(_RealGraph):
     def replay(self):
         out = super().replay()
         colls, launches = pm.read_collectives(), graphs.wrapper_counts()
-        with graphs.eager():
+        with graphs.eager(), profiling.capturing():     # its spans were queued by the replay
             fresh = self.fn()
         pm.restore_collectives(colls)
         graphs._set_wrapper_counts(launches)
