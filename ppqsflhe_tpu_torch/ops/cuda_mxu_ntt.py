@@ -29,10 +29,12 @@ bit-equal either way and to the digit-matmul plain transforms
 
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
 
+from ..utils import profiling
 from . import cuda_lib
 from .fourstep import kernel_to_std
 from .mxu_ntt import MxuNttTables
@@ -45,6 +47,7 @@ SIZES = (8, 16, 32, 64, 128, 256)   # the m kernels 1 and 1b take: N = 2^6 ... 2
 # the JAX runner's default scoped-VMEM budget for one fused grid cell
 # (PallasMxuNtt._vmem_budget with PPQSFLHE_FUSED_VMEM_KIB unset)
 FUSED_VMEM_BUDGET = 1024 * 12896
+ROUTE_SPANS = {"big": "ntt.big", "fused_mont": "ntt.mont"}   # spans of a mixed transform
 
 
 def route(n: int, nd: int) -> str:
@@ -223,10 +226,20 @@ class CudaMxuNtt:
 
     def _run(self, x, forward, idx):
         sel = _limb_subset(x, len(self.tabs), idx, self.n)
-        return _by_group(
-            self.tables, x, sel, lambda i: route(self.n, self.tabs[i].nd),
-            lambda part, sub, r: (self.big._run(part, forward, sub) if r == "big"
-                                  else self.fused(part, forward, sub, r == "fused_mont")))
+        key = lambda i: route(self.n, self.tabs[i].nd)
+        mixed = len({key(i) for i in sel}) > 1
+        return _by_group(self.tables, x, sel, key,
+                         lambda part, sub, r: self._route(part, forward, sub, r, mixed))
+
+    def _route(self, x, forward, sel, r, mixed):
+        """Limbs ``sel`` of one route. Where one transform's limbs take more
+        than one route, the big and Montgomery groups run inside the spans
+        ``ntt.big`` and ``ntt.mont``."""
+        name = ROUTE_SPANS.get(r) if mixed else None
+        with profiling.span(name) if name else contextlib.nullcontext():
+            if r == "big":
+                return self.big._run(x, forward, sel)
+            return self.fused(x, forward, sel, r == "fused_mont")
 
     def fused(self, x: torch.Tensor, forward: bool, sel, mont: bool = False) -> torch.Tensor:
         """The fused route over limbs ``sel`` of the chain, whatever
