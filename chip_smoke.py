@@ -311,6 +311,7 @@ SRC_FS = "ppqsflhe_tpu_torch/csrc/fourstep_ntt.cu"
 SRC_EXT = "ppqsflhe_tpu_torch/csrc/base_ext.cu"
 SRC_KS = "ppqsflhe_tpu_torch/csrc/ks_ip.cu"
 SRC_MODDOWN = "ppqsflhe_tpu_torch/csrc/moddown.cu"
+SRC_DECOMPOSE = "ppqsflhe_tpu_torch/csrc/decompose.cu"
 SRC_PROBE = "ppqsflhe_tpu_torch/csrc/overlap_probe.cu"
 K7 = "probes/mxu_vpu_overlap.py:59"
 # launch counter → (module under ppqsflhe_tpu_torch, attribute, kernel symbol)
@@ -324,10 +325,14 @@ COUNTERS = {
     "fourstep_ntt": ("ops.cuda_ntt", "launches", "fourstep_ntt_kernel"),
     # counts eager calls and captures, not replays: utils/graphs.COUNTERS lacks it
     "moddown_tail": ("ops.cuda_moddown", "launches", "moddown_tail_kernel"),
+    # as moddown_tail: eager launches and captures, not replays
+    "decompose": ("ops.cuda_decompose", "launches", "decompose_kernel"),
     "overlap_probe": ("probes.mxu_vpu_overlap", "launches", "overlap_probe_kernel"),
 }
 # ModDown's tail replaces no TPU kernel: XLA fused it into its neighbours
 MODDOWN_REPLACES = "none (XLA fused it: ppqsflhe_tpu/ckks/eval.py:335-336)"
+# nor does the digit assembly: XLA fused keyswitch_core's product, cat and stack
+DECOMPOSE_REPLACES = "none (XLA fused it: ppqsflhe_tpu/ckks/eval.py keyswitch_core)"
 HBM_BPS = 3.35e12    # H100 SXM device memory, bytes/s
 INT8_OPS = 1.979e15  # H100 SXM dense int8 tensor-core ops/s (a multiply-add is 2)
 
@@ -497,6 +502,37 @@ def moddown_checks(cases, polys, tag, gen, device):
         cases.check(f"moddown_tail (l={l}, {polys} polys, c in place, N=2^14, {tag})",
                     "moddown_tail", SRC_MODDOWN, MODDOWN_REPLACES, run(), plain(), run, plain,
                     20, moddown_work(polys, l, N_ROUND))
+
+
+def decompose_work(B, nd, lk, n, rows):
+    return 8 * (2 * B * nd * lk * n + 3 * rows), 0
+
+
+def decompose_checks(cases, B, tag, gen, device, n=N_ROUND, levels=(3, 2, 4)):
+    """The digit assembly against its plain version at each level over
+    ``B`` c1 polys, on the benchmark's chain 60/40/40/20 + 2 x 60 at ring
+    ``n``, reading c in place from the (B, 2, l, n) ciphertexts and writing
+    the (B, nd, l + K, n) stack the inner product reads."""
+    from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts, _ks_digit_cols
+    from ppqsflhe_tpu_torch.ckks.params import CkksContext, CkksParams
+    from ppqsflhe_tpu_torch.ops.cuda_decompose import digits, digits_plain
+
+    ctx = CkksContext(CkksParams.generate(n=n, mult_depth=2, scale_bits=40, dnum=2,
+                                          extra_mod_bits=20))
+    mq, K = ctx.moduli_qp, ctx.params.num_p
+    for l in levels:
+        idx_ext = ctx.q_idx(l) + ctx.p_idx()
+        groups, _ = _ks_decomp_consts(ctx, l)
+        ct = rand_residues([mq[i] for i in ctx.q_idx(l)], (B, 2), n, gen, device)
+        exts = [rand_residues([mq[i] for i in idx_ext if i not in g], (B,), n, gen, device)
+                for g in groups]
+        args = (ct[:, 1], exts, *_ks_digit_cols(ctx, l, device))
+        run, plain = lambda: digits(*args), lambda: digits_plain(*args)
+        nd = len(groups)
+        cases.check(f"decompose (l={l}, nd={nd}, LK={l + K}, {B} polys, c in place, "
+                    f"N=2^{n.bit_length() - 1}, {tag})", "decompose", SRC_DECOMPOSE,
+                    DECOMPOSE_REPLACES, run(), plain(), run, plain, 20,
+                    decompose_work(B, nd, l + K, n, l))
 
 
 def sh(cmd) -> str:
@@ -720,6 +756,7 @@ def round_kernel_checks(cases, sch, rk_mont, gen, device):
     ks_one_digit_checks(cases, sch, rk_mont, gen, device)
     ext_generic_checks(cases, n, gen, device)
     moddown_checks(cases, 2 * N_CTS, "pairwise", gen, device)
+    decompose_checks(cases, N_CTS, "pairwise", gen, device)
     torch.cuda.synchronize()
 
 
@@ -900,7 +937,7 @@ def round_phase(card, device, profile_on):
     w = round_world(N_ROUND, device)
     cases = KernelCases(card)
     round_kernel_checks(cases, w.sch, w.rk12, w.gen, device)
-    need = ("mxu_ntt", "base_extend", "ks_inner_product", "moddown_tail")
+    need = ("mxu_ntt", "base_extend", "ks_inner_product", "moddown_tail", "decompose")
     outs, launches = drive_round("round", w.sch, w, {4: need, 0: need})
     time_round("round", w.sch, w, card, profile_on)
     return cases.take_launches(launches), w, outs
@@ -1317,8 +1354,8 @@ def ntt_phase(card, device):
 # ---------------------------------------------------------------------------
 
 def round16_kernel_checks(cases, sch, rk_mont, gen, device):
-    """Kernels 1b, 4, 5, 2 and 3 against their plain versions at shapes the
-    N=2^16 round gives them."""
+    """Kernels 1b, 4, 5, 2, 3 and 9 against their plain versions at shapes
+    the N=2^16 round gives them."""
     import torch
 
     from ppqsflhe_tpu_torch.ckks.eval import _ks_decomp_consts
@@ -1392,6 +1429,9 @@ def round16_kernel_checks(cases, sch, rk_mont, gen, device):
                 ks_inner_product_plain(*args), lambda: ks_inner_product(*args),
                 lambda: ks_inner_product_plain(*args), 10, ks_work(N_CTS, nd, len(limbs), n))
     ks_one_digit_checks(cases, sch, rk_mont, gen, device)
+    # the digit assembly at the pairwise-n16 cell's PRE levels: in at 4 limbs
+    # (both digits), back at 3
+    decompose_checks(cases, N_CTS, "pairwise", gen, device, n=N_BIG, levels=(4, 3))
     torch.cuda.synchronize()
 
 
@@ -1450,7 +1490,7 @@ def round16_phase(card, device, profile_on):
     cases = KernelCases(card)
     round16_kernel_checks(cases, w.sch, w.rk12, w.gen, device)
     need = ("mxu_ntt_mont", "streamed_stage_a", "streamed_stage_b", "base_extend",
-            "ks_inner_product")
+            "ks_inner_product", "decompose")
     _, launches = drive_round("round N=2^16", w.sch, w, {4: need, 0: need})
     time_round("round N=2^16", w.sch, w, card, profile_on)
     mib = lambda v: (v - base) / 2 ** 20
@@ -1974,6 +2014,7 @@ def multikey_kernel_checks(cases, sch, w, gen, device):
                     f"multikey)", "ks_inner_product", SRC_KS, K3, run(), plain(), run, plain, 20,
                     ks_work(B, 1, len(limbs), n))
     moddown_checks(cases, 2 * B, "multikey", gen, device)
+    decompose_checks(cases, B, "multikey", gen, device)
 
 
 def multikey_phase(card, device):
@@ -2009,7 +2050,7 @@ def multikey_phase(card, device):
     staged = {lazy: mk.stage(w.stacks, mk.inbound_level(sch, lazy)) for lazy in (4, 0)}
     torch.cuda.synchronize()
 
-    need = ("mxu_ntt", "base_extend", "ks_inner_product", "moddown_tail")
+    need = ("mxu_ntt", "base_extend", "ks_inner_product", "moddown_tail", "decompose")
     reset_counts()
     per_sched = {}
     for lazy in (4, 0):

@@ -23,7 +23,9 @@ count. The JAX package sends one digit to XLA instead
 the TPU; here the plain version of one digit is a string of int64 torch
 launches, so the kernel takes it too (same residues). For the same reason
 ModDown's tail, the subtraction and the product by [P⁻¹]_{q_i}, goes
-through :func:`..ops.cuda_moddown.moddown_tail`, a kernel of its own.
+through :func:`..ops.cuda_moddown.moddown_tail`, and the digits' assembly,
+the own-group product by [Q̂_j⁻¹]_{q_i} with each digit's extension around
+it, through :func:`..ops.cuda_decompose.digits`: kernels of their own.
 """
 
 from __future__ import annotations
@@ -38,6 +40,7 @@ from ..core import primes, sampling
 from ..core.modarith import (modadd, modmul, modneg, modsub, mont_mul, shoup_mul,
                              shoup_mul_wide)
 from ..core.ntt import bit_reverse_indices
+from ..ops.cuda_decompose import digits as decompose_digits
 from ..ops.cuda_ext import fused_extend
 from ..ops.cuda_ks import ks_inner_product
 from ..ops.cuda_moddown import moddown_tail
@@ -175,33 +178,41 @@ def _ks_decomp_consts(ctx: CkksContext, nlimbs: int):
     return groups, out
 
 
-def keyswitch_core(ctx: CkksContext, c_eval: torch.Tensor, nlimbs: int):
-    """Decompose+extend an eval-domain poly c (int64[..., l, n]) into the
-    list of digit polys over the extended basis (active Q + P), eval domain."""
+def _ks_digit_cols(ctx: CkksContext, nlimbs: int, device):
+    """Per active digit group at level nlimbs: its rows (lo, hi) (groups are
+    contiguous) and the context's cached device columns [Q̂_j^{-1}]_{q_i},
+    their Shoup companions and q_i over them, as lists over the digits."""
+    groups, consts = _ks_decomp_consts(ctx, nlimbs)
+    mq = ctx.moduli_qp
+    spans = [(g[0], g[-1] + 1) for g in groups]
+    w = [ctx.consts(("ghat_inv", nlimbs, g), lambda inv=inv: inv, device)
+         for g, inv in zip(groups, consts)]
+    ws = [ctx.consts(("ghat_inv_sh", nlimbs, g), lambda g=g, inv=inv: (
+        primes.shoup_precompute(v, mq[i]) for v, i in zip(inv, g)), device)
+        for g, inv in zip(groups, consts)]
+    q = [ctx.consts(("q", g), lambda g=g: (mq[i] for i in g), device) for g in groups]
+    return spans, w, ws, q
+
+
+def keyswitch_digits(ctx: CkksContext, c_eval: torch.Tensor, nlimbs: int) -> torch.Tensor:
+    """Decompose+extend an eval-domain poly c (int64[..., l, n]) into its
+    digits over the extended basis (active Q + P), eval domain, stacked as
+    the inner product reads them: int64[..., nd, l + K, n]."""
     l = nlimbs
-    dev = c_eval.device
     idx_q = ctx.q_idx(l)
     idx_ext = tuple(idx_q) + ctx.p_idx()
     groups, consts = _ks_decomp_consts(ctx, l)
     with profiling.span("ks.decompose"):
         c_coeff = ctx.intt(c_eval, idx_q)
-        digits = []
+        exts = []
         for g, inv in zip(groups, consts):
-            lo, hi = g[0], g[-1] + 1                       # groups are contiguous
             other = tuple(i for i in idx_ext if i not in g)
             # kernel 2 folds the decomposition constant into its first multiply
-            ext = fused_extend(c_coeff[..., lo:hi, :], ctx.extender(g, other), pre=inv)
-            ext_eval = ctx.ntt(ext, other)
-            # own-group rows stay in the eval domain: the constant multiply
-            # commutes with the NTT
-            qg = ctx.consts(("q", g), lambda: (ctx.moduli_qp[i] for i in g), dev)
-            w = ctx.consts(("ghat_inv", l, g), lambda: inv, dev)
-            ws = ctx.consts(("ghat_inv_sh", l, g), lambda: (
-                primes.shoup_precompute(v, ctx.moduli_qp[i]) for v, i in zip(inv, g)), dev)
-            d_eval = shoup_mul(c_eval[..., lo:hi, :], w, ws, qg)
-            digits.append(torch.cat([ext_eval[..., :lo, :], d_eval, ext_eval[..., lo:, :]],
-                                    dim=-2))
-        return digits
+            ext = fused_extend(c_coeff[..., g[0] : g[-1] + 1, :], ctx.extender(g, other), pre=inv)
+            exts.append(ctx.ntt(ext, other))
+        # own-group rows stay in the eval domain (the constant multiply
+        # commutes with the NTT): multiplied there, the extension around them
+        return decompose_digits(c_eval, exts, *_ks_digit_cols(ctx, l, c_eval.device))
 
 
 def ksk_to_mont(ctx: CkksContext, ksk: KeySwitchKey) -> KeySwitchKey:
@@ -215,16 +226,17 @@ def ksk_to_mont(ctx: CkksContext, ksk: KeySwitchKey) -> KeySwitchKey:
 
 def keyswitch_ip(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int):
     """The KSK inner product (Σ_j d_j·k_j0, Σ_j d_j·k_j1) over the extended
-    basis (active Q + P), eval domain — no ModDown. A key not yet in
+    basis (active Q + P), eval domain — no ModDown. ``digits``: the stack of
+    :func:`keyswitch_digits`, int64[..., nd, l + K, n]. A key not yet in
     Montgomery form is converted first (same residues as the JAX package's
     modmul path: mont_mul(d, k·2^64) = d·k mod q)."""
     with profiling.span("ks.inner_product"):
         ksk = ksk_to_mont(ctx, ksk)
         sel_ext = tuple(ctx.q_idx(nlimbs)) + ctx.p_idx()
-        dev = digits[0].device
+        dev = digits.device
         q, qinv, _ = ctx.limb_consts(sel_ext, dev)
         sel = ctx.consts(("limb_map", sel_ext), lambda: sel_ext, dev)
-        acc = ks_inner_product(torch.stack(digits, dim=-3), ksk.data, sel, q, qinv)
+        acc = ks_inner_product(digits, ksk.data, sel, q, qinv)
         return acc[..., 0, :, :], acc[..., 1, :, :]
 
 
@@ -253,7 +265,7 @@ def keyswitch_apply(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int):
 
 
 def keyswitch(ctx: CkksContext, c_eval: torch.Tensor, ksk: KeySwitchKey, nlimbs: int):
-    return keyswitch_apply(ctx, keyswitch_core(ctx, c_eval, nlimbs), ksk, nlimbs)
+    return keyswitch_apply(ctx, keyswitch_digits(ctx, c_eval, nlimbs), ksk, nlimbs)
 
 
 def re_encrypt(ctx: CkksContext, ct: Ciphertext, rekey: KeySwitchKey) -> Ciphertext:
@@ -482,23 +494,21 @@ def conjugate(ctx: CkksContext, ct: Ciphertext, conj_key: KeySwitchKey) -> Ciphe
     return _rotated(ctx, ct, 2 * ctx.params.n - 1, conj_key)
 
 
-def _split_rows(rot: torch.Tensor, row_counts):
-    """Cut the limb axis of a permuted stack back into its digit polys and
-    the trailing c0 rows."""
-    out, off = [], 0
-    for rc in row_counts:
-        out.append(rot[..., off : off + rc, :])
-        off += rc
-    return out, rot[..., off:, :]
+def _split_rows(rot: torch.Tensor, shape):
+    """Cut the limb axis of a permuted stack back into the digits, viewed
+    as (..., nd, l + K, n), and the trailing c0 rows."""
+    nd, lk = shape
+    return rot[..., : nd * lk, :].unflatten(-2, shape), rot[..., nd * lk :, :]
 
 
 def _hoisted_stack(ctx: CkksContext, ct: Ciphertext):
-    """Decompose+extend c1 ONCE: the digit polys and c0 in one limb stack,
-    so each rotation permutes all of them with one gather."""
+    """Decompose+extend c1 ONCE: the digits' rows and c0's in one limb
+    stack, so each rotation permutes all of them with one gather. Returns
+    the stack and the digits' (nd, l + K)."""
     l = ct.nlimbs
-    digits = keyswitch_core(ctx, ct.data[..., 1, :, :], l)
-    stacked = torch.cat(list(digits) + [ct.data[..., 0, :l, :]], dim=-2)
-    return stacked, [d.shape[-2] for d in digits]
+    digits = keyswitch_digits(ctx, ct.data[..., 1, :, :], l)
+    stacked = torch.cat([digits.flatten(-3, -2), ct.data[..., 0, :l, :]], dim=-2)
+    return stacked, digits.shape[-3:-1]
 
 
 def rotate_hoisted(ctx: CkksContext, ct: Ciphertext, rotations: Sequence[int],
@@ -509,11 +519,11 @@ def rotate_hoisted(ctx: CkksContext, ct: Ciphertext, rotations: Sequence[int],
     coefficients (up to sign): they commute."""
     l = ct.nlimbs
     q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
-    stacked, row_counts = _hoisted_stack(ctx, ct)
+    stacked, shape = _hoisted_stack(ctx, ct)
     out = []
     for r in rotations:
         g = rot_to_galois(r, ctx.params.n)
-        dig_rot, c0p = _split_rows(automorphism(ctx, stacked, g), row_counts)
+        dig_rot, c0p = _split_rows(automorphism(ctx, stacked, g), shape)
         d0, d1 = keyswitch_apply(ctx, dig_rot, rot_keys[r], l)
         out.append(Ciphertext(data=torch.stack([modadd(c0p, d0, q), d1], dim=-3),
                               scale=ct.scale))
@@ -531,11 +541,11 @@ def rotate_sum_hoisted(ctx: CkksContext, ct: Ciphertext,
     dev = ct.data.device
     q_ext, _, _ = ctx.limb_consts(tuple(ctx.q_idx(l)) + ctx.p_idx(), dev)
     q, _, _ = ctx.limb_consts(ctx.q_idx(l), dev)
-    stacked, row_counts = _hoisted_stack(ctx, ct)
+    stacked, shape = _hoisted_stack(ctx, ct)
     acc0 = acc1 = c0_acc = None
     for r in rotations:
         g = rot_to_galois(r, ctx.params.n)
-        dig_rot, c0p = _split_rows(automorphism(ctx, stacked, g), row_counts)
+        dig_rot, c0p = _split_rows(automorphism(ctx, stacked, g), shape)
         t0, t1 = keyswitch_ip(ctx, dig_rot, rot_keys[r], l)
         if acc0 is None:
             acc0, acc1, c0_acc = t0, t1, c0p

@@ -23,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ppqsflhe_tpu_torch"
 SOURCES = ("mxu_ntt.cu", "streamed_ntt.cu", "fourstep_ntt.cu", "base_ext.cu", "ks_ip.cu",
-           "moddown.cu", "overlap_probe.cu")
+           "moddown.cu", "decompose.cu", "overlap_probe.cu")
 HEADERS = ("common.cuh", "butterfly.cuh")
 # sources built in parts, each an nvcc of its own with -DPPQ_PART=p (p < parts):
 # a part holds one C entry point and the kernel instances it launches, so the
@@ -45,6 +45,7 @@ _SIGNATURES = {
     "ppq_base_extend": [_P, _P, "ExtParams", _I, _I, _I, _I, _P],
     "ppq_ks_inner_product": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "ppq_moddown_tail": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _P],
+    "ppq_decompose_digit": [_P, _P, _P, _P, _P, _P, _L, _L, _I, _I, _I, _I, _I, _I, _I, _P],
     "ppq_overlap_probe": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 

@@ -245,7 +245,7 @@ def conjugate_sharded(sctx: ShardedEvalContext, ct: Ciphertext,
 def rotate_hoisted_sharded(sctx: ShardedEvalContext, ct: Ciphertext,
                            rotations: Sequence[int], rot_keys: dict) -> list:
     """Hoisted rotations, sharded: one sharded decompose+extend
-    (``keyswitch_core``), the extended digits and c0 gathered once, then per
+    (``keyswitch_digits``), the digits' stack and c0 gathered once, then per
     rotation the rank's slice of each permutation and the inner product and
     ModDown on the shard (``eval.rotate_hoisted``'s order); one cached
     graph per tuple of Galois elements and l."""
@@ -253,13 +253,11 @@ def rotate_hoisted_sharded(sctx: ShardedEvalContext, ct: Ciphertext,
     gs = tuple(ev.rot_to_galois(r, sctx.params.n) for r in rotations)
 
     def body(c, *keys):
-        digits = ev.keyswitch_core(sctx, c.data[..., 1, :, :], l)
-        digits_full = [_gather_full(sctx, d) for d in digits]
+        digits_full = _gather_full(sctx, ev.keyswitch_digits(sctx, c.data[..., 1, :, :], l))
         c0_full = _gather_full(sctx, c.data[..., 0, :l, :])
         out = []
         for g, key in zip(gs, keys):
-            d0, d1 = ev.keyswitch_apply(sctx, [_perm_local(sctx, d, g) for d in digits_full],
-                                        key, l)
+            d0, d1 = ev.keyswitch_apply(sctx, _perm_local(sctx, digits_full, g), key, l)
             out.append(Ciphertext(data=_with_c0(sctx, _perm_local(sctx, c0_full, g), d0, d1, l),
                                   scale=c.scale))
         return tuple(out)

@@ -135,13 +135,13 @@ def test_keyswitch_ip_goes_through_kernel_3_wrapper(contexts, monkeypatch, nlimb
     monkeypatch.setattr(ev, "ks_inner_product", counted)
     c = convert.residues(_residues(mq[:nlimbs], (2,), seed=50 + nlimbs), "cpu")
     key = ev.ksk_to_mont(ctx, convert.keyswitch_key(_residues(mq, (2, 2), seed=51), device="cpu"))
-    digits = ev.keyswitch_core(ctx, c, nlimbs)
+    digits = ev.keyswitch_digits(ctx, c, nlimbs)
     acc0, acc1 = ev.keyswitch_ip(ctx, digits, key, nlimbs)
-    assert calls == [len(digits)] and len(digits) == (2 if nlimbs == 3 else 1)
+    nd = digits.shape[-3]
+    assert calls == [nd] and nd == (2 if nlimbs == 3 else 1)
     sel_ext = tuple(ctx.q_idx(nlimbs)) + ctx.p_idx()
     q, qinv, _ = ctx.limb_consts(sel_ext, "cpu")
-    want = ks_inner_product_plain(torch.stack(digits, dim=-3), key.data, torch.as_tensor(sel_ext),
-                                  q, qinv)
+    want = ks_inner_product_plain(digits, key.data, torch.as_tensor(sel_ext), q, qinv)
     assert torch.equal(acc0, want[..., 0, :, :]) and torch.equal(acc1, want[..., 1, :, :])
 
 
