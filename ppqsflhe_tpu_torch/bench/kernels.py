@@ -146,8 +146,7 @@ def keyswitch_inputs(sch: CkksScheme, B: int):
 
 def keyswitch_all(sch: CkksScheme, c: torch.Tensor, key: KeySwitchKey) -> torch.Tensor:
     """Every component's key switch at full level: (B, 2, L, N)."""
-    d0, d1 = ev.keyswitch(sch.ctx, c, key, sch.params.num_q)
-    return torch.stack([d0, d1], dim=1)
+    return ev.keyswitch(sch.ctx, c, key, sch.params.num_q)
 
 
 def keyswitch_bench(device, extra_mod_bits: int = 0, n: int = KS_N, B: int = KS_B, card=None,

@@ -26,6 +26,12 @@ ModDown's tail, the subtraction and the product by [P⁻¹]_{q_i}, goes
 through :func:`..ops.cuda_moddown.moddown_tail`, and the digits' assembly,
 the own-group product by [Q̂_j⁻¹]_{q_i} with each digit's extension around
 it, through :func:`..ops.cuda_decompose.digits`: kernels of their own.
+
+A key switch's result keeps one layout, the ciphertext's, from kernel 3 to
+the caller: the pair (..., 2, l + K, n) that kernel 3 writes goes to
+ModDown as it is, ModDown returns (..., 2, l, n), and :func:`with_c0` adds
+c0 into its component 0 in place (the JAX package returns a tuple (d0, d1)
+instead, which its callers stack).
 """
 
 from __future__ import annotations
@@ -224,24 +230,26 @@ def ksk_to_mont(ctx: CkksContext, ksk: KeySwitchKey) -> KeySwitchKey:
     return KeySwitchKey(data=mont_mul(ksk.data, r2, q, qinv), mont=True)
 
 
-def keyswitch_ip(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int):
+def keyswitch_ip(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int) -> torch.Tensor:
     """The KSK inner product (Σ_j d_j·k_j0, Σ_j d_j·k_j1) over the extended
-    basis (active Q + P), eval domain — no ModDown. ``digits``: the stack of
-    :func:`keyswitch_digits`, int64[..., nd, l + K, n]. A key not yet in
-    Montgomery form is converted first (same residues as the JAX package's
-    modmul path: mont_mul(d, k·2^64) = d·k mod q)."""
+    basis (active Q + P), eval domain — no ModDown: kernel 3's output as it
+    is, the pair in the ciphertext's layout, int64[..., 2, l + K, n].
+    ``digits``: the stack of :func:`keyswitch_digits`, int64[..., nd, l + K,
+    n]. A key not yet in Montgomery form is converted first (same residues
+    as the JAX package's modmul path: mont_mul(d, k·2^64) = d·k mod q)."""
     with profiling.span("ks.inner_product"):
         ksk = ksk_to_mont(ctx, ksk)
         sel_ext = tuple(ctx.q_idx(nlimbs)) + ctx.p_idx()
         dev = digits.device
         q, qinv, _ = ctx.limb_consts(sel_ext, dev)
         sel = ctx.consts(("limb_map", sel_ext), lambda: sel_ext, dev)
-        acc = ks_inner_product(digits, ksk.data, sel, q, qinv)
-        return acc[..., 0, :, :], acc[..., 1, :, :]
+        return ks_inner_product(digits, ksk.data, sel, q, qinv)
 
 
 def _mod_down(ctx: CkksContext, c_ext: torch.Tensor, nlimbs: int) -> torch.Tensor:
-    """(c mod Q_l·P) → round(c/P) mod Q_l. c_ext: int64[..., l+K, n]."""
+    """(c mod Q_l·P) → round(c/P) mod Q_l. c_ext: int64[..., l+K, n], any
+    leading dimensions (a key switch's pair (..., 2, l + K, n) as kernel 3
+    wrote it); the tail reads its Q rows in place."""
     l = nlimbs
     k = ctx.params.num_p
     dev = c_ext.device
@@ -256,28 +264,35 @@ def _mod_down(ctx: CkksContext, c_ext: torch.Tensor, nlimbs: int) -> torch.Tenso
         return moddown_tail(c_ext[..., :l, :], ext_eval, q, pinv, pinv_sh)
 
 
-def keyswitch_apply(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int):
-    """Inner product with the KSK, then ONE batched ModDown of both
-    components. Returns (d0, d1) over the active Q limbs, eval domain."""
-    acc0, acc1 = keyswitch_ip(ctx, digits, ksk, nlimbs)
-    both = _mod_down(ctx, torch.stack([acc0, acc1]), nlimbs)
-    return both[0], both[1]
+def keyswitch_apply(ctx: CkksContext, digits, ksk: KeySwitchKey, nlimbs: int) -> torch.Tensor:
+    """Inner product with the KSK, then ONE ModDown of the pair as kernel 3
+    wrote it. Returns the pair over the active Q limbs, eval domain, in the
+    ciphertext's layout: int64[..., 2, l, n]."""
+    return _mod_down(ctx, keyswitch_ip(ctx, digits, ksk, nlimbs), nlimbs)
 
 
-def keyswitch(ctx: CkksContext, c_eval: torch.Tensor, ksk: KeySwitchKey, nlimbs: int):
+def keyswitch(ctx: CkksContext, c_eval: torch.Tensor, ksk: KeySwitchKey,
+              nlimbs: int) -> torch.Tensor:
     return keyswitch_apply(ctx, keyswitch_digits(ctx, c_eval, nlimbs), ksk, nlimbs)
+
+
+def with_c0(ctx: CkksContext, c0: torch.Tensor, pair: torch.Tensor, scale: float) -> Ciphertext:
+    """The key-switched ciphertext: c0 (int64[..., l, n]) added into
+    component 0 of a key switch's pair (int64[..., 2, l, n]) in place. The
+    pair, ModDown's fresh output, becomes the ciphertext's data: no stack."""
+    q, _, _ = ctx.limb_consts(ctx.q_idx(pair.shape[-2]), pair.device)
+    pair[..., 0, :, :] = modadd(c0, pair[..., 0, :, :], q)
+    return Ciphertext(data=pair, scale=scale)
 
 
 def re_encrypt(ctx: CkksContext, ct: Ciphertext, rekey: KeySwitchKey) -> Ciphertext:
     """INDCPA proxy re-encryption (changeCipherDomain): c1 key-switched
-    under ``rekey``, its d0 added to c0; leading batch dimensions ride
-    through."""
+    under ``rekey``, c0 added to its first component; leading batch
+    dimensions ride through."""
     with profiling.span("pre"):
         l = ct.nlimbs
-        q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
-        d0, d1 = keyswitch(ctx, ct.data[..., 1, :, :], rekey, l)
-        return Ciphertext(data=torch.stack([modadd(ct.data[..., 0, :, :], d0, q), d1], dim=-3),
-                          scale=ct.scale)
+        return with_c0(ctx, ct.data[..., 0, :, :], keyswitch(ctx, ct.data[..., 1, :, :], rekey, l),
+                       ct.scale)
 
 
 def re_encrypt_indcca(ctx: CkksContext, ct: Ciphertext, rekey: KeySwitchKey, pk_to: PublicKey,
@@ -439,10 +454,8 @@ def relinearize(ctx: CkksContext, ct: Ciphertext, relin_key: KeySwitchKey) -> Ci
         return ct
     l = ct.nlimbs
     q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
-    d0, d1 = keyswitch(ctx, ct.data[..., 2, :, :], relin_key, l)
-    out = torch.stack([modadd(ct.data[..., 0, :, :], d0, q),
-                       modadd(ct.data[..., 1, :, :], d1, q)], dim=-3)
-    return Ciphertext(data=out, scale=ct.scale)
+    pair = keyswitch(ctx, ct.data[..., 2, :, :], relin_key, l)
+    return Ciphertext(data=modadd(ct.data[..., :2, :, :], pair, q), scale=ct.scale)
 
 
 # ---------------------------------------------------------------------------
@@ -478,11 +491,8 @@ def _rotated(ctx: CkksContext, ct: Ciphertext, g: int, key: KeySwitchKey) -> Cip
     """Apply X→X^g to both components (one batched permutation), then key
     switch the permuted c1 back to the owner's key."""
     l = ct.nlimbs
-    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
     both = automorphism(ctx, ct.data[..., :l, :], g)
-    d0, d1 = keyswitch(ctx, both[..., 1, :, :], key, l)
-    return Ciphertext(data=torch.stack([modadd(both[..., 0, :, :], d0, q), d1], dim=-3),
-                      scale=ct.scale)
+    return with_c0(ctx, both[..., 0, :, :], keyswitch(ctx, both[..., 1, :, :], key, l), ct.scale)
 
 
 def rotate(ctx: CkksContext, ct: Ciphertext, r: int, rot_key: KeySwitchKey) -> Ciphertext:
@@ -518,15 +528,12 @@ def rotate_hoisted(ctx: CkksContext, ct: Ciphertext, rotations: Sequence[int],
     because base extension is coefficient-wise and the automorphism permutes
     coefficients (up to sign): they commute."""
     l = ct.nlimbs
-    q, _, _ = ctx.limb_consts(ctx.q_idx(l), ct.data.device)
     stacked, shape = _hoisted_stack(ctx, ct)
     out = []
     for r in rotations:
         g = rot_to_galois(r, ctx.params.n)
         dig_rot, c0p = _split_rows(automorphism(ctx, stacked, g), shape)
-        d0, d1 = keyswitch_apply(ctx, dig_rot, rot_keys[r], l)
-        out.append(Ciphertext(data=torch.stack([modadd(c0p, d0, q), d1], dim=-3),
-                              scale=ct.scale))
+        out.append(with_c0(ctx, c0p, keyswitch_apply(ctx, dig_rot, rot_keys[r], l), ct.scale))
     return out
 
 
@@ -542,17 +549,14 @@ def rotate_sum_hoisted(ctx: CkksContext, ct: Ciphertext,
     q_ext, _, _ = ctx.limb_consts(tuple(ctx.q_idx(l)) + ctx.p_idx(), dev)
     q, _, _ = ctx.limb_consts(ctx.q_idx(l), dev)
     stacked, shape = _hoisted_stack(ctx, ct)
-    acc0 = acc1 = c0_acc = None
+    acc = c0_acc = None
     for r in rotations:
         g = rot_to_galois(r, ctx.params.n)
         dig_rot, c0p = _split_rows(automorphism(ctx, stacked, g), shape)
-        t0, t1 = keyswitch_ip(ctx, dig_rot, rot_keys[r], l)
-        if acc0 is None:
-            acc0, acc1, c0_acc = t0, t1, c0p
+        t = keyswitch_ip(ctx, dig_rot, rot_keys[r], l)
+        if acc is None:
+            acc, c0_acc = t, c0p
         else:
-            acc0 = modadd(acc0, t0, q_ext)
-            acc1 = modadd(acc1, t1, q_ext)
+            acc = modadd(acc, t, q_ext)
             c0_acc = modadd(c0_acc, c0p, q)
-    both = _mod_down(ctx, torch.stack([acc0, acc1]), l)
-    return Ciphertext(data=torch.stack([modadd(c0_acc, both[0], q), both[1]], dim=-3),
-                      scale=ct.scale)
+    return with_c0(ctx, c0_acc, _mod_down(ctx, acc, l), ct.scale)

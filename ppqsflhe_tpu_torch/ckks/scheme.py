@@ -267,10 +267,10 @@ class CkksScheme:
 
     def re_encrypt(self, ct: Ciphertext, rekey: KeySwitchKey, pk_to: PublicKey | None = None,
                    gen: torch.Generator | None = None) -> Ciphertext:
-        """changeCipherDomain: one key switch of c1, with its d0 added to
-        c0. Batched ciphertexts switch in one call. Under PREMode INDCCA the
-        output is re-randomized with a fresh Enc_{pk_to}(0) plus uniform
-        flooding of 2^pre_flood_bits, one per ciphertext of the batch;
+        """changeCipherDomain: one key switch of c1, c0 added into the
+        pair's component 0. Batched ciphertexts switch in one call. Under
+        PREMode INDCCA the output is re-randomized with a fresh Enc_{pk_to}(0)
+        plus uniform flooding of 2^pre_flood_bits, one per ciphertext of the batch;
         ``pk_to`` (the TARGET public key) and ``gen`` are then required."""
         indcca = self.params.pre_mode == "INDCCA"
         if indcca and (pk_to is None or gen is None):

@@ -37,7 +37,6 @@ from ..ckks.multikey import fold_local
 from ..ckks.params import CkksParams
 from ..ckks.scheme import CkksScheme
 from ..ckks.types import Ciphertext, KeySwitchKey
-from ..core.modarith import modadd
 from ..train import gru
 from ..train.trainer import make_optimizer
 from . import multihost
@@ -73,11 +72,8 @@ def entry(device="cuda"):
 
     def fedavg_step(d1, d2, rk):
         """PRE d1 into client 2's domain, then (d1 + d2)·0.5 with rescale."""
-        l = d1.shape[-2]
-        q, _, _ = sch.ctx.limb_consts(sch.ctx.q_idx(l), d1.device)
-        s0, s1 = ev.keyswitch(sch.ctx, d1[1], KeySwitchKey(data=rk, mont=True), l)
-        c1in2 = torch.stack([modadd(d1[0], s0, q), s1])
-        tot = ev.add(sch.ctx, Ciphertext(c1in2, scale), Ciphertext(d2, scale))
+        pair = ev.keyswitch(sch.ctx, d1[1], KeySwitchKey(data=rk, mont=True), d1.shape[-2])
+        tot = ev.add(sch.ctx, ev.with_c0(sch.ctx, d1[0], pair, scale), Ciphertext(d2, scale))
         return ev.mult_scalar(sch.ctx, tot, 0.5).data
 
     return fedavg_step, (ct1.data, ct2.data, rk12.data)

@@ -172,11 +172,6 @@ def scheme_view(sch, sctx: ShardedEvalContext):
 # Sharded operations on this rank's shards
 # ---------------------------------------------------------------------------
 
-def _with_c0(sctx, c0, d0, d1, l):
-    q, _, _ = sctx.limb_consts(sctx.q_idx(l), c0.device)
-    return torch.stack([modadd(c0, d0, q), d1], dim=-3)
-
-
 def re_encrypt_sharded(sctx: ShardedEvalContext, ct: Ciphertext,
                        rekey: KeySwitchKey) -> Ciphertext:
     """changeCipherDomain with the key switch run coefficient-sharded over
@@ -185,8 +180,8 @@ def re_encrypt_sharded(sctx: ShardedEvalContext, ct: Ciphertext,
     l = ct.nlimbs
 
     def body(c, k):
-        d0, d1 = ev.keyswitch(sctx, c.data[..., 1, :, :], k, l)
-        return Ciphertext(data=_with_c0(sctx, c.data[..., 0, :, :], d0, d1, l), scale=c.scale)
+        return ev.with_c0(sctx, c.data[..., 0, :, :], ev.keyswitch(sctx, c.data[..., 1, :, :], k, l),
+                          c.scale)
 
     return sctx.cached_graph(("reenc", l), body, ct, ev.ksk_to_mont(sctx, rekey))
 
@@ -222,8 +217,7 @@ def _galois_keyswitch_sharded(sctx: ShardedEvalContext, ct: Ciphertext, g: int,
     def body(c, k):
         c0p = _automorphism_local(sctx, c.data[..., 0, :l, :], g)
         c1p = _automorphism_local(sctx, c.data[..., 1, :l, :], g)
-        d0, d1 = ev.keyswitch(sctx, c1p, k, l)
-        return Ciphertext(data=_with_c0(sctx, c0p, d0, d1, l), scale=c.scale)
+        return ev.with_c0(sctx, c0p, ev.keyswitch(sctx, c1p, k, l), c.scale)
 
     return sctx.cached_graph(("galois", g, l), body, ct, ev.ksk_to_mont(sctx, key))
 
@@ -257,9 +251,8 @@ def rotate_hoisted_sharded(sctx: ShardedEvalContext, ct: Ciphertext,
         c0_full = _gather_full(sctx, c.data[..., 0, :l, :])
         out = []
         for g, key in zip(gs, keys):
-            d0, d1 = ev.keyswitch_apply(sctx, _perm_local(sctx, digits_full, g), key, l)
-            out.append(Ciphertext(data=_with_c0(sctx, _perm_local(sctx, c0_full, g), d0, d1, l),
-                                  scale=c.scale))
+            pair = ev.keyswitch_apply(sctx, _perm_local(sctx, digits_full, g), key, l)
+            out.append(ev.with_c0(sctx, _perm_local(sctx, c0_full, g), pair, c.scale))
         return tuple(out)
 
     keys = [ev.ksk_to_mont(sctx, rot_keys[r]) for r in rotations]

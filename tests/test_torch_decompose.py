@@ -12,6 +12,11 @@
   patched back in.
 - ``keyswitch_ip`` hands the stacked digits to kernel 3's wrapper as they
   are, and the hoisted paths hand it their permuted stack's digit rows.
+- On every one of those paths ModDown receives the very tensor kernel 3's
+  wrapper returned (the rotation sum: their accumulator), and the outputs
+  equal the epilogue the one-layout key switch replaced: the pair cut into
+  two views, stacked for ModDown, cut again, c0 added and the components
+  restacked (``_old_keyswitch_ip`` … ``_old_with_c0``).
 - The wrapper's checks refuse a wrong shape, dtype or device, an odd N and
   a misaligned or oddly strided view.
 
@@ -26,7 +31,7 @@ from ppqsflhe_tpu_torch.ckks import eval as ev
 from ppqsflhe_tpu_torch.ckks.params import CkksContext, CkksParams
 from ppqsflhe_tpu_torch.ckks.scheme import CkksScheme
 from ppqsflhe_tpu_torch.ckks.types import Ciphertext
-from ppqsflhe_tpu_torch.core.modarith import modmul, shoup_mul
+from ppqsflhe_tpu_torch.core.modarith import modadd, modmul, shoup_mul
 from ppqsflhe_tpu_torch.ops import cuda_decompose
 from ppqsflhe_tpu_torch.parallel import mesh as pm
 from ppqsflhe_tpu_torch.parallel import sharded_scheme as ss
@@ -153,10 +158,10 @@ def _sharded(w, run):
 
 
 PATHS = {
-    "keyswitch_l4": lambda w: list(ev.keyswitch(w["sch"].ctx, w["ct"].data[..., 1, :, :],
-                                                w["rk"], 4)),
-    "keyswitch_l1": lambda w: list(ev.keyswitch(w["sch"].ctx, w["ct"].data[..., 1, :1, :],
-                                                w["rk"], 1)),
+    "keyswitch_l4": lambda w: [ev.keyswitch(w["sch"].ctx, w["ct"].data[..., 1, :, :],
+                                            w["rk"], 4)],
+    "keyswitch_l1": lambda w: [ev.keyswitch(w["sch"].ctx, w["ct"].data[..., 1, :1, :],
+                                            w["rk"], 1)],
     "re_encrypt_l3": lambda w: [ev.re_encrypt(w["sch"].ctx, ev.level_reduce(
         w["sch"].ctx, w["ct"], 3), w["rk"]).data],
     "relinearize": lambda w: [ev.mult(w["sch"].ctx, w["ct"], w["ct"], w["relin"]).data],
@@ -168,6 +173,8 @@ PATHS = {
                                                            w["rots"]).data],
     "re_encrypt_sharded": lambda w: _sharded(w, lambda s: [
         ss.re_encrypt_sharded(s, w["ct"], w["rk"]).data]),
+    "rotate_sharded": lambda w: _sharded(w, lambda s: [
+        ss.rotate_sharded(s, w["ct"], 1, w["rots"][1]).data]),
     "rotate_hoisted_sharded": lambda w: _sharded(w, lambda s: [
         o.data for o in ss.rotate_hoisted_sharded(s, w["ct"], [1, 2], w["rots"])]),
 }
@@ -179,6 +186,152 @@ def test_paths_equal_the_old_assembly(world, monkeypatch, path):
         got = PATHS[path](world)
         monkeypatch.setattr(ev, "keyswitch_digits", _old_keyswitch_digits)
         want = PATHS[path](world)
+    assert len(got) == len(want)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _old_keyswitch_ip(ctx, digits, ksk, nlimbs):
+    """The inner product as it was returned: kernel 3's pair cut into a
+    tuple of two views."""
+    ksk = ev.ksk_to_mont(ctx, ksk)
+    sel_ext = tuple(ctx.q_idx(nlimbs)) + ctx.p_idx()
+    q, qinv, _ = ctx.limb_consts(sel_ext, digits.device)
+    acc = ev.ks_inner_product(digits, ksk.data, torch.tensor(sel_ext), q, qinv)
+    return acc[..., 0, :, :], acc[..., 1, :, :]
+
+
+def _old_mod_down(ctx, acc0, acc1, nlimbs):
+    """ModDown as it was fed: both components stacked on a new front axis,
+    the result cut back into (d0, d1)."""
+    both = ev._mod_down(ctx, torch.stack([acc0, acc1]), nlimbs)
+    return both[0], both[1]
+
+
+def _old_keyswitch_apply(ctx, digits, ksk, nlimbs):
+    return _old_mod_down(ctx, *_old_keyswitch_ip(ctx, digits, ksk, nlimbs), nlimbs)
+
+
+def _old_keyswitch(ctx, c_eval, ksk, nlimbs):
+    return _old_keyswitch_apply(ctx, ev.keyswitch_digits(ctx, c_eval, nlimbs), ksk, nlimbs)
+
+
+def _old_with_c0(ctx, c0, d0, d1):
+    """Each caller's epilogue as it was: c0 + d0, then the pair restacked."""
+    q, _, _ = ctx.limb_consts(ctx.q_idx(d0.shape[-2]), d0.device)
+    return torch.stack([modadd(c0, d0, q), d1], dim=-3)
+
+
+def _old_rotated(ctx, data, g, key):
+    both = ev.automorphism(ctx, data, g)
+    return _old_with_c0(ctx, both[..., 0, :, :],
+                        *_old_keyswitch(ctx, both[..., 1, :, :], key, data.shape[-2]))
+
+
+def _old_relinearized(ctx, ct, key):
+    """ct × ct, its c2 key-switched, each half of the pair added on its
+    own, the two restacked, then the rescale."""
+    ct3 = ev.mult(ctx, ct, ct, None, rescale_after=False)
+    l, d = ct3.nlimbs, ct3.data
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), d.device)
+    d0, d1 = _old_keyswitch(ctx, d[..., 2, :, :], key, l)
+    out = torch.stack([modadd(d[..., 0, :, :], d0, q), modadd(d[..., 1, :, :], d1, q)], dim=-3)
+    return ev.rescale(ctx, Ciphertext(out, ct3.scale)).data
+
+
+def _old_hoisted(ctx, ct, rotations, keys):
+    stacked, shape = ev._hoisted_stack(ctx, ct)
+    out = []
+    for r in rotations:
+        dig, c0p = ev._split_rows(ev.automorphism(ctx, stacked, ev.rot_to_galois(r, N)), shape)
+        out.append(_old_with_c0(ctx, c0p, *_old_keyswitch_apply(ctx, dig, keys[r], ct.nlimbs)))
+    return out
+
+
+def _old_sum_hoisted(ctx, ct, rotations, keys):
+    """The rotation sum as it was: the two halves of the inner products
+    and the permuted c0 accumulated apart, then stacked for ModDown."""
+    l = ct.nlimbs
+    q_ext, _, _ = ctx.limb_consts(tuple(ctx.q_idx(l)) + ctx.p_idx(), "cpu")
+    q, _, _ = ctx.limb_consts(ctx.q_idx(l), "cpu")
+    stacked, shape = ev._hoisted_stack(ctx, ct)
+    acc0 = acc1 = c0_acc = None
+    for r in rotations:
+        dig, c0p = ev._split_rows(ev.automorphism(ctx, stacked, ev.rot_to_galois(r, N)), shape)
+        t0, t1 = _old_keyswitch_ip(ctx, dig, keys[r], l)
+        if acc0 is None:
+            acc0, acc1, c0_acc = t0, t1, c0p
+        else:
+            acc0, acc1 = modadd(acc0, t0, q_ext), modadd(acc1, t1, q_ext)
+            c0_acc = modadd(c0_acc, c0p, q)
+    return _old_with_c0(ctx, c0_acc, *_old_mod_down(ctx, acc0, acc1, l))
+
+
+def _old_hoisted_sharded(s, ct, rotations, keys):
+    l = ct.nlimbs
+    digits = ss._gather_full(s, ev.keyswitch_digits(s, ct.data[..., 1, :, :], l))
+    c0 = ss._gather_full(s, ct.data[..., 0, :l, :])
+    out = []
+    for r in rotations:
+        g = ev.rot_to_galois(r, N)
+        d0, d1 = _old_keyswitch_apply(s, ss._perm_local(s, digits, g), keys[r], l)
+        out.append(_old_with_c0(s, ss._perm_local(s, c0, g), d0, d1))
+    return out
+
+
+def _old_rotated_sharded(s, data, g, key):
+    c0p, c1p = (ss._automorphism_local(s, data[..., i, :, :], g) for i in (0, 1))
+    return _old_with_c0(s, c0p, *_old_keyswitch(s, c1p, key, data.shape[-2]))
+
+
+OLD_PATHS = {
+    "keyswitch_l4": lambda w: [torch.stack(_old_keyswitch(
+        w["sch"].ctx, w["ct"].data[..., 1, :, :], w["rk"], 4), dim=-3)],
+    "keyswitch_l1": lambda w: [torch.stack(_old_keyswitch(
+        w["sch"].ctx, w["ct"].data[..., 1, :1, :], w["rk"], 1), dim=-3)],
+    "re_encrypt_l3": lambda w: [_old_with_c0(w["sch"].ctx, w["ct"].data[..., 0, :3, :],
+                                             *_old_keyswitch(w["sch"].ctx,
+                                                             w["ct"].data[..., 1, :3, :],
+                                                             w["rk"], 3))],
+    "relinearize": lambda w: [_old_relinearized(w["sch"].ctx, w["ct"], w["relin"])],
+    "rotate": lambda w: [_old_rotated(w["sch"].ctx, w["ct"].data, ev.rot_to_galois(1, N),
+                                      w["rots"][1])],
+    "conjugate": lambda w: [_old_rotated(w["sch"].ctx, w["ct"].data, 2 * N - 1, w["conj"])],
+    "rotate_hoisted": lambda w: _old_hoisted(w["sch"].ctx, w["ct"], [1, 2], w["rots"]),
+    "rotate_sum_hoisted": lambda w: [_old_sum_hoisted(w["sch"].ctx, w["ct"], [1, 2], w["rots"])],
+    "re_encrypt_sharded": lambda w: _sharded(w, lambda s: [_old_with_c0(
+        s, w["ct"].data[..., 0, :, :], *_old_keyswitch(s, w["ct"].data[..., 1, :, :],
+                                                       w["rk"], 4))]),
+    "rotate_sharded": lambda w: _sharded(w, lambda s: [_old_rotated_sharded(
+        s, w["ct"].data, ev.rot_to_galois(1, N), w["rots"][1])]),
+    "rotate_hoisted_sharded": lambda w: _sharded(w, lambda s: _old_hoisted_sharded(
+        s, w["ct"], [1, 2], w["rots"])),
+}
+
+
+@pytest.mark.parametrize("path", list(PATHS))
+def test_mod_down_takes_kernel_3s_pair_as_is(world, monkeypatch, path):
+    """ModDown receives the very tensor kernel 3's wrapper returned (the
+    rotation sum: the accumulator of those tensors, (..., 2, l + K, n)),
+    and every path's output equals the epilogue it replaced: the pair cut
+    into two views, stacked for ModDown, cut again, c0 added and the
+    components restacked."""
+    inner, mod_down, add = ev.ks_inner_product, ev._mod_down, ev.modadd
+    pairs, fed, sums = [], [], []
+    monkeypatch.setattr(ev, "ks_inner_product", lambda *a: pairs.append(inner(*a)) or pairs[-1])
+    monkeypatch.setattr(ev, "_mod_down", lambda c, x, l: fed.append(x) or mod_down(c, x, l))
+    monkeypatch.setattr(ev, "modadd", lambda *a: sums.append(add(*a)) or sums[-1])
+    with graphs.eager():
+        got = PATHS[path](world)
+    monkeypatch.undo()
+    assert pairs and fed
+    if path == "rotate_sum_hoisted":
+        lk = len(world["sch"].ctx.moduli_qp)
+        assert len(fed) == 1 and fed[0].shape == (3, 2, lk, N)
+        assert any(fed[0] is s for s in sums)
+    else:
+        assert len(fed) == len(pairs) and all(x is p for x, p in zip(fed, pairs))
+    with graphs.eager():
+        want = OLD_PATHS[path](world)
     assert len(got) == len(want)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 

@@ -113,10 +113,10 @@ def test_keyswitch_matches_reference(contexts, nlimbs):
     pkey = ev.ksk_to_mont(ctx, convert.keyswitch_key(key, device="cpu"))
     np.testing.assert_array_equal(convert.residues_np(pkey.data), np.asarray(jkey.data))
     one = jax.jit(lambda ci: jnp.stack(jev.keyswitch(jctx, ci, jkey, nlimbs)))
-    want = np.stack([np.asarray(one(jnp.asarray(ci))) for ci in c], axis=1)   # (2, B, l, N)
-    d0, d1 = ev.keyswitch(ctx, convert.residues(c, "cpu"), pkey, nlimbs)
-    np.testing.assert_array_equal(convert.residues_np(d0), want[0])
-    np.testing.assert_array_equal(convert.residues_np(d1), want[1])
+    want = np.stack([np.asarray(one(jnp.asarray(ci))) for ci in c])   # (B, 2, l, N)
+    pair = ev.keyswitch(ctx, convert.residues(c, "cpu"), pkey, nlimbs)
+    assert pair.shape == (2, 2, nlimbs, ctx.params.n)
+    np.testing.assert_array_equal(convert.residues_np(pair), want)
 
 
 @pytest.mark.parametrize("nlimbs", [3, 2, 1], ids=["two_digits", "one_digit_l2", "one_digit_l1"])
@@ -136,13 +136,13 @@ def test_keyswitch_ip_goes_through_kernel_3_wrapper(contexts, monkeypatch, nlimb
     c = convert.residues(_residues(mq[:nlimbs], (2,), seed=50 + nlimbs), "cpu")
     key = ev.ksk_to_mont(ctx, convert.keyswitch_key(_residues(mq, (2, 2), seed=51), device="cpu"))
     digits = ev.keyswitch_digits(ctx, c, nlimbs)
-    acc0, acc1 = ev.keyswitch_ip(ctx, digits, key, nlimbs)
+    acc = ev.keyswitch_ip(ctx, digits, key, nlimbs)
     nd = digits.shape[-3]
     assert calls == [nd] and nd == (2 if nlimbs == 3 else 1)
     sel_ext = tuple(ctx.q_idx(nlimbs)) + ctx.p_idx()
     q, qinv, _ = ctx.limb_consts(sel_ext, "cpu")
     want = ks_inner_product_plain(digits, key.data, torch.as_tensor(sel_ext), q, qinv)
-    assert torch.equal(acc0, want[..., 0, :, :]) and torch.equal(acc1, want[..., 1, :, :])
+    assert acc.shape == (2, 2, len(sel_ext), ctx.params.n) and torch.equal(acc, want)
 
 
 def test_mult_scalar_rescale_matches_reference(contexts):
